@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of the JAX package ``repro`` (first slice: the
+``IterativeGP`` fit → predict path on CG).
+
+It imports ``torch``, never ``jax``, and nothing of ``repro``; only the parity
+tests import both. Entry points run on the card unless the caller passes
+``device="cpu"`` (see ``repro_torch.device.resolve_device``).
+"""

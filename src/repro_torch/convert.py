@@ -1,0 +1,53 @@
+"""Carry the JAX package's state across, as numpy arrays, into the port's objects.
+
+The parity tests pull these arrays out of ``repro`` objects; the port itself
+never sees JAX. Every function takes the target ``device`` (the card unless
+``device="cpu"``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.kernels_fn import KernelParams
+from .core.pathwise import PosteriorFunctions
+from .core.rff import FourierFeatures, PriorSamples
+from .device import DeviceLike, resolve_device
+
+
+def _t(a, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+
+def params_from_numpy(log_lengthscale, log_signal, log_noise, kind: str, *,
+                      device: DeviceLike = None) -> KernelParams:
+    dev = resolve_device(device)
+    return KernelParams(
+        log_lengthscale=_t(log_lengthscale, dev), log_signal=_t(log_signal, dev),
+        log_noise=_t(log_noise, dev), kind=kind,
+    )
+
+
+def features_from_numpy(omega, phase, signal, *,
+                        device: DeviceLike = None) -> FourierFeatures:
+    dev = resolve_device(device)
+    return FourierFeatures(omega=_t(omega, dev), phase=_t(phase, dev),
+                           signal=_t(signal, dev))
+
+
+def prior_from_numpy(omega, w, signal, *, device: DeviceLike = None) -> PriorSamples:
+    dev = resolve_device(device)
+    omega = _t(omega, dev)
+    ff = FourierFeatures(omega=omega, phase=torch.zeros_like(omega[:, 0]),
+                         signal=_t(signal, dev))
+    return PriorSamples(ff=ff, w=_t(w, dev))
+
+
+def posterior_from_numpy(params: KernelParams, x, v_mean, alpha,
+                         prior: PriorSamples, *,
+                         device: DeviceLike = None) -> PosteriorFunctions:
+    """A posterior from its representer weights ``v_mean`` (n,), ``alpha``
+    (n, s), training inputs ``x`` (n, d) and the prior it was conditioned on."""
+    dev = resolve_device(device)
+    return PosteriorFunctions(params=params, x=_t(x, dev), prior=prior,
+                              v_mean=_t(v_mean, dev), alpha=_t(alpha, dev))

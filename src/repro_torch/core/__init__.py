@@ -1,0 +1,16 @@
+"""The GP core of the port: covariance functions, operators, CG, random
+features, pathwise conditioning and the ``IterativeGP`` façade."""
+from .api import IterativeGP
+from .gp import exact_posterior
+from .kernels_fn import KernelParams, gram, gram_diag, make_params, matvec, spectral_sample
+from .operators import Gram
+from .pathwise import PosteriorFunctions, posterior_functions
+from .rff import FourierFeatures, PriorSamples, make_fourier_features, sample_prior
+from .solvers import CG, SolveResult, solve, solve_cg
+
+__all__ = [
+    "CG", "FourierFeatures", "Gram", "IterativeGP", "KernelParams",
+    "PosteriorFunctions", "PriorSamples", "SolveResult", "exact_posterior", "gram",
+    "gram_diag", "make_fourier_features", "make_params", "matvec",
+    "posterior_functions", "sample_prior", "solve", "solve_cg", "spectral_sample",
+]

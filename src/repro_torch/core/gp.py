@@ -1,0 +1,47 @@
+"""Exact GP regression (§2.1.1–2.1.2) — the O(n³) oracle, twin of
+``repro/core/gp.py``.
+
+Ground truth for the iterative path in tests and in ``chip_smoke.py``; never
+used at scale. K + σ²I is assembled in row chunks so that the oracle fits on
+the card at the sizes the smoke checks (its temporaries stay one chunk wide).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .kernels_fn import KernelParams, gram
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactPosterior:
+    params: KernelParams
+    x: torch.Tensor
+    y: torch.Tensor
+    chol: torch.Tensor  # cholesky(K + σ²I), lower
+    weights: torch.Tensor  # (K+σ²I)⁻¹ y
+
+    def mean(self, xs: torch.Tensor) -> torch.Tensor:
+        return gram(self.params, xs, self.x) @ self.weights
+
+    def cov(self, xs: torch.Tensor) -> torch.Tensor:
+        kxs = gram(self.params, self.x, xs)
+        sol = torch.cholesky_solve(kxs, self.chol)
+        return gram(self.params, xs) - kxs.T @ sol
+
+    def var(self, xs: torch.Tensor) -> torch.Tensor:
+        return torch.diagonal(self.cov(xs))
+
+
+def exact_posterior(params: KernelParams, x: torch.Tensor, y: torch.Tensor,
+                    row_chunk: int = 4096) -> ExactPosterior:
+    n = x.shape[0]
+    a = torch.empty((n, n), dtype=x.dtype, device=x.device)
+    for i in range(0, n, row_chunk):
+        a[i:i + row_chunk] = gram(params, x[i:i + row_chunk], x)
+    a.diagonal().add_(params.noise)
+    chol = torch.linalg.cholesky(a)
+    del a
+    w = torch.cholesky_solve(y[:, None], chol)[:, 0]
+    return ExactPosterior(params=params, x=x, y=y, chol=chol, weights=w)

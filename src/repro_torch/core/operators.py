@@ -1,0 +1,165 @@
+"""The ``LinearOperator`` protocol and its feature-side twin ``FeatureOperator``
+— the single-device part of ``repro/core/operators.py``.
+
+Every expensive GP computation reduces to solving (K + σ²I) V = B against a
+positive-definite matrix touched only through matvecs. The protocol (see
+:class:`LinearOperator`) requires ``shape``, ``mv(v)``, ``diag_part()`` and
+``noise``; optional capabilities (row blocks, preconditioner factors) are
+declared by defining the method, and ``require_capabilities`` refuses a
+consumer that needs one the operator lacks. This slice ports :class:`Gram`,
+which offers none of them yet: the stochastic solvers and preconditioners that
+consume them are not ported (ROADMAP queue 1 items 4, 5 and 8).
+
+Pathwise conditioning writes every posterior sample as f(·) + K(·, X) w with the
+prior f a feature expansion Φ(·) w; :class:`FeatureOperator` is its protocol,
+implemented by ``FourierFeatures`` / ``PriorSamples`` (core/rff.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.ops import gram_mv
+from .kernels_fn import KernelParams, gram, gram_diag
+
+#: Capabilities beyond the required ``mv``/``shape``/``diag_part``/``noise``.
+OPTIONAL_CAPABILITIES = (
+    "rows_mv", "rows_t_mv", "rows_pair_mv", "block_at", "precond_factor"
+)
+
+#: FeatureOperator capabilities beyond ``phi_mv``/``num_features``/``shape``.
+OPTIONAL_FEATURE_CAPABILITIES = ("features",)
+
+
+def supports(op, *caps: str) -> bool:
+    """True iff ``op`` provides every named capability (method or attribute)."""
+    return all(hasattr(op, c) for c in caps)
+
+
+def capabilities(op, optional: tuple = OPTIONAL_CAPABILITIES) -> tuple:
+    """The optional capabilities ``op`` provides (for error messages)."""
+    return tuple(c for c in optional if supports(op, c))
+
+
+def require_capabilities(op, caps, *, consumer: str) -> None:
+    """Raise a clear ``TypeError`` if ``op`` lacks any of ``caps``."""
+    missing = tuple(c for c in caps if not supports(op, c))
+    if missing:
+        feature_side = all(c in OPTIONAL_FEATURE_CAPABILITIES for c in missing)
+        have = capabilities(
+            op, OPTIONAL_FEATURE_CAPABILITIES if feature_side else OPTIONAL_CAPABILITIES
+        )
+        raise TypeError(
+            f"{consumer} needs operator capabilities {missing} that "
+            f"{type(op).__name__} does not provide (optional capabilities it "
+            f"has: {have or '()'})."
+        )
+
+
+class LinearOperator:
+    """Protocol base for the square operators ``solve()`` accepts: ``shape``,
+    ``mv``, ``diag_part`` and ``noise`` are required; optional capabilities
+    are declared by defining the method."""
+
+    @property
+    def shape(self) -> tuple:
+        raise NotImplementedError(f"{type(self).__name__} must define shape")
+
+    @property
+    def noise(self) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} must define noise")
+
+    def mv(self, v: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} must define mv")
+
+    def diag_part(self) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} must define diag_part")
+
+
+class FeatureOperator:
+    """Protocol base for feature maps Φ into ``num_features`` dimensions,
+    touched only through ``phi_mv(x, w)`` = Φ(x) @ w. The transpose
+    ``phi_t_mv`` needs the Φᵀu kernel, which is not ported yet."""
+
+    @property
+    def num_features(self) -> int:
+        raise NotImplementedError(f"{type(self).__name__} must define num_features")
+
+    @property
+    def shape(self) -> tuple:
+        return (None, self.num_features)
+
+    def phi_mv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} must define phi_mv")
+
+    def phi_t_mv(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("phi_t_mv (rff_t_matvec): ROADMAP queue 2 item 3")
+
+
+# ---------------------------------------------------------------------------
+# Matvec counters of instrumented operators (``instrument=True``): one per
+# executed matvec. The loops run on the host, so no callback is needed.
+# ---------------------------------------------------------------------------
+
+_RUNTIME_COUNTS = {"mv": 0, "rows": 0}
+
+
+def reset_matvec_counts() -> None:
+    for k in _RUNTIME_COUNTS:
+        _RUNTIME_COUNTS[k] = 0
+
+
+def matvec_counts() -> dict:
+    """{"mv": full operator matvecs, "rows": row-block matvecs} executed by
+    instrumented operators since the last reset."""
+    return dict(_RUNTIME_COUNTS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Gram(LinearOperator):
+    """The linear operator A = K(X,X) + σ² I, touched only through matvecs.
+
+    ``backend`` selects the matvec implementation (see kernels/ops.py):
+    ``"auto"`` (the CUDA kernel on the card, chunked on the CPU), ``"cuda"``,
+    ``"chunked"`` or ``"dense"``; a solver spec can pin it per solve.
+    ``instrument=True`` counts executed matvecs in ``matvec_counts()``.
+    """
+
+    x: torch.Tensor  # (n, d) training inputs
+    params: KernelParams
+    row_chunk: int = 2048
+    backend: str = "auto"
+    precision: str = "fp32"
+    instrument: bool = False
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return (self.n, self.n)
+
+    @property
+    def noise(self) -> torch.Tensor:
+        return self.params.noise
+
+    def mv(self, v: torch.Tensor) -> torch.Tensor:
+        """(K + σ²I) @ v without materialising K. v: (n,) or (n, s)."""
+        out = gram_mv(
+            self.params, self.x, v, jitter=self.noise, backend=self.backend,
+            row_chunk=self.row_chunk, precision=self.precision,
+        )
+        if self.instrument:
+            _RUNTIME_COUNTS["mv"] += 1
+        return out
+
+    def diag_part(self) -> torch.Tensor:
+        """diag(K + σ²I) — (n,)."""
+        return gram_diag(self.params, self.x) + self.noise
+
+    def dense(self) -> torch.Tensor:
+        """Materialised K + σ²I (tests / small-n reference only)."""
+        eye = torch.eye(self.n, dtype=self.x.dtype, device=self.x.device)
+        return gram(self.params, self.x) + self.noise * eye

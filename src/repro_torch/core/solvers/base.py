@@ -1,0 +1,107 @@
+"""Shared iterative-solver infrastructure (§2.2.4) — twin of
+``repro/core/solvers/base.py``.
+
+Solvers consume the :class:`~repro_torch.core.operators.LinearOperator`
+protocol and return a :class:`SolveResult` that reports how many full operator
+matvecs they spent and per-column diagnostic flags.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..operators import LinearOperator
+
+#: non-finite residual/iterate/payload detected (NaN or Inf)
+FLAG_NONFINITE = 1
+#: CG breakdown: pᵀAp ≤ 0 on an active column (loss of positive-definiteness)
+FLAG_BREAKDOWN = 2
+#: relative residual stopped improving over the solver's stall window
+#: (advisory — the column keeps iterating and may still converge)
+FLAG_STAGNATION = 4
+
+#: flags that freeze a column: its updates are zeroed inside the loop so it
+#: cannot contaminate the shared multi-RHS matvec (stagnation does not freeze)
+FROZEN_FLAGS = FLAG_NONFINITE | FLAG_BREAKDOWN
+
+_FLAG_NAMES = (
+    (FLAG_NONFINITE, "nonfinite"),
+    (FLAG_BREAKDOWN, "breakdown"),
+    (FLAG_STAGNATION, "stagnation"),
+)
+
+
+def flag_names(mask: int) -> tuple:
+    """Human-readable names for a single column's flag bitmask."""
+    return tuple(name for bit, name in _FLAG_NAMES if int(mask) & bit)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    solution: torch.Tensor  # (n, s)
+    residual_norm: torch.Tensor  # (s,) final ||A v − b||₂ per RHS
+    rel_residual: torch.Tensor  # (s,) ||A v − b|| / ||b||
+    iterations: int  # iterations executed
+    converged: bool  # all RHS under tolerance AND flag-free
+    matvecs: int = 0  # full operator matvecs spent
+    flags: Optional[torch.Tensor] = None  # (s,) int32 per-column FLAG_* bitmask
+
+    @property
+    def healthy(self) -> bool:
+        """No column carries a freezing flag (nonfinite/breakdown)."""
+        return self.flags is None or not bool(torch.any((self.flags & FROZEN_FLAGS) != 0))
+
+
+def as_matrix_rhs(b: torch.Tensor) -> tuple:
+    if b.ndim == 1:
+        return b[:, None], True
+    return b, False
+
+
+def finalize(
+    op: LinearOperator,
+    v: torch.Tensor,
+    b: torch.Tensor,
+    iterations: int,
+    squeeze: bool,
+    *,
+    tol: float,
+    residual: Optional[torch.Tensor] = None,
+    matvecs: int = 0,
+    flags: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Residual bookkeeping shared by all solvers. ``tol`` is the solver's own
+    relative-residual tolerance.
+
+    Solvers that track the residual pass it as ``residual`` and skip a full
+    matvec; otherwise it is recomputed and ``matvecs`` grows by one. On top of
+    the solver's ``flags`` this adds the final payload check — a non-finite
+    solution or residual column gets ``FLAG_NONFINITE`` — and clears the
+    advisory stagnation flag of columns that reached the tolerance. Any flag
+    forces ``converged=False``.
+    """
+    if residual is None:
+        residual = b - op.mv(v)
+        matvecs = matvecs + 1
+    rn = torch.linalg.norm(residual, dim=0)
+    bn = torch.clamp(torch.linalg.norm(b, dim=0), min=1e-30)
+    rel = rn / bn
+    col_ok = torch.all(torch.isfinite(v), dim=0) & torch.isfinite(rn)
+    f = (
+        torch.zeros(rn.shape, dtype=torch.int32, device=rn.device)
+        if flags is None
+        else flags.to(torch.int32)
+    )
+    f = f | torch.where(col_ok, 0, FLAG_NONFINITE).to(torch.int32)
+    f = torch.where((rel <= tol) & col_ok, f & ~FLAG_STAGNATION, f)
+    return SolveResult(
+        solution=v[:, 0] if squeeze else v,
+        residual_norm=rn,
+        rel_residual=rel,
+        iterations=int(iterations),
+        converged=bool(torch.all((rel <= tol) & (f == 0))),
+        matvecs=int(matvecs),
+        flags=f,
+    )

@@ -1,0 +1,171 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``.cu`` under ``kernels/csrc/`` is compiled for ``sm_90a`` by ONE ``nvcc``
+call into one shared library with a plain C interface, at first use, into
+``build/repro_torch_kernels/`` at the root of the checkout. The library's name
+carries a hash of the sources and flags, so a stale build is never loaded. A
+failed build raises; there is no fallback.
+
+Nothing here runs at import: the CPU tests import every module, and there is no
+``nvcc`` where they run.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of every kernel
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> argument types. The launchers return the launch's
+#: ``cudaError_t`` as an int.
+SIGNATURES = {
+    # x, z, v, out, n, m, d, s, kind, stream
+    "repro_gram_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, omega, w, out, n, m, d, s, stream
+    "repro_rff_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # d, s -> dynamic shared memory per CTA in bytes
+    "repro_gram_matvec_smem_bytes": (_I, _I),
+    "repro_rff_matvec_smem_bytes": (_I, _I),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # wall time of the nvcc call; 0.0 when a build was reused
+    log: str  # nvcc's output, including ``-Xptxas -v``
+    ptxas: tuple  # one dict per kernel: name, registers, spills, static smem
+
+
+_LIB: Optional[ctypes.CDLL] = None
+_INFO: Optional[BuildInfo] = None
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin): "
+        "the port's CUDA kernels are built from source at first use"
+    )
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN…18gram_matvec_kernelILi2ELi72EEEv…`` → ``gram_matvec_kernel<2,72>``."""
+    m = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def parse_ptxas(log: str) -> tuple:
+    """Per-kernel registers, spill bytes and static shared memory from
+    ``-Xptxas -v`` output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(name=_kernel_name(m.group(1)), registers=None,
+                       spill_stores=0, spill_loads=0, smem_static=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_static"] = int(m.group(1))
+    return tuple(out)
+
+
+def build(force: bool = False) -> BuildInfo:
+    """Compile every source under ``csrc/`` into one library (one nvcc call).
+
+    Reuses a library built from the same sources and flags unless ``force``.
+    Raises ``RuntimeError`` with nvcc's output if the build fails.
+    """
+    global _INFO
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    path = BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+    log_path = path.with_suffix(".log")
+    if path.exists() and log_path.exists() and not force:
+        log = log_path.read_text()
+        _INFO = BuildInfo(path=path, seconds=0.0, log=log, ptxas=parse_ptxas(log))
+        return _INFO
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: a concurrent build never loads
+    # a half-written library
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
+        )
+    log_path.write_text(log)
+    os.replace(tmp, path)
+    _INFO = BuildInfo(path=path, seconds=seconds, log=log, ptxas=parse_ptxas(log))
+    return _INFO
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    if _LIB is None:
+        info = _INFO or build()
+        lib = ctypes.CDLL(str(info.path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        text = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch ({text})")

@@ -1,0 +1,178 @@
+"""The port's matvec backend-selection layer, for Gram *and* feature-map (RFF)
+contractions — twin of ``repro/kernels/ops.py``.
+
+Every Gram matvec goes through :func:`gram_mv`, dispatching on ``backend``:
+
+* ``"cuda"``    — the fused CUDA kernel (``gram_matvec.py``): K never exists in
+  device memory. CPU tensors take the kernel's plain version, as the reference
+  runs Pallas in interpret mode off the TPU.
+* ``"chunked"`` — the plain row-chunked matvec (``core/kernels_fn.py``), any
+  kernel kind, autograd throughout.
+* ``"dense"``   — materialise K and multiply (small-n reference / tests).
+* ``"auto"``    — ``cuda`` for tensors on the card, ``chunked`` for CPU
+  tensors; always ``chunked`` for ``tanimoto``.
+
+Every feature matvec Φ(x) @ w goes through :func:`rff_mv`, on ``"cuda"``
+(fused, the (n, 2m) feature matrix never in device memory), ``"features"``
+(materialise Φ) or ``"auto"``; the Gram names ``chunked``/``dense`` coerce to
+``features``. ``"pallas"`` names the reference's TPU kernels and raises with a
+pointer to ``"cuda"``.
+
+σ_f², 1/ℓ and the jitter are applied here, outside the kernel cores, as in the
+reference (``ops.py:150-163,200-204,381`` there).
+
+``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
+backend dispatched (every call is eager in PyTorch), so a run can show that its
+hot path never took the plain backends.
+"""
+from __future__ import annotations
+
+import torch
+
+from .gram_matvec import CUDA_KINDS, gram_matvec
+from .rff_matvec import rff_matvec
+
+BACKENDS = ("auto", "cuda", "chunked", "dense")
+FEATURE_BACKENDS = ("auto", "cuda", "features")
+#: tile precisions the reference knows; only "fp32" is ported
+PRECISIONS = ("fp32", "bf16")
+
+MATVEC_TRACE_COUNTS = {"cuda": 0, "chunked": 0, "dense": 0}
+FEATURE_TRACE_COUNTS = {"cuda": 0, "features": 0}
+
+
+def reset_matvec_trace_counts() -> None:
+    for k in MATVEC_TRACE_COUNTS:
+        MATVEC_TRACE_COUNTS[k] = 0
+
+
+def reset_feature_trace_counts() -> None:
+    for k in FEATURE_TRACE_COUNTS:
+        FEATURE_TRACE_COUNTS[k] = 0
+
+
+def _no_pallas(backend: str) -> None:
+    if backend in ("pallas", "fused"):
+        raise ValueError(
+            f"backend {backend!r} names the reference's TPU kernels; the port's "
+            f"fused kernels are backend='cuda'"
+        )
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+    if precision == "bf16":
+        raise NotImplementedError(
+            "precision='bf16' is not ported yet: ROADMAP queue 1 item 8"
+        )
+
+
+def resolve_backend(backend: str, kind: str, device: torch.device) -> str:
+    """Normalise a Gram backend request for kernel ``kind`` on ``device``.
+
+    ``auto`` is ``cuda`` for tensors on the card and ``chunked`` otherwise, and
+    ``chunked`` for kinds the kernel cannot express (``tanimoto``). Asking for
+    ``cuda`` explicitly for such a kind is an error.
+    """
+    _no_pallas(backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if (device.type == "cuda" and kind in CUDA_KINDS) else "chunked"
+    if backend == "cuda" and kind not in CUDA_KINDS:
+        raise ValueError(
+            f"kernel kind {kind!r} is not supported by the fused CUDA backend "
+            f"(no distance-as-matmul form); supported kinds: {CUDA_KINDS}. "
+            f"Use backend='chunked', or backend='auto' to fall back automatically."
+        )
+    return backend
+
+
+def gram_mv(
+    params,
+    x: torch.Tensor,
+    v: torch.Tensor,
+    z=None,
+    *,
+    jitter=None,
+    backend: str = "auto",
+    row_chunk: int = 2048,
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """(σ_f² k(x, z) + jitter·I) @ v through the selected backend — THE Gram
+    matvec entry point. v: (m,) or (m, s). ``jitter`` (typically σ²) is added
+    as ``out + jitter·v``, only for the symmetric z-is-None case."""
+    from ..core.kernels_fn import gram, matvec  # deferred: core imports kernels
+
+    if jitter is not None and z is not None:
+        raise ValueError(
+            "jitter adds jitter·I, which only makes sense for the symmetric "
+            "K(x, x) operator — drop jitter for cross-Gram matvecs (z given)"
+        )
+    bk = resolve_backend(backend, params.kind, x.device)
+    check_precision(precision)
+    MATVEC_TRACE_COUNTS[bk] += 1
+    squeeze = v.ndim == 1
+    v2 = v[:, None] if squeeze else v
+    if bk == "cuda":
+        ls = params.lengthscale
+        xs = (x / ls).contiguous()
+        zs = xs if z is None else (z / ls).contiguous()
+        out = params.signal * gram_matvec(xs, zs, v2.contiguous(), kind=params.kind)
+    elif bk == "chunked":
+        out = matvec(params, x, v2, z=z, row_chunk=row_chunk)
+    else:
+        out = gram(params, x, z) @ v2
+    if jitter is not None:
+        out = out + jitter * v2
+    return out[:, 0] if squeeze else out
+
+
+def resolve_feature_backend(backend: str, device: torch.device) -> str:
+    """Normalise a feature-matvec backend request. The Gram names
+    ``chunked``/``dense`` coerce to ``features``, so a spec's single
+    ``backend`` field pins both sides of a solve."""
+    _no_pallas(backend)
+    if backend in ("chunked", "dense"):
+        backend = "features"
+    if backend not in FEATURE_BACKENDS:
+        raise ValueError(
+            f"unknown feature backend {backend!r}; expected one of "
+            f"{FEATURE_BACKENDS} (or a Gram backend name, coerced to 'features')"
+        )
+    if backend == "auto":
+        return "cuda" if device.type == "cuda" else "features"
+    return backend
+
+
+def materialised_features(x: torch.Tensor, omega: torch.Tensor, signal) -> torch.Tensor:
+    """Φ(x) = √(σ_f²/m)·[sin xΩᵀ | cos xΩᵀ] — (n, 2m)."""
+    m = omega.shape[0]
+    proj = x @ omega.T
+    return torch.sqrt(signal / m) * torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+
+
+def rff_mv(
+    x: torch.Tensor,
+    omega: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    signal=1.0,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Φ(x) @ w through the selected feature backend — THE feature matvec entry
+    point. x:(n,d) ω:(m,d) w:(2m,) or (2m,s) → (n, s-like)."""
+    bk = resolve_feature_backend(backend, x.device)
+    FEATURE_TRACE_COUNTS[bk] += 1
+    signal = torch.as_tensor(signal, dtype=x.dtype, device=x.device)
+    squeeze = w.ndim == 1
+    w2 = w[:, None] if squeeze else w
+    if bk == "cuda":
+        # the kernel carries √(1/m); σ_f² is folded in here, outside it
+        out = torch.sqrt(signal) * rff_matvec(
+            x.contiguous(), omega.contiguous(), w2.contiguous()
+        )
+    else:
+        out = materialised_features(x, omega, signal) @ w2
+    return out[:, 0] if squeeze else out

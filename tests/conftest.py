@@ -21,3 +21,9 @@ def toy_regression():
     v_star = jnp.linalg.solve(kmat, y)
     xt = jax.random.normal(jax.random.fold_in(key, 2), (64, d))
     return dict(x=x, y=y, params=params, kmat=kmat, v_star=v_star, x_test=xt, n=n, d=d)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (the port's CUDA kernels); skips without one"
+    )
