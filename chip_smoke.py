@@ -4,10 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version at the main path's shapes, runs the main path
-``IterativeGP(...).fit(x, y).predict(x_test)`` on the protein-shaped problem at
-full n through those kernels, checks its posterior mean against a Cholesky
-oracle, and runs one Gram matvec at 3droad's n, where K could not be held.
+against its plain PyTorch version at the paths' shapes, and drives both paths
+on the protein-shaped problem at full n through those kernels:
+
+* serving, ``IterativeGP(...).fit(x, y).predict(x_test)``, with its posterior
+  mean held against a Cholesky oracle;
+* training, ``IterativeGP(...).fit(x, y).optimize(...).predict(x_test)``, whose
+  MLL gradients run through the Gram backward kernel, with the exact MLL from
+  a float64 Cholesky before and after.
+
+The training path's θ-gradients are held against the plain autograd Function
+in float64 at a reduced n, and one Gram matvec runs at 3droad's n, where K could
+not be held.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its result lines. Without a CUDA device, or outside a checkout
@@ -33,8 +41,20 @@ PEAK_BYTES = 3.35e12
 
 KINDS = ("se", "matern12", "matern32", "matern52")
 #: the reference's own kernel tolerances (tests/test_kernels_pallas.py:23,57)
-GRAM_TOL, RFF_TOL = 2e-4, 1e-4
+#: and its fused-VJP tolerance (tests/test_kernels_pallas.py:131-134)
+GRAM_TOL, RFF_TOL, GRAD_TOL = 2e-4, 1e-4, 1e-4
 SEED = 0
+#: rows of a backward-kernel output checked against the float64 plain version
+CHECK_ROWS = 4096
+#: The training path: benchmarks/bench_mll.py:30-31's initial θ, steps, lr,
+#: probes and CG spec, on protein at full n. The gradient check runs at a
+#: reduced n, where the float64 plain Function is cheap.
+TRAIN_HYPERS = dict(lengthscale=2.0, signal=0.5, noise=0.5)
+TRAIN_STEPS, TRAIN_LR, TRAIN_PROBES, TRAIN_MAX_ITERS = 12, 0.08, 8, 600
+GRAD_N = 8192
+#: outer steps of the profiled training pass: the first, cold solve and two
+#: warm ones, to keep the profiler's trace (and its processing) short
+PROFILE_TRAIN_STEPS = 3
 #: The main path's solver: the tolerance of benchmarks/bench_solvers.py:83,
 #: with an iteration budget CG can reach it in at the full protein n. The
 #: bench's own budget of 150 iterations was set on a quarter of pol, elevators
@@ -43,8 +63,13 @@ SEED = 0
 MAIN_TOL, MAIN_MAX_ITERS, BENCH_MAX_ITERS = 1e-3, 1000, 150
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per result, stamped with the seconds since the start."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -68,11 +93,14 @@ def main() -> int:
     build_phase()
     kernels = kernels_phase(torch)
     main_path_phase(torch, kernels)
+    grad_phase(torch)
+    train_phase(torch, kernels)
     profile_phase(torch)
     large_n_phase(torch)
 
     print(smi)
-    print(json.dumps({"kernels": [kernels[k] for k in ("gram_matvec", "rff_matvec")]}))
+    print(json.dumps({"kernels": [kernels[k] for k in
+                                  ("gram_matvec", "gram_matvec_bwd", "rff_matvec")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -107,7 +135,7 @@ def build_phase() -> None:
 
     info = _build.build(force=True)
     emit("build", seconds=info.seconds, library=str(info.path.relative_to(ROOT)),
-         kernels=list(info.ptxas))
+         objects=list(info.objects), kernels=list(info.ptxas))
     check(len(info.ptxas) > 0, "ptxas reported the compiled kernels")
 
 
@@ -124,9 +152,22 @@ def _events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound_by(flops, nbytes) -> str:
+    """Which of the two floors sets a kernel's bound."""
+    return "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+
+
 def _gram_bound_ms(n, m, d, s):
     flops = n * m * (2 * d + 2 * s)
     nbytes = 4 * (n * d + m * d + m * s + n * s)
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
+
+
+def _gram_bwd_bound_ms(n, m, d, s):
+    """2d flops for the distance, 2s for rowv·colv and 2d for W z per pair;
+    x, z, rowv and colv read once, dx written once."""
+    flops = n * m * (4 * d + 2 * s)
+    nbytes = 4 * (n * d + m * d + n * s + m * s + n * d)
     return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
 
 
@@ -137,17 +178,19 @@ def _rff_bound_ms(n, m, d, s):
 
 
 def kernels_phase(torch) -> dict:
-    """Each kernel against its plain version, on the card, at the main path's
-    shapes. The kernel is compared with the plain version run in float64 on
+    """Each kernel against its plain version, on the card, at the shapes both
+    paths give it, the instances they run among them. The kernel is compared with the plain version run in float64 on
     the same fp32 inputs: the fp32 plain version rounds d² on the diagonal of
     K(x, x) to a few ulp instead of 0, which Matérn-1/2 turns into ~1e-3, an
     error of the yardstick and not of the kernel (its distance to the fp32 plain
     version is printed too). Times: kernel over 20 warm launches, plain over 3
-    calls, both by CUDA events."""
+    calls, both by CUDA events. The record of each kernel carries its line at
+    the training path's shape (the path whose launches it counts), and its
+    line on each path under ``by_path``."""
     from repro_torch.core.kernels_fn import make_params, spectral_sample
     from repro_torch.data.pipeline import regression_dataset
-    from repro_torch.kernels.gram_matvec import gram_matvec
-    from repro_torch.kernels.ref import gram_matvec_ref, rff_matvec_ref
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
+    from repro_torch.kernels.ref import gram_matvec_bwd_ref, gram_matvec_ref, rff_matvec_ref
     from repro_torch.kernels.rff_matvec import rff_matvec
 
     dev = torch.device("cuda")
@@ -158,11 +201,18 @@ def kernels_phase(torch) -> dict:
     x = torch.as_tensor(data["x"], device=dev)
     xt = torch.as_tensor(data["x_test"], device=dev)
     xs, xts = (x / ls).contiguous(), (xt / ls).contiguous()
+    # the training path's inputs at θ₀'s lengthscale
+    tls = TRAIN_HYPERS["lengthscale"]
+    xtr, xttr = (x / tls).contiguous(), (xt / tls).contiguous()
     rec = {
         "gram_matvec": dict(name="gram_matvec", route="cuda",
                             source="src/repro_torch/kernels/csrc/gram_matvec.cu",
                             replaces="src/repro/kernels/gram_matvec.py:154",
                             max_abs_err=0.0),
+        "gram_matvec_bwd": dict(name="gram_matvec_bwd", route="cuda",
+                                source="src/repro_torch/kernels/csrc/gram_matvec_bwd.cu",
+                                replaces="src/repro/kernels/gram_matvec.py:250",
+                                max_abs_err=0.0),
         "rff_matvec": dict(name="rff_matvec", route="cuda",
                            source="src/repro_torch/kernels/csrc/rff_matvec.cu",
                            replaces="src/repro/kernels/rff_matvec.py:78",
@@ -186,26 +236,75 @@ def kernels_phase(torch) -> dict:
                     smem_bytes=gram_matvec.smem_bytes(d, s),
                     ms=_events_ms(torch, lambda: gram_matvec(rows, cols, v, kind=kind), 20),
                     plain_ms=_events_ms(torch, lambda: gram_matvec_ref(rows, cols, v, kind=kind), 3),
-                    bound_ms=bound, flops=flops, bytes=nbytes)
+                    bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                    bytes=nbytes)
         emit("kernels", **line)
         check(err <= GRAM_TOL * scale, f"gram_matvec {label} {kind} s={s}: {err}")
         rec["gram_matvec"]["max_abs_err"] = max(rec["gram_matvec"]["max_abs_err"], err)
         return line
 
-    main_gram = None
+    paths = {"fit_predict": {}, "train": {}}  # each path's line of each kernel
     for kind in KINDS:
         for s in (1, 17, 65):
             line = gram_case(kind, xs, xs, s, "square")
-            if kind == "matern32" and s == 65:  # CG's call on the main path
-                main_gram = line
+            if kind == "matern32" and s == 65:  # CG's call on the serving path
+                paths["fit_predict"]["gram_matvec"] = line
         for s in (1, 64):  # the posterior mean and the samples at X*
             gram_case(kind, xts, xs, s, "cross")
+        # CG's call on the training path: y and the probes, 9 columns
+        line = gram_case(kind, xtr, xtr, 1 + TRAIN_PROBES, "square_train")
+        if kind == "matern32":
+            paths["train"]["gram_matvec"] = line
 
-    params = make_params("matern32", lengthscale=ls, d=d, device=dev)
-    omega = spectral_sample(params, 1024, d, generator=gen)  # 2,048 features
-    main_rff = None
-    for rows, label in ((x, "train"), (xt, "test")):
-        for s in (16, 64):
+    def bwd_case(kind, rows, cols, s, label):
+        # the first CHECK_ROWS rows against the plain version in float64; in
+        # the square case they hold their own diagonal entries, where the
+        # plain version's d² (from differences) is exactly 0 like the kernel's
+        rowv = torch.randn((rows.shape[0], s), generator=gen, device=dev)
+        colv = torch.randn((cols.shape[0], s), generator=gen, device=dev)
+        out = gram_matvec_bwd(rows, cols, rowv, colv, kind=kind)
+        ref64 = gram_matvec_bwd_ref(rows[:CHECK_ROWS].double(), cols.double(),
+                                    rowv[:CHECK_ROWS].double(), colv.double(), kind=kind,
+                                    row_chunk=256)
+        torch.cuda.synchronize()
+        err = (out[:CHECK_ROWS].double() - ref64).abs().max().item()
+        scale = max(1.0, ref64.abs().max().item())
+        n, m = rows.shape[0], cols.shape[0]
+        bound, flops, nbytes = _gram_bwd_bound_ms(n, m, d, s)
+        line = dict(kernel="gram_matvec_bwd", case=label, kind=kind, n=n, m=m, d=d, s=s,
+                    checked_rows=min(n, CHECK_ROWS), max_abs_err=err, tol=GRAD_TOL * scale,
+                    finite=bool(torch.isfinite(out).all()),
+                    smem_bytes=gram_matvec_bwd.smem_bytes(d, s),
+                    ms=_events_ms(torch, lambda: gram_matvec_bwd(rows, cols, rowv, colv,
+                                                                 kind=kind), 20),
+                    plain_ms=_events_ms(torch, lambda: gram_matvec_bwd_ref(
+                        rows, cols, rowv, colv, kind=kind), 3),
+                    bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                    bytes=nbytes)
+        emit("kernels", **line)
+        check(line["finite"], f"gram_matvec_bwd {label} {kind} s={s}: finite")
+        check(err <= GRAD_TOL * scale, f"gram_matvec_bwd {label} {kind} s={s}: {err}")
+        rec["gram_matvec_bwd"]["max_abs_err"] = max(rec["gram_matvec_bwd"]["max_abs_err"], err)
+        return line
+
+    for kind in KINDS:  # the backward runs on the training path alone
+        for s in (1, 8):  # the fit and the trace terms of the MLL gradient
+            line = bwd_case(kind, xtr, xtr, s, "square")
+            if kind == "matern32" and s == 8:  # the trace term on the training path
+                paths["train"]["gram_matvec_bwd"] = line
+            bwd_case(kind, xttr, xtr, s, "cross")  # ∂x* at the test points
+
+    def rff_omega(lengthscale, m):
+        params = make_params("matern32", lengthscale=lengthscale, d=d, device=dev)
+        return spectral_sample(params, m, d, generator=gen)
+
+    serve_omega = rff_omega(ls, 1024)  # 2,048 features
+    # the training path's prior f_X: mll_grad's 1,024 features at θ₀, 8 probes
+    train_omega = rff_omega(tls, 512)
+    for rows, omega, label, widths in ((x, serve_omega, "train", (16, 64)),
+                                       (xt, serve_omega, "test", (16, 64)),
+                                       (x, train_omega, "mll_prior", (TRAIN_PROBES,))):
+        for s in widths:
             w = torch.randn((2 * omega.shape[0], s), generator=gen, device=dev)
             out = rff_matvec(rows, omega, w)
             ref64 = rff_matvec_ref(rows.double(), omega.double(), w.double())
@@ -221,16 +320,23 @@ def kernels_phase(torch) -> dict:
                         smem_bytes=rff_matvec.smem_bytes(d, s),
                         ms=_events_ms(torch, lambda: rff_matvec(rows, omega, w), 20),
                         plain_ms=_events_ms(torch, lambda: rff_matvec_ref(rows, omega, w), 3),
-                        bound_ms=bound, flops=flops, bytes=nbytes)
+                        bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                        bytes=nbytes)
             emit("kernels", **line)
             check(err <= RFF_TOL * scale, f"rff_matvec {label} s={s}: {err}")
             rec["rff_matvec"]["max_abs_err"] = max(rec["rff_matvec"]["max_abs_err"], err)
-            if label == "train" and s == 64:  # f_X on the main path
-                main_rff = line
+            if label == "train" and s == 64:  # f_X on the serving path
+                paths["fit_predict"]["rff_matvec"] = line
+            if label == "mll_prior":  # f_X on the training path
+                paths["train"]["rff_matvec"] = line
 
-    for key, line in (("gram_matvec", main_gram), ("rff_matvec", main_rff)):
-        rec[key].update(ms=line["ms"], plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
-                        bound_by="operations", library_ms=None)
+    keep = ("s", "m", "ms", "plain_ms", "bound_ms", "bound_by")
+    for key in rec:
+        line = paths["train"][key]
+        rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        library_ms=None,
+                        by_path={p: {k: lines[key][k] for k in keep}
+                                 for p, lines in paths.items() if key in lines})
     return rec
 
 
@@ -240,7 +346,7 @@ def main_path_phase(torch, kernels: dict) -> None:
     from repro_torch.core import CG, IterativeGP, exact_posterior
     from repro_torch.data.pipeline import regression_dataset
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gram_matvec import gram_matvec
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
     from repro_torch.kernels.rff_matvec import rff_matvec
 
     data = regression_dataset("protein", seed=SEED)
@@ -255,12 +361,14 @@ def main_path_phase(torch, kernels: dict) -> None:
     ops.reset_matvec_trace_counts()
     ops.reset_feature_trace_counts()
     gram_matvec.launches = 0
+    gram_matvec_bwd.launches = 0
     rff_matvec.launches = 0
     t0 = time.perf_counter()
     mean, var = gp.fit(data["x"], data["y"]).predict(data["x_test"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gram_matvec": gram_matvec.launches, "rff_matvec": rff_matvec.launches}
+    launches = {"gram_matvec": gram_matvec.launches,
+                "gram_matvec_bwd": gram_matvec_bwd.launches, "rff_matvec": rff_matvec.launches}
     matvec_counts, feature_counts = dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS)
 
     info = gp.posterior(64).solve_info  # cached: no further launches
@@ -279,10 +387,11 @@ def main_path_phase(torch, kernels: dict) -> None:
     check(launches["gram_matvec"] == info.iterations + 2,
           f"Gram kernel launches {launches['gram_matvec']} == iterations + 2")
     check(launches["rff_matvec"] == 2, f"RFF kernel launches {launches['rff_matvec']} == 2")
+    check(launches["gram_matvec_bwd"] == 0, "serving takes no gradient")
     check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
     check(feature_counts["features"] == 0, "no materialised feature matrix")
     for k in kernels:
-        kernels[k]["launches"] = launches[k]
+        kernels[k]["by_path"].setdefault("fit_predict", {})["launches"] = launches[k]
 
     t0 = time.perf_counter()
     ep = exact_posterior(gp.params, gp.x, gp.y)
@@ -310,37 +419,229 @@ def main_path_phase(torch, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_phase(torch) -> None:
-    """The main path once more under ``torch.profiler``: device time by kernel
-    and the card's idle share of the wall time. Run after the counted pass so
-    that the profiler's overhead touches no other number."""
+def _test_metrics(torch, mean, var, y_test) -> tuple:
+    """Test RMSE and Gaussian NLL of a predictive mean and variance."""
+    rmse = torch.sqrt(torch.mean((mean - y_test) ** 2)).item()
+    v = torch.clamp(var, min=1e-6)
+    nll = torch.mean(0.5 * torch.log(2 * math.pi * v) + 0.5 * (y_test - mean) ** 2 / v).item()
+    return rmse, nll
+
+
+def grad_phase(torch) -> None:
+    """∇θ of the MLL estimator's quadratic forms (``mll._quad``: the fit term
+    at s = 1, the trace term at s = 8) through the kernels, against the same
+    forms through the plain autograd Function in float64 on the card, at
+    GRAD_N protein rows and θ₀ of the training path. u and w are held fixed:
+    the solutions v_y and α of one ``mll_grad`` there. The trace term's w
+    also requires grad, so dv runs the forward kernel on swapped operands."""
+    from repro_torch.core import CG, mll_grad
+    from repro_torch.core.kernels_fn import make_params, map_params
+    from repro_torch.core.mll import _quad
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, plain_gram_matvec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = regression_dataset("protein", seed=SEED)
+    x = torch.as_tensor(data["x"][:GRAD_N], device=dev)
+    y = torch.as_tensor(data["y"][:GRAD_N], device=dev)
+    n, d = x.shape
+
+    def plain_quad(p, x, u, w):  # mll._quad with the plain Function as the core
+        xs = x / p.lengthscale
+        kw = p.signal * plain_gram_matvec(xs, xs, w, kind=p.kind)
+        return torch.sum(u * kw, dim=0) + p.noise * torch.sum(u * w, dim=0)
+
+    for kind in KINDS:
+        params = make_params(kind, d=d, device=dev, **TRAIN_HYPERS)
+        est = mll_grad(params, x, y, generator=gen, num_probes=TRAIN_PROBES,
+                       spec=CG(max_iters=TRAIN_MAX_ITERS, tol=MAIN_TOL))
+        grads = {}
+        for route, dt in (("kernels", torch.float32), ("plain", torch.float64)):
+            p = map_params(lambda t: t.detach().to(dt).requires_grad_(), params)
+            xx, a, b = x.to(dt), est.v_y[:, None].to(dt), est.alpha.to(dt)
+            w = b.clone().requires_grad_()
+            before = (gram_matvec.launches, gram_matvec_bwd.launches)
+            if route == "kernels":
+                neg = (0.5 * _quad(p, xx, a, a, "cuda")[0]
+                       - 0.5 * torch.mean(_quad(p, xx, b, w, "cuda")))
+                g = torch.autograd.grad(neg, [p.log_lengthscale, p.log_signal, p.log_noise, w])
+                launched = (gram_matvec.launches - before[0],
+                            gram_matvec_bwd.launches - before[1])
+            else:
+                neg = 0.5 * plain_quad(p, xx, a, a)[0] - 0.5 * torch.mean(plain_quad(p, xx, b, w))
+                g = torch.autograd.grad(neg, [p.log_lengthscale, p.log_signal, p.log_noise, w])
+            grads[route] = dict(zip(("log_lengthscale", "log_signal", "log_noise", "dv"), g))
+        rel = {k: ((grads["kernels"][k].double() - grads["plain"][k]).norm()
+                   / grads["plain"][k].norm()).item() for k in grads["plain"]}
+        # the log_noise leaf runs through no kernel: it is ∝ ½ aᵀa − ½ mean bᵀb,
+        # and its fp32 error is that of the two sums times this ratio
+        fit_n = 0.5 * (a * a).sum()
+        tr_n = 0.5 * (b * b).sum(dim=0).mean()
+        cancel = ((fit_n.abs() + tr_n.abs()) / (fit_n - tr_n).abs()).item()
+        emit("grad", kind=kind, n=n, d=d, solve_iterations=est.solver_iterations,
+             rel_err=rel, tol=GRAD_TOL, log_noise_cancellation=cancel,
+             launches=dict(gram_matvec=launched[0], gram_matvec_bwd=launched[1]))
+        check(launched == (3, 4), f"2 forward + 1 dv Gram launches and 4 backward, got {launched}")
+        for k, e in rel.items():
+            check(e <= GRAD_TOL, f"grad {kind} {k}: relative error {e}")
+
+
+def train_phase(torch, kernels: dict) -> None:
+    """The slice's path at full protein n: ``fit → optimize → predict`` through
+    the kernels, with every launch count read just around it; θ₀'s own
+    fit → predict before it as the baseline, and the exact MLL at θ₀ and at
+    the optimised θ from a float64 Cholesky after it."""
+    from repro_torch.core import CG, IterativeGP, exact_mll, map_params
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
+    from repro_torch.kernels.rff_matvec import rff_matvec
+
+    data = regression_dataset("protein", seed=SEED)
+    spec = CG(max_iters=TRAIN_MAX_ITERS, tol=MAIN_TOL)
+    dev = torch.device("cuda")
+    y_test = torch.as_tensor(data["y_test"], device=dev)
+
+    base = IterativeGP("matern32", spec=spec, seed=SEED, **TRAIN_HYPERS)
+    t0 = time.perf_counter()
+    mean0, var0 = base.fit(data["x"], data["y"]).predict(data["x_test"])
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    rmse0, nll0 = _test_metrics(torch, mean0, var0, y_test)
+    base_info = base.posterior(64).solve_info
+    theta0 = base.params
+
+    gp = IterativeGP("matern32", spec=spec, seed=SEED, **TRAIN_HYPERS)
+    steps = []
+
+    def record(t, st):
+        info = st.last_solve
+        steps.append(dict(step=t, iterations=info.iterations, matvecs=info.matvecs,
+                          converged=info.converged, healthy=info.healthy,
+                          max_rel_residual=info.rel_residual.max().item()))
+
+    torch.cuda.synchronize()
+    ops.reset_matvec_trace_counts()
+    ops.reset_feature_trace_counts()
+    gram_matvec.launches = gram_matvec_bwd.launches = rff_matvec.launches = 0
+    t0 = time.perf_counter()
+    gp.fit(data["x"], data["y"]).optimize(num_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                                          num_probes=TRAIN_PROBES, callback=record)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mean, var = gp.predict(data["x_test"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"gram_matvec": gram_matvec.launches,
+                "gram_matvec_bwd": gram_matvec_bwd.launches, "rff_matvec": rff_matvec.launches}
+    matvec_counts, feature_counts = dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS)
+
+    info = gp.posterior(64).solve_info  # cached: no further launches
+    rmse, nll = _test_metrics(torch, mean, var, y_test)
+    n = int(data["n"])
+    x64 = torch.as_tensor(data["x"], device=dev, dtype=torch.float64)
+    y64 = torch.as_tensor(data["y"], device=dev, dtype=torch.float64)
+    t3 = time.perf_counter()
+    mll0 = exact_mll(map_params(torch.Tensor.double, theta0), x64, y64).item() / n
+    mll1 = exact_mll(map_params(torch.Tensor.double, gp.params), x64, y64).item() / n
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del x64, y64
+    torch.cuda.empty_cache()
+
+    def theta(p):
+        return dict(lengthscale=p.lengthscale.tolist(), signal=p.signal.item(),
+                    noise=p.noise.item())
+
+    step_matvecs = sum(st["matvecs"] for st in steps)
+    emit("train", n=n, d=int(data["d"]), n_test=int(mean.shape[0]), steps=steps,
+         total_solver_iters=gp.last_optim.total_solver_iters, optimize_s=t1 - t0,
+         predict_s=t2 - t1, predict_iterations=info.iterations,
+         predict_matvecs=info.matvecs, predict_converged=info.converged,
+         launches=launches, matvec_counts=matvec_counts, feature_counts=feature_counts,
+         theta_before=theta(theta0), theta_after=theta(gp.params),
+         exact_mll_per_n=dict(before=mll0, after=mll1), oracle_s=oracle_s,
+         max_memory_gb=peak_gb, rmse=rmse, nll=nll,
+         baseline=dict(rmse=rmse0, nll=nll0, fit_predict_s=base_s,
+                       iterations=base_info.iterations, converged=base_info.converged))
+    check(len(steps) == TRAIN_STEPS, f"{TRAIN_STEPS} outer steps, got {len(steps)}")
+    check(all(st["healthy"] for st in steps) and info.healthy and base_info.healthy,
+          "every solve is free of nonfinite/breakdown flags")
+    check(launches["gram_matvec_bwd"] == 4 * TRAIN_STEPS,
+          f"backward launches {launches['gram_matvec_bwd']} == 4 × {TRAIN_STEPS}")
+    want = step_matvecs + 2 * TRAIN_STEPS + info.matvecs + 2
+    check(launches["gram_matvec"] == want,
+          f"Gram launches {launches['gram_matvec']} == Σ step matvecs + 2 × steps + "
+          f"predict's matvecs + 2 = {want}")
+    check(launches["rff_matvec"] == TRAIN_STEPS + 2,
+          f"RFF launches {launches['rff_matvec']} == {TRAIN_STEPS} + 2")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
+    check(feature_counts["features"] == 0, "no materialised feature matrix")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "finite outputs")
+    check(mean.shape == var.shape == (1024,), f"outputs of shape (1024,), got {mean.shape}")
+    check(math.isfinite(mll1) and mll1 > mll0,
+          f"the exact MLL per n rises: {mll0} -> {mll1}")
+    for k in kernels:
+        kernels[k]["launches"] = launches[k]
+        kernels[k]["by_path"]["train"]["launches"] = launches[k]
+
+
+def _device_ms_by_kernel(prof) -> dict:
+    """Device time by kernel name from a profile, device-side events only: a
+    host op's device time repeats its kernels'."""
     from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    return by_name
+
+
+def profile_phase(torch) -> None:
+    """Both paths once more under ``torch.profiler``: device time by kernel and
+    the card's idle share of the wall time. Run after the counted passes so
+    that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import CG, IterativeGP
     from repro_torch.data.pipeline import regression_dataset
 
     data = regression_dataset("protein", seed=SEED)
-    gp = IterativeGP("matern32", spec=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL),
-                     lengthscale=math.sqrt(data["d"]) * 0.5, signal=1.0, noise=0.1,
-                     seed=SEED)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def fit_predict():
+        gp = IterativeGP("matern32", spec=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL),
+                         lengthscale=math.sqrt(data["d"]) * 0.5, signal=1.0, noise=0.1,
+                         seed=SEED)
         gp.fit(data["x"], data["y"]).predict(data["x_test"])
+        return gp.posterior(64).solve_info.iterations  # cached: no launch
+
+    def train():
+        gp = IterativeGP("matern32", spec=CG(max_iters=TRAIN_MAX_ITERS, tol=MAIN_TOL),
+                         seed=SEED, **TRAIN_HYPERS)
+        gp.fit(data["x"], data["y"]).optimize(num_steps=PROFILE_TRAIN_STEPS, lr=TRAIN_LR,
+                                              num_probes=TRAIN_PROBES)
+        return gp.last_optim.total_solver_iters
+
+    for path, run in (("fit_predict", fit_predict), ("train", train)):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}  # device-side events only: a host op's device time repeats its kernels'
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit("profile", wall_ms=wall * 1e3, device_ms=device_ms,
-         idle_share=1.0 - device_ms / (wall * 1e3),
-         iterations=gp.posterior(64).solve_info.iterations,
-         top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
-    check(0 < device_ms <= wall * 1e3, f"device time {device_ms} ms within the wall time")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            iterations = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_name = _device_ms_by_kernel(prof)
+        processing_s = time.perf_counter() - t0
+        device_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        emit("profile", path=path, wall_ms=wall * 1e3, device_ms=device_ms,
+             idle_share=1.0 - device_ms / (wall * 1e3), iterations=iterations,
+             processing_s=processing_s,
+             top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+        check(0 < device_ms <= wall * 1e3, f"device time {device_ms} ms within the wall time")
 
 
 def large_n_phase(torch) -> None:

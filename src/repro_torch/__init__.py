@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of the JAX package ``repro`` (first slice: the
-``IterativeGP`` fit → predict path on CG).
+"""PyTorch + CUDA port of the JAX package ``repro`` (so far: the
+``IterativeGP`` fit → optimize → predict path on CG).
 
 It imports ``torch``, never ``jax``, and nothing of ``repro``; only the parity
 tests import both. Entry points run on the card unless the caller passes

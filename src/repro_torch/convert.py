@@ -28,6 +28,14 @@ def params_from_numpy(log_lengthscale, log_signal, log_noise, kind: str, *,
     )
 
 
+def params_to_numpy(params: KernelParams) -> tuple:
+    """(log_lengthscale, log_signal, log_noise, kind) as numpy arrays and the
+    kind — what :func:`params_from_numpy` takes back."""
+    return (*(t.detach().cpu().numpy() for t in
+              (params.log_lengthscale, params.log_signal, params.log_noise)),
+            params.kind)
+
+
 def features_from_numpy(omega, phase, signal, *,
                         device: DeviceLike = None) -> FourierFeatures:
     dev = resolve_device(device)

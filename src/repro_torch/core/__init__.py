@@ -1,16 +1,22 @@
 """The GP core of the port: covariance functions, operators, CG, random
-features, pathwise conditioning and the ``IterativeGP`` façade."""
+features, pathwise conditioning, MLL optimisation and the ``IterativeGP``
+façade."""
 from .api import IterativeGP
-from .gp import exact_posterior
-from .kernels_fn import KernelParams, gram, gram_diag, make_params, matvec, spectral_sample
+from .gp import exact_mll, exact_posterior
+from .kernels_fn import (
+    KernelParams, gram, gram_diag, make_params, map_params, matvec, spectral_sample,
+)
+from .mll import MLLDraws, MLLGradEstimate, MLLOptimState, mll_grad, optimize_mll
 from .operators import Gram
 from .pathwise import PosteriorFunctions, posterior_functions
 from .rff import FourierFeatures, PriorSamples, make_fourier_features, sample_prior
 from .solvers import CG, SolveResult, solve, solve_cg
 
 __all__ = [
-    "CG", "FourierFeatures", "Gram", "IterativeGP", "KernelParams",
-    "PosteriorFunctions", "PriorSamples", "SolveResult", "exact_posterior", "gram",
-    "gram_diag", "make_fourier_features", "make_params", "matvec",
-    "posterior_functions", "sample_prior", "solve", "solve_cg", "spectral_sample",
+    "CG", "FourierFeatures", "Gram", "IterativeGP", "KernelParams", "MLLDraws",
+    "MLLGradEstimate", "MLLOptimState", "PosteriorFunctions", "PriorSamples",
+    "SolveResult", "exact_mll", "exact_posterior", "gram", "gram_diag",
+    "make_fourier_features", "make_params", "map_params", "matvec", "mll_grad",
+    "optimize_mll", "posterior_functions", "sample_prior", "solve", "solve_cg",
+    "spectral_sample",
 ]

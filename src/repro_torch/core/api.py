@@ -2,21 +2,24 @@
 ``repro/core/api.py``.
 
     gp = IterativeGP("matern32", lengthscale=0.5, noise=0.1, spec=CG(tol=1e-3))
-    mean, var = gp.fit(x, y).predict(x_new)
+    mean, var = gp.fit(x, y).optimize(num_steps=20).predict(x_new)
 
-``fit`` stores the data; ``predict`` runs ONE batched CG solve of
-(K+σ²I)V = [y | f_X + ε] and evaluates the pathwise-conditioned posterior at
-the new points. The model lives on the card unless ``device="cpu"`` is passed.
+``fit`` stores the data; ``optimize`` runs Adam ascent on the marginal
+likelihood with warm-started CG solves (core/mll.py); ``predict`` runs ONE
+batched CG solve of (K+σ²I)V = [y | f_X + ε] and evaluates the
+pathwise-conditioned posterior at the new points. The model lives on the card
+unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
 from .kernels_fn import KernelParams, make_params
+from .mll import MLLOptimState, optimize_mll
 from .pathwise import PosteriorFunctions, posterior_functions
 from .solvers.base import flag_names
 from .solvers.spec import SolverSpec, SpecLike, as_spec
@@ -52,6 +55,7 @@ class IterativeGP:
         self._gen = make_generator(seed, self.device)
         self._post: Optional[PosteriorFunctions] = None
         self._post_cache_key: Optional[tuple] = None
+        self.last_optim: Optional[MLLOptimState] = None
 
     def _require_fitted(self):
         if self.x is None:
@@ -76,11 +80,37 @@ class IterativeGP:
         self._post = None
         return self
 
-    def optimize(self, *args, **kwargs) -> "IterativeGP":
-        """MLL ascent needs the Gram backward kernel, which is not ported yet."""
-        raise NotImplementedError(
-            "IterativeGP.optimize (MLL ascent) is not ported yet: ROADMAP queue 1 item 7"
+    def optimize(
+        self,
+        num_steps: int = 20,
+        lr: float = 0.05,
+        *,
+        num_probes: int = 8,
+        warm_start: bool = True,
+        estimator: str = "pathwise",
+        generator: Optional[torch.Generator] = None,
+        callback: Optional[Callable[[int, MLLOptimState], None]] = None,
+    ) -> "IterativeGP":
+        """Adam ascent on the MLL with warm-started inner solves (Ch. 5).
+        ``callback(t, state)`` sees each step's state, its solve among it."""
+        self._require_fitted()
+        st = optimize_mll(
+            self.params,
+            self.x,
+            self.y,
+            generator=self._gen if generator is None else generator,
+            num_steps=num_steps,
+            lr=lr,
+            num_probes=num_probes,
+            warm_start=warm_start,
+            estimator=estimator,
+            spec=self.spec,
+            callback=callback,
         )
+        self.params = st.params
+        self.last_optim = st
+        self._post = None
+        return self
 
     def engine(self, *args, **kwargs):
         """The serving engine is not ported yet."""

@@ -28,9 +28,17 @@ KINDS = (SE, MATERN12, MATERN32, MATERN52, TANIMOTO)
 _MATERN_NU = {MATERN12: 0.5, MATERN32: 1.5, MATERN52: 2.5}
 
 
+#: the tensor fields of :class:`KernelParams` — the leaves of the reference's pytree
+PARAM_LEAVES = ("log_lengthscale", "log_signal", "log_noise")
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelParams:
-    """Unconstrained GP hyperparameters θ = {log lengthscales, log signal, log noise}."""
+    """Unconstrained GP hyperparameters θ = {log lengthscales, log signal, log noise}.
+
+    Frozen: an update is a new instance (:func:`map_params`,
+    ``dataclasses.replace``), and leaves may carry ``requires_grad``.
+    """
 
     log_lengthscale: torch.Tensor  # (d,) ARD or scalar ()
     log_signal: torch.Tensor  # ()
@@ -48,6 +56,15 @@ class KernelParams:
     @property
     def noise(self) -> torch.Tensor:  # noise variance σ²
         return torch.exp(2.0 * self.log_noise)
+
+
+def map_params(fn, params: KernelParams, *rest: KernelParams) -> KernelParams:
+    """``fn`` leaf by leaf over ``params`` and ``rest`` — the reference's
+    ``jax.tree.map`` over KernelParams; ``kind`` is kept."""
+    return dataclasses.replace(params, **{
+        name: fn(getattr(params, name), *(getattr(p, name) for p in rest))
+        for name in PARAM_LEAVES
+    })
 
 
 def make_params(
@@ -123,6 +140,15 @@ def _gamma_half_integer(nu: float, m: int, generator: Optional[torch.Generator],
     return 0.5 * torch.sum(z * z, dim=1, keepdim=True)
 
 
+def spectral_gammas(kind: str, m: int, *, generator: Optional[torch.Generator] = None,
+                    device=None) -> Optional[torch.Tensor]:
+    """The (m, 1) Gamma(ν, 1) draws behind a Matérn-ν spectral sample, None for
+    SE. Like the normals, they do not depend on θ."""
+    if kind not in _MATERN_NU:
+        return None
+    return _gamma_half_integer(_MATERN_NU[kind], m, generator, device)
+
+
 def spectral_sample(
     params: KernelParams,
     m: int,
@@ -137,7 +163,8 @@ def spectral_sample(
     SE ↔ N(0, I/ℓ²); Matérn-ν ↔ multivariate Student-t with 2ν dof, scaled by
     1/ℓ: ω = n / √(g/ν)/ℓ with n ~ N(0, I) (m, d) and g ~ Gamma(ν, 1) (m, 1).
     ``normals`` and ``gammas`` inject those draws (the reference's own, in the
-    parity tests) and override ``generator``.
+    parity tests, or draws held fixed while θ moves) and override ``generator``;
+    the result is rescaled by the current θ either way.
     """
     kind = params.kind
     dev = params.log_lengthscale.device

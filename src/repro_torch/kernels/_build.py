@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every ``.cu`` under ``kernels/csrc/`` is compiled for ``sm_90a`` by ONE ``nvcc``
-call into one shared library with a plain C interface, at first use, into
+Every ``.cu`` under ``kernels/csrc/`` is compiled for ``sm_90a`` into its own
+object, all ``nvcc`` processes at once, and the objects are linked once into
+one shared library with a plain C interface, at first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout. The library's name
 carries a hash of the sources and flags, so a stale build is never loaded. A
 failed build raises; there is no fallback.
@@ -19,17 +20,19 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of every kernel
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,10 +41,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, z, v, out, n, m, d, s, kind, stream
     "repro_gram_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, z, rowv, colv, out, n, m, d, s, kind, stream
+    "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, omega, w, out, n, m, d, s, stream
     "repro_rff_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # d, s -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I),
+    "repro_gram_matvec_bwd_smem_bytes": (_I, _I),
     "repro_rff_matvec_smem_bytes": (_I, _I),
 }
 
@@ -49,9 +55,10 @@ SIGNATURES = {
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: Path
-    seconds: float  # wall time of the nvcc call; 0.0 when a build was reused
+    seconds: float  # wall time of compiling and linking; 0.0 when reused
     log: str  # nvcc's output, including ``-Xptxas -v``
     ptxas: tuple  # one dict per kernel: name, registers, spills, static smem
+    objects: tuple = ()  # one dict per source: source, seconds of its nvcc
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -110,14 +117,30 @@ def parse_ptxas(log: str) -> tuple:
     return tuple(out)
 
 
+def _run(cmd: list) -> tuple:
+    """(returncode, output, seconds) of one command."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def _run_all(cmds: dict) -> dict:
+    """Run the commands {key: argv} at once; {key: (returncode, output, seconds)}.
+    Returns when every process has ended."""
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        futures = {k: pool.submit(_run, c) for k, c in cmds.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def build(force: bool = False) -> BuildInfo:
-    """Compile every source under ``csrc/`` into one library (one nvcc call).
+    """Compile every source under ``csrc/`` to its own object (one ``nvcc`` each,
+    all at once) and link them into one library.
 
     Reuses a library built from the same sources and flags unless ``force``.
     Raises ``RuntimeError`` with nvcc's output if the build fails.
     """
     global _INFO
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -127,24 +150,40 @@ def build(force: bool = False) -> BuildInfo:
         log = log_path.read_text()
         _INFO = BuildInfo(path=path, seconds=0.0, log=log, ptxas=parse_ptxas(log))
         return _INFO
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent build never loads
+    # build under private names, then rename: a concurrent build never loads
     # a half-written library
+    objdir = BUILD_DIR / f"{path.stem}.{os.getpid()}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    nvcc = _nvcc()
+    cus = [src for src in _sources() if src.suffix == ".cu"]
+    objs = {src.name: objdir / f"{src.stem}.o" for src in cus}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        done = _run_all({src.name: [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o",
+                                    str(objs[src.name])] for src in cus})
+        logs = [f"== nvcc {name} ({secs:.1f} s, exit {rc})\n{out}"
+                for name, (rc, out, secs) in done.items()]
+        failed = [name for name, (rc, _, _) in done.items() if rc != 0]
+        if not failed:
+            link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs.values())]
+            rc, out, _ = _run(link)
+            logs.append(f"== link (exit {rc})\n{out}")
+            if rc != 0:
+                failed = ["link"]
+        log = "\n".join(logs)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
     log_path.write_text(log)
     os.replace(tmp, path)
-    _INFO = BuildInfo(path=path, seconds=seconds, log=log, ptxas=parse_ptxas(log))
+    objects = tuple(dict(source=name, seconds=secs)
+                    for name, (_, _, secs) in done.items())
+    _INFO = BuildInfo(path=path, seconds=seconds, log=log, ptxas=parse_ptxas(log),
+                      objects=objects)
     return _INFO
 
 

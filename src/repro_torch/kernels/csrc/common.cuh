@@ -1,5 +1,5 @@
-// Shared tiling and dispatch for the fused matvec kernels (gram_matvec.cu,
-// rff_matvec.cu).
+// Shared tiling, distances and dispatch for the fused kernels (gram_matvec.cu,
+// gram_matvec_bwd.cu, rff_matvec.cu).
 //
 // Both kernels compute out(n, s) = M(x, y) @ w with M built tile by tile from
 // the rows of x and y and never written to device memory. One CTA of
@@ -29,6 +29,38 @@ constexpr int kMaxSC = 128;            // widest accumulator
 
 static_assert(BM % 32 == 0, "a warp must share its column index");
 static_assert(BN % KSPLIT == 0, "KSPLIT must divide the column tile");
+
+// Stationary kernel kinds, in the order of the wrappers' CUDA_KINDS.
+enum Kind : int { kSE = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3 };
+
+constexpr float kSqrt3 = 1.7320508075688772f;
+constexpr float kSqrt5 = 2.23606797749979f;
+
+// ||a||^2 of a d-vector. The Gram kernels and their backward build every
+// norm and inner product with this one FMA order, so for a point paired with
+// itself ||x||^2 == ||z||^2 == x.z bit for bit and raw_sqdist is exactly 0.
+__device__ __forceinline__ float sq_norm(const float* __restrict__ a, int d) {
+  float acc = 0.0f;
+  for (int k = 0; k < d; ++k) acc = fmaf(a[k], a[k], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float dot(const float* __restrict__ a,
+                                     const float* __restrict__ b, int d) {
+  float acc = 0.0f;
+  for (int k = 0; k < d; ++k) acc = fmaf(a[k], b[k], acc);
+  return acc;
+}
+
+// ||x||^2 + ||z||^2 - 2 x.z before any clamp: slightly negative where the
+// identity cancels, exactly 0 for coincident points (see sq_norm). The FMA is
+// written out so that no kernel's contraction choice can differ.
+__device__ __forceinline__ float raw_sqdist(const float* __restrict__ xr,
+                                            float xn,
+                                            const float* __restrict__ zr,
+                                            float zn, int d) {
+  return fmaf(-2.0f, dot(xr, zr, d), xn + zn);
+}
 
 // Instantiated accumulator widths. A width above s costs masked FMAs on
 // zero-filled w columns, so the list is dense where the main path lands:
@@ -99,16 +131,13 @@ __device__ __forceinline__ void load_w_tile(float* __restrict__ dst,
   }
 }
 
-// Add the KSPLIT partial sums of each row through shared memory and store
-// out[row0 + r, c0 : c0 + live] = scale * total. `red` may alias the tiles:
-// the caller has synchronised after its last read of them.
+// Add the KSPLIT partial sums of each row through shared memory. On return the
+// threads of group 0 (threadIdx.x < BM) hold their row's totals in acc. `red`
+// may alias the tiles: the caller has synchronised after its last read of
+// them.
 template <int SC>
-__device__ __forceinline__ void reduce_and_store(float (&acc)[SC],
-                                                 float* __restrict__ red,
-                                                 float* __restrict__ out,
-                                                 int row0, int n, int s,
-                                                 int c0, int live,
-                                                 float scale) {
+__device__ __forceinline__ void reduce_rows(float (&acc)[SC],
+                                            float* __restrict__ red) {
   constexpr int RS = reduce_stride<SC>();
   const int r = threadIdx.x % BM;
   const int g = threadIdx.x / BM;
@@ -120,11 +149,27 @@ __device__ __forceinline__ void reduce_and_store(float (&acc)[SC],
     }
     __syncthreads();
   }
-  if (g == 0 && row0 + r < n) {
+  if (g == 0) {
+#pragma unroll
+    for (int c = 0; c < SC; ++c) acc[c] += red[r * RS + c];
+  }
+}
+
+// reduce_rows, then out[row0 + r, c0 : c0 + live] = scale * total.
+template <int SC>
+__device__ __forceinline__ void reduce_and_store(float (&acc)[SC],
+                                                 float* __restrict__ red,
+                                                 float* __restrict__ out,
+                                                 int row0, int n, int s,
+                                                 int c0, int live,
+                                                 float scale) {
+  reduce_rows<SC>(acc, red);
+  const int r = threadIdx.x % BM;
+  if (threadIdx.x < BM && row0 + r < n) {
     float* o = out + (size_t)(row0 + r) * s + c0;
 #pragma unroll
     for (int c = 0; c < SC; ++c)
-      if (c < live) o[c] = scale * (acc[c] + red[r * RS + c]);
+      if (c < live) o[c] = scale * acc[c];
   }
 }
 

@@ -26,11 +26,6 @@
 namespace repro_torch {
 namespace {
 
-enum Kind : int { kSE = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3 };
-
-constexpr float kSqrt3 = 1.7320508075688772f;
-constexpr float kSqrt5 = 2.23606797749979f;
-
 // The covariance map of gram_matvec.py:_cov_map, with r = sqrt(d2 + 1e-36)
 // exactly as there, so Matern stays finite at coincident points.
 template <int KIND>
@@ -82,11 +77,7 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
 
   load_rows(xs, x, row0, BM, n, d, dp);
   __syncthreads();
-  if (threadIdx.x < BM) {
-    float acc = 0.0f;
-    for (int k = 0; k < d; ++k) acc = fmaf(xs[r * dp + k], xs[r * dp + k], acc);
-    xn[r] = acc;
-  }
+  if (threadIdx.x < BM) xn[r] = sq_norm(xs + r * dp, d);
 
   float acc[SC];
 #pragma unroll
@@ -98,20 +89,12 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
     load_rows(zs, z, j0, BN, m, d, d);
     load_w_tile<SC>(vs, v, j0, m, s, c0, live);
     __syncthreads();
-    if (threadIdx.x < BN) {
-      float acc_n = 0.0f;
-      for (int k = 0; k < d; ++k)
-        acc_n = fmaf(zs[threadIdx.x * d + k], zs[threadIdx.x * d + k], acc_n);
-      zn[threadIdx.x] = acc_n;
-    }
+    if (threadIdx.x < BN) zn[threadIdx.x] = sq_norm(zs + threadIdx.x * d, d);
     __syncthreads();
     const float xr_n = xn[r];
     for (int jj = g; jj < BN; jj += KSPLIT) {
-      const float* zr = zs + jj * d;
-      float dot = 0.0f;
-      for (int k = 0; k < d; ++k) dot = fmaf(xr[k], zr[k], dot);
       // columns past m are zero rows of z and v: a finite entry times 0
-      const float d2 = fmaxf(xr_n + zn[jj] - 2.0f * dot, 0.0f);
+      const float d2 = fmaxf(raw_sqdist(xr, xr_n, zs + jj * d, zn[jj], d), 0.0f);
       axpy_row<SC>(acc, cov_map<KIND>(d2), vs + jj * SCP);
     }
   }

@@ -3,8 +3,9 @@
 
 They define the semantics. A kernel wrapper takes them for tensors on the CPU,
 and ``chip_smoke.py`` and the card tests hold each CUDA kernel against them.
-``gram_matvec_ref`` works in row chunks so that it also runs at the sizes the
-kernels are checked at on the card, where K itself would not fit.
+``gram_matvec_ref`` and ``gram_matvec_bwd_ref`` work in row chunks so that they
+also run at the sizes the kernels are checked at on the card, where K itself
+would not fit.
 """
 from __future__ import annotations
 
@@ -29,6 +30,21 @@ def stationary_map(d2: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "matern52":
         s = _SQRT5 * r
         return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+    raise ValueError(f"unknown stationary kernel {kind!r}")
+
+
+def dcov_map(d2: torch.Tensor, kind: str) -> torch.Tensor:
+    """dκ/d(d²) of :func:`stationary_map`, with the same ε-regularised r."""
+    if kind == "se":
+        return -0.5 * torch.exp(-0.5 * d2)
+    r = torch.sqrt(d2 + 1e-36)
+    if kind == "matern12":
+        return -torch.exp(-r) / (2.0 * r)
+    if kind == "matern32":
+        return -1.5 * torch.exp(-_SQRT3 * r)
+    if kind == "matern52":
+        s = _SQRT5 * r
+        return -(5.0 / 6.0) * (1.0 + s) * torch.exp(-s)
     raise ValueError(f"unknown stationary kernel {kind!r}")
 
 
@@ -57,6 +73,42 @@ def gram_matvec_ref(
         stationary_map(sqdist(x[i:i + row_chunk], z), kind) @ v
         for i in range(0, x.shape[0], row_chunk)
     ])
+
+
+def gram_matvec_bwd_ref(
+    x: torch.Tensor,
+    z: torch.Tensor,
+    rowv: torch.Tensor,
+    colv: torch.Tensor,
+    *,
+    kind: str = "se",
+    row_chunk: int = 1024,
+) -> torch.Tensor:
+    """dx = 2·(x ⊙ Σⱼ W − W z), W_ij = κ'(d²_ij)·mask_ij·(rowv_i·colv_j): the
+    input cotangent of v ↦ k(x, z) @ v at ḡ = rowv (n, s), v = colv (m, s), as
+    the reference's ``gram_matvec_bwd_pallas`` computes it. With
+    (z, x, colv, rowv) it gives dz.
+
+    The mask is the reference's: Matérn-1/2 drops coincident pairs, where
+    κ' ~ 1/r; the other kinds weigh them ½. d² comes from differences, not
+    from the matmul identity, so it is exactly 0 for coincident points, as the
+    CUDA kernel's is through its shared FMA order (an identity's few ulp on the
+    diagonal would become weights of ~1e8 through Matérn-1/2's κ'), and never
+    negative, so the reference's clamp and its below-zero mask have nothing to
+    do here.
+    """
+    out = []
+    for i in range(0, x.shape[0], row_chunk):
+        xc = x[i:i + row_chunk]
+        raw = torch.zeros((xc.shape[0], z.shape[0]), dtype=x.dtype, device=x.device)
+        for k in range(x.shape[1]):  # one coordinate at a time: no (rows, m, d) temporary
+            raw += (xc[:, k, None] - z[None, :, k]) ** 2
+        mask = (raw > 0).to(raw.dtype)
+        if kind != "matern12":
+            mask = mask + 0.5 * (raw == 0).to(raw.dtype)
+        w = dcov_map(raw, kind) * mask * (rowv[i:i + row_chunk] @ colv.T)
+        out.append(2.0 * (xc * torch.sum(w, dim=1, keepdim=True) - w @ z))
+    return torch.cat(out) if out else x.new_zeros((0, x.shape[1]))
 
 
 def rff_matvec_ref(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
