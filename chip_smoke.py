@@ -11,7 +11,11 @@ on the protein-shaped problem at full n through those kernels:
   mean held against a Cholesky oracle;
 * training, ``IterativeGP(...).fit(x, y).optimize(...).predict(x_test)``, whose
   MLL gradients run through the Gram backward kernel, with the exact MLL from
-  a float64 Cholesky before and after.
+  a float64 Cholesky before and after;
+* the stochastic solvers, ``IterativeGP(spec=SGD | SDD | AP).fit(x, y)
+  .predict(x_test)``, through the row-panel pair, the rows matvec and the
+  feature pair kernels, each held against the same Cholesky oracle, and each
+  run's first steps held against the plain route on the same draws.
 
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and one Gram matvec runs at 3droad's n, where K could
@@ -63,6 +67,25 @@ PROFILE_TRAIN_STEPS = 3
 MAIN_TOL, MAIN_MAX_ITERS, BENCH_MAX_ITERS = 1e-3, 1000, 150
 
 
+#: The stochastic solvers (benchmarks/bench_solvers.py's protein problem and
+#: θ, the paper's defaults of core/solvers/spec.py, the bench's step budgets).
+#: SDD runs at the bench's step 2/n (benchmarks/bench_solvers.py:86): at the
+#: paper's 50/n it diverges on this problem within 100 steps, the reference's
+#: solve_sdd as much as the port's; that run is kept as SDD_PAPER_STEP, where
+#: the check is that every diverged column is flagged
+STOCH_STEPS = {"sgd": 8000, "sdd": 8000, "ap": 2000}
+STOCH_SPECS = {"sgd": dict(batch_size=512, num_features=100, step_size_times_n=0.5),
+               "sdd": dict(batch_size=512, step_size_times_n=2.0),
+               "ap": dict(block_size=512)}
+SDD_PAPER_STEP = 50.0
+#: steps of the route-parity runs, held at the reference's fused-vs-features
+#: tolerance (tests/test_features.py:283), and of the profiled solver runs
+PARITY_STEPS, PARITY_TOL = 200, 2e-3
+PROFILE_STOCH_STEPS = {"sgd": 500, "sdd": 500, "ap": 200}
+#: the kernels' records on the last lines, in order
+RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
+           "rff_t_matvec", "rff_pair")
+
 _T0 = time.perf_counter()
 
 
@@ -75,6 +98,58 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.gram_matvec import (
+        gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair,
+    )
+    from repro_torch.kernels.rff_matvec import rff_matvec, rff_pair, rff_t_matvec
+
+    return dict(gram_matvec=gram_matvec, gram_matvec_bwd=gram_matvec_bwd,
+                rff_matvec=rff_matvec, gram_rows_pair=gram_rows_pair,
+                gram_rows_matvec=gram_rows_matvec, rff_t_matvec=rff_t_matvec,
+                rff_pair=rff_pair)
+
+
+def _reset_counts(torch) -> None:
+    """Every launch and dispatch count to 0, just before a path runs."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_matvec_trace_counts()
+    ops.reset_feature_trace_counts()
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _read_counts() -> tuple:
+    """(launches by wrapper, Gram dispatches, feature dispatches) since the
+    last reset, read just after a path ran."""
+    from repro_torch.kernels import ops
+
+    return ({k: w.launches for k, w in _wrappers().items()},
+            dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS))
+
+
+def _path_launches(launches: dict) -> dict:
+    """A path's launches by kernel record: the row-panel record counts both
+    of its C entries (the pair and the rows matvec), and the transposed RFF
+    kernel's device code also runs as phase 1 of every feature-pair launch."""
+    out = {k: launches[k] for k in RECORDS}
+    out["gram_rows_pair"] += launches["gram_rows_matvec"]
+    out["rff_t_matvec"] += launches["rff_pair"]
+    return out
+
+
+def _record_path(kernels: dict, path: str, launches: dict) -> None:
+    for k, n in _path_launches(launches).items():
+        kernels[k]["by_path"].setdefault(path, {})["launches"] = n
+    kernels["gram_rows_pair"]["by_path"][path]["launches_by_entry"] = dict(
+        pair=launches["gram_rows_pair"], rows_matvec=launches["gram_rows_matvec"])
+    kernels["rff_t_matvec"]["by_path"][path]["launches_by_entry"] = dict(
+        own=launches["rff_t_matvec"], inside_rff_pair=launches["rff_pair"])
 
 
 def main() -> int:
@@ -92,15 +167,19 @@ def main() -> int:
     smi = env_phase(torch)
     build_phase()
     kernels = kernels_phase(torch)
-    main_path_phase(torch, kernels)
+    oracle = main_path_phase(torch, kernels)
     grad_phase(torch)
     train_phase(torch, kernels)
+    stochastic_phase(torch, kernels, oracle)
+    route_parity_phase(torch)
     profile_phase(torch)
     large_n_phase(torch)
 
+    for rec in kernels.values():
+        rec["launches"] = sum(line.get("launches", 0) for line in rec["by_path"].values())
+        check(rec["launches"] > 0, f"{rec['name']} launched on the paths")
     print(smi)
-    print(json.dumps({"kernels": [kernels[k] for k in
-                                  ("gram_matvec", "gram_matvec_bwd", "rff_matvec")]}))
+    print(json.dumps({"kernels": [kernels[k] for k in RECORDS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -217,6 +296,22 @@ def kernels_phase(torch) -> dict:
                            source="src/repro_torch/kernels/csrc/rff_matvec.cu",
                            replaces="src/repro/kernels/rff_matvec.py:78",
                            max_abs_err=0.0),
+        # both C entries of the row-panel source: the pair (SGD) and its
+        # phases 0-1 alone, the rows matvec (SDD)
+        "gram_rows_pair": dict(name="gram_rows_pair", route="cuda",
+                               source="src/repro_torch/kernels/csrc/gram_rows_pair.cu",
+                               replaces="src/repro/kernels/gram_matvec.py:390",
+                               entries=["repro_gram_rows_pair_f32",
+                                        "repro_gram_rows_matvec_f32"],
+                               max_abs_err=0.0),
+        "rff_t_matvec": dict(name="rff_t_matvec", route="cuda",
+                             source="src/repro_torch/kernels/csrc/rff_t_matvec.cu",
+                             replaces="src/repro/kernels/rff_matvec.py:154",
+                             max_abs_err=0.0),
+        "rff_pair": dict(name="rff_pair", route="cuda",
+                         source="src/repro_torch/kernels/csrc/rff_t_matvec.cu",
+                         replaces="src/repro/kernels/rff_matvec.py:447",
+                         max_abs_err=0.0),
     }
 
     def gram_case(kind, rows, cols, s, label):
@@ -330,24 +425,150 @@ def kernels_phase(torch) -> dict:
             if label == "mll_prior":  # f_X on the training path
                 paths["train"]["rff_matvec"] = line
 
-    keep = ("s", "m", "ms", "plain_ms", "bound_ms", "bound_by")
+    paths.update(sgd={}, sdd={}, ap={})
+    new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
+
+    keep = ("s", "m", "p", "ms", "plain_ms", "bound_ms", "bound_by")
+    # each record's own numbers: the training path's shape for the kernels of
+    # the earlier slices, SGD's for the new ones
+    home = dict(gram_matvec="train", gram_matvec_bwd="train", rff_matvec="train",
+                gram_rows_pair="sgd", rff_t_matvec="sgd", rff_pair="sgd")
     for key in rec:
-        line = paths["train"][key]
+        line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         library_ms=None,
-                        by_path={p: {k: lines[key][k] for k in keep}
+                        by_path={p: {k: lines[key][k] for k in keep if k in lines[key]}
                                  for p, lines in paths.items() if key in lines})
+    # the rows matvec (SDD's entry of the row-panel source) under its record
+    rec["gram_rows_pair"]["by_path"]["sdd"] = {
+        k: paths["sdd"]["gram_rows_matvec"][k] for k in keep if k in paths["sdd"]["gram_rows_matvec"]}
     return rec
 
 
-def main_path_phase(torch, kernels: dict) -> None:
+def _rows_bound_ms(p, n, d, s, chunks, pair: bool):
+    """The row panel: p·n·(2d + 2s) flops per contraction, two for the pair;
+    bytes of xi, x, look (and b) read once, the (chunks, p, s) workspace
+    written and read, err written (and, for the pair, x, xi and err read
+    again by phase 2 and g written)."""
+    flops = (2 if pair else 1) * p * n * (2 * d + 2 * s)
+    floats = p * d + n * d + n * s + 2 * chunks * p * s + p * s
+    if pair:
+        floats += p * s + n * d + p * d + p * s + n * s
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, 4 * floats / PEAK_BYTES), flops, 4 * floats
+
+
+def _rff_t_bound_ms(n, m, d, s, chunks, pair: bool):
+    """Φᵀu: n·m·(2d + 4s) flops, twice for the pair; x, ω and u read once,
+    the (chunks, 2m, s) workspace written and read, t (2m, s) written (the
+    pair also reads x, ω and t again and writes its (n, s) output)."""
+    flops = (2 if pair else 1) * n * m * (2 * d + 4 * s)
+    floats = n * d + m * d + n * s + 2 * chunks * 2 * m * s + 2 * m * s
+    if pair:
+        floats += n * d + m * d + 2 * m * s + n * s
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, 4 * floats / PEAK_BYTES), flops, 4 * floats
+
+
+def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
+    """The kernels of the stochastic solvers against their plain versions in
+    float64 on the card, at the solvers' shapes: the row panel at p = 256 and
+    512 with p_true = p − 7 for every kind (SGD's pair, SDD's rows matvec),
+    Φᵀu at m = 100 and 1,024, and the feature pair at m = 100 and at a
+    padded m = 128 with m_true = 100, all at s = 65."""
+    from repro_torch.kernels.gram_matvec import gram_rows_matvec, gram_rows_pair
+    from repro_torch.kernels.ref import (
+        gram_rows_matvec_ref, gram_rows_pair_ref, rff_pair_ref, rff_t_matvec_ref,
+    )
+    from repro_torch.kernels.rff_matvec import rff_pair, rff_t_matvec
+
+    dev = x.device
+    n, d = xs.shape
+    s = 65
+
+    def err_of(out, ref64):
+        return ((out.double() - ref64).abs().max().item(),
+                max(1.0, ref64.abs().max().item()))
+
+    for kind in KINDS:
+        for p in (256, 512):
+            idx = torch.randint(0, n, (p,), generator=gen, device=dev)
+            xi = xs[idx].contiguous()
+            look = torch.randn((n, s), generator=gen, device=dev)
+            b = torch.randn((p, s), generator=gen, device=dev)
+            p_true = p - 7
+            chunks = gram_rows_matvec.workspace_floats(p, n, s) // (p * s)
+            err, g = gram_rows_pair(xi, xs, look, b, kind=kind, p_true=p_true)
+            mv = gram_rows_matvec(xi, xs, look, kind=kind)
+            re, rg = gram_rows_pair_ref(xi.double(), xs.double(), look.double(), b.double(),
+                                        kind=kind, p_true=p_true)
+            rmv = gram_rows_matvec_ref(xi.double(), xs.double(), look.double(), kind=kind)
+            torch.cuda.synchronize()
+            masked = bool((err[p_true:] == 0).all())
+            cases = (
+                ("gram_rows_pair", True, (err_of(err, re), err_of(g, rg)),
+                 lambda: gram_rows_pair(xi, xs, look, b, kind=kind, p_true=p_true),
+                 lambda: gram_rows_pair_ref(xi, xs, look, b, kind=kind, p_true=p_true)),
+                ("gram_rows_matvec", False, (err_of(mv, rmv),),
+                 lambda: gram_rows_matvec(xi, xs, look, kind=kind),
+                 lambda: gram_rows_matvec_ref(xi, xs, look, kind=kind)),
+            )
+            for name, pair, errs, fn, plain in cases:
+                # each output against its own scale: err and g for the pair
+                e = max(a for a, _ in errs)
+                ok = all(a <= GRAM_TOL * scale for a, scale in errs)
+                bound, flops, nbytes = _rows_bound_ms(p, n, d, s, chunks, pair)
+                line = dict(kernel=name, kind=kind, n=n, p=p, p_true=p_true, d=d, s=s,
+                            chunks=chunks, ctas_phase0=-(-p // 64) * chunks,
+                            max_abs_err=e, tol=[GRAM_TOL * scale for _, scale in errs],
+                            err_masked_rows_zero=masked,
+                            ms=_events_ms(torch, fn, 20), plain_ms=_events_ms(torch, plain, 3),
+                            bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                            bytes=nbytes)
+                emit("kernels", **line)
+                check(ok, f"{name} {kind} p={p}: {e}")
+                check(masked, f"{name} {kind} p={p}: rows >= p_true zeroed")
+                rec["gram_rows_pair"]["max_abs_err"] = max(rec["gram_rows_pair"]["max_abs_err"], e)
+                if kind == "matern32" and p == 512:
+                    paths["sgd" if pair else "sdd"][
+                        "gram_rows_pair" if pair else "gram_rows_matvec"] = line
+            if p == 512:
+                check(-(-p // 64) * chunks >= 132,
+                      f"the row panel at p = 512 fills the card: {-(-p // 64) * chunks} CTAs")
+
+    u = torch.randn((n, s), generator=gen, device=dev)
+    for m, m_true, what in ((100, 100, "t"), (1024, 1024, "t"), (100, 100, "pair"),
+                            (128, 100, "pair")):
+        omega = rff_omega(math.sqrt(d) * 0.5, m)
+        omega[m_true:] = 0.0  # padded frequencies, masked by m_true
+        chunks = rff_t_matvec.workspace_floats(n, m, s) // (2 * m * s)
+        pair = what == "pair"
+        kernel, ref = (rff_pair, rff_pair_ref) if pair else (rff_t_matvec, rff_t_matvec_ref)
+        out = kernel(x, omega, u, m_true=m_true)
+        ref64 = ref(x.double(), omega.double(), u.double(), m_true=m_true)
+        torch.cuda.synchronize()
+        e, sc = err_of(out, ref64)
+        bound, flops, nbytes = _rff_t_bound_ms(n, m, d, s, chunks, pair)
+        name = "rff_pair" if pair else "rff_t_matvec"
+        line = dict(kernel=name, n=n, m=m, m_true=m_true, d=d, s=s, chunks=chunks,
+                    max_abs_err=e, tol=RFF_TOL * sc,
+                    smem_bytes=rff_t_matvec.smem_bytes(d, s),
+                    ms=_events_ms(torch, lambda: kernel(x, omega, u, m_true=m_true), 20),
+                    plain_ms=_events_ms(torch, lambda: ref(x, omega, u, m_true=m_true), 3),
+                    bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                    bytes=nbytes)
+        emit("kernels", **line)
+        check(e <= RFF_TOL * sc, f"{name} m={m} m_true={m_true}: {e}")
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
+        if m == 100:  # SGD's fresh features: its pair and the pair's phase 1
+            paths["sgd"][name] = line
+
+
+def main_path_phase(torch, kernels: dict) -> dict:
     """``IterativeGP.fit → predict`` at full protein n through the kernels, with
-    the launch counts read just around it, then the Cholesky oracle."""
+    the launch counts read just around it, then the Cholesky oracle. Returns
+    the oracle's mean at the test points and CG's test metrics, which the
+    stochastic solvers are held against."""
     from repro_torch.core import CG, IterativeGP, exact_posterior
     from repro_torch.data.pipeline import regression_dataset
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
-    from repro_torch.kernels.rff_matvec import rff_matvec
 
     data = regression_dataset("protein", seed=SEED)
     d = data["d"]
@@ -357,19 +578,12 @@ def main_path_phase(torch, kernels: dict) -> None:
     check(dev.type == "cuda", f"IterativeGP() defaults to the card, got {dev}")
     y_test = torch.as_tensor(data["y_test"], device=dev)
 
-    torch.cuda.synchronize()
-    ops.reset_matvec_trace_counts()
-    ops.reset_feature_trace_counts()
-    gram_matvec.launches = 0
-    gram_matvec_bwd.launches = 0
-    rff_matvec.launches = 0
+    _reset_counts(torch)
     t0 = time.perf_counter()
     mean, var = gp.fit(data["x"], data["y"]).predict(data["x_test"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gram_matvec": gram_matvec.launches,
-                "gram_matvec_bwd": gram_matvec_bwd.launches, "rff_matvec": rff_matvec.launches}
-    matvec_counts, feature_counts = dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS)
+    launches, matvec_counts, feature_counts = _read_counts()
 
     info = gp.posterior(64).solve_info  # cached: no further launches
     rmse = torch.sqrt(torch.mean((mean - y_test) ** 2)).item()
@@ -390,8 +604,7 @@ def main_path_phase(torch, kernels: dict) -> None:
     check(launches["gram_matvec_bwd"] == 0, "serving takes no gradient")
     check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
     check(feature_counts["features"] == 0, "no materialised feature matrix")
-    for k in kernels:
-        kernels[k]["by_path"].setdefault("fit_predict", {})["launches"] = launches[k]
+    _record_path(kernels, "fit_predict", launches)
 
     t0 = time.perf_counter()
     ep = exact_posterior(gp.params, gp.x, gp.y)
@@ -417,6 +630,8 @@ def main_path_phase(torch, kernels: dict) -> None:
     check(rel <= 1e-2, f"CG mean within 1e-2 of the Cholesky mean, got {rel}")
     del ep
     torch.cuda.empty_cache()
+    cg_rmse, cg_nll = _test_metrics(torch, mean, var, y_test)
+    return dict(exact_mean=exact_mean, cg=dict(rmse=cg_rmse, nll=cg_nll, rel_mean_err=rel))
 
 
 def _test_metrics(torch, mean, var, y_test) -> tuple:
@@ -494,9 +709,6 @@ def train_phase(torch, kernels: dict) -> None:
     the optimised θ from a float64 Cholesky after it."""
     from repro_torch.core import CG, IterativeGP, exact_mll, map_params
     from repro_torch.data.pipeline import regression_dataset
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
-    from repro_torch.kernels.rff_matvec import rff_matvec
 
     data = regression_dataset("protein", seed=SEED)
     spec = CG(max_iters=TRAIN_MAX_ITERS, tol=MAIN_TOL)
@@ -521,10 +733,7 @@ def train_phase(torch, kernels: dict) -> None:
                           converged=info.converged, healthy=info.healthy,
                           max_rel_residual=info.rel_residual.max().item()))
 
-    torch.cuda.synchronize()
-    ops.reset_matvec_trace_counts()
-    ops.reset_feature_trace_counts()
-    gram_matvec.launches = gram_matvec_bwd.launches = rff_matvec.launches = 0
+    _reset_counts(torch)
     t0 = time.perf_counter()
     gp.fit(data["x"], data["y"]).optimize(num_steps=TRAIN_STEPS, lr=TRAIN_LR,
                                           num_probes=TRAIN_PROBES, callback=record)
@@ -533,9 +742,7 @@ def train_phase(torch, kernels: dict) -> None:
     mean, var = gp.predict(data["x_test"])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"gram_matvec": gram_matvec.launches,
-                "gram_matvec_bwd": gram_matvec_bwd.launches, "rff_matvec": rff_matvec.launches}
-    matvec_counts, feature_counts = dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS)
+    launches, matvec_counts, feature_counts = _read_counts()
 
     info = gp.posterior(64).solve_info  # cached: no further launches
     rmse, nll = _test_metrics(torch, mean, var, y_test)
@@ -583,9 +790,156 @@ def train_phase(torch, kernels: dict) -> None:
     check(mean.shape == var.shape == (1024,), f"outputs of shape (1024,), got {mean.shape}")
     check(math.isfinite(mll1) and mll1 > mll0,
           f"the exact MLL per n rises: {mll0} -> {mll1}")
-    for k in kernels:
-        kernels[k]["launches"] = launches[k]
-        kernels[k]["by_path"]["train"]["launches"] = launches[k]
+    _record_path(kernels, "train", launches)
+
+
+def _stochastic_spec(name: str, num_steps: int, **kw):
+    from repro_torch.core import AP, SDD, SGD
+
+    cls = dict(sgd=SGD, sdd=SDD, ap=AP)[name]
+    return cls(num_steps=num_steps, **{**STOCH_SPECS[name], **kw})
+
+
+def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
+    """The slice's paths at full protein n: ``IterativeGP(spec=SGD | SDD |
+    AP).fit → predict`` through the kernels, at the serving path's θ, 2,048
+    prior features and 64 samples (65 RHS columns), each solver at the
+    paper's defaults and the bench's step budget. Every launch count is read
+    just around each run and checked against the solver's identity; the
+    posterior mean is held against the Cholesky mean of the main path
+    (measured, not asserted: the quality of a fixed step budget is a
+    finding), beside CG's test metrics."""
+    from repro_torch.core import IterativeGP
+    from repro_torch.core.solvers import FLAG_NONFINITE
+    from repro_torch.data.pipeline import regression_dataset
+
+    data = regression_dataset("protein", seed=SEED)
+    d = data["d"]
+    hypers = dict(lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1, seed=SEED)
+    dev = torch.device("cuda")
+    y_test = torch.as_tensor(data["y_test"], device=dev)
+    exact_mean = oracle["exact_mean"]
+    runs = [(name, steps, _stochastic_spec(name, steps)) for name, steps in STOCH_STEPS.items()]
+    runs.append(("sdd_paper_step", STOCH_STEPS["sdd"],
+                 _stochastic_spec("sdd", STOCH_STEPS["sdd"], step_size_times_n=SDD_PAPER_STEP)))
+    for run, steps, spec in runs:
+        name = spec.name
+        gp = IterativeGP("matern32", spec=spec, **hypers)
+        _reset_counts(torch)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        mean, var = gp.fit(data["x"], data["y"]).predict(data["x_test"])
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, matvec_counts, feature_counts = _read_counts()
+        info = gp.posterior(64).solve_info  # cached: no further launches
+        rmse, nll = _test_metrics(torch, mean, var, y_test)
+        rel = ((mean - exact_mean).norm() / exact_mean.norm()).item()
+        flags = sorted(set(info.flags.tolist()))
+        emit("stochastic", run=run, solver=name, n=int(data["n"]), d=d, rhs_columns=65,
+             steps=steps, step_size_times_n=getattr(spec, "step_size_times_n", None),
+             batch=getattr(spec, "batch_size", getattr(spec, "block_size", None)),
+             wall_s=wall,
+             event_span_ms=start.elapsed_time(end), ms_per_step=1e3 * wall / steps,
+             matvecs=info.matvecs, rel_residual_mean=info.rel_residual[0].item(),
+             max_rel_residual=info.rel_residual.max().item(), flags=flags,
+             columns_flagged=int(((info.flags & 1) != 0).sum()),
+             rel_mean_err_vs_cholesky=rel, rmse=rmse, nll=nll, cg=oracle["cg"],
+             launches=launches, matvec_counts=matvec_counts, feature_counts=feature_counts)
+        check(mean.shape == var.shape == (1024,), f"{run}: outputs of shape (1024,)")
+        if run == "sdd_paper_step":
+            # diverged or not, no column is non-finite without its NONFINITE
+            # flag (a flagged column keeps its last finite iterate)
+            post = gp.posterior(64)
+            finite = torch.cat([torch.isfinite(post.v_mean).all()[None],
+                                torch.isfinite(post.alpha).all(dim=0)])
+            flagged = (info.flags & FLAG_NONFINITE) != 0
+            check(bool((flagged | finite).all()), f"{run}: every non-finite column flagged")
+        else:
+            check(info.healthy, f"{run}: no nonfinite column")
+            check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                  f"{run}: finite outputs")
+        check(info.iterations == steps, f"{name}: {steps} steps, got {info.iterations}")
+        # the launch identities: finalize's matvecs (one, or none for AP's
+        # maintained residual) and predict's two Gram matvecs, f_X and the
+        # prior at X* on the RFF kernel, one row-panel or feature-pair launch
+        # per step where the solver has one
+        want = dict(gram_matvec=info.matvecs + 2, gram_matvec_bwd=0, rff_matvec=2,
+                    gram_rows_pair=0, gram_rows_matvec=0, rff_t_matvec=0, rff_pair=0)
+        if name == "sgd":
+            want.update(gram_rows_pair=steps, rff_pair=steps)
+        elif name == "sdd":
+            want.update(gram_rows_matvec=steps)
+        else:
+            want.update(gram_matvec=steps + 2)
+        check(info.matvecs == (0 if name == "ap" else 1),
+              f"{name}: finalize's full matvecs {info.matvecs}")
+        check(launches == want, f"{name}: launches {launches} == {want}")
+        check(matvec_counts["chunked"] == matvec_counts["dense"] == 0,
+              f"{name}: no plain Gram matvec")
+        check(feature_counts["features"] == 0, f"{name}: no materialised feature matrix")
+        if run in STOCH_STEPS:
+            _record_path(kernels, run, launches)
+        del gp, mean, var
+        torch.cuda.empty_cache()
+
+
+def route_parity_phase(torch) -> None:
+    """Each solver's first PARITY_STEPS steps twice on the card from one
+    generator seed, through the kernels (``backend="cuda"``) and through the
+    plain route (``backend="chunked"``: materialised panels and features), on
+    the main path's pathwise targets: the iterates agree within the
+    reference's fused-vs-features tolerance. This holds the kernels inside
+    the loop. SGD also runs 50 and 100 steps, unchecked, to show how fast
+    the two routes' rounding drifts apart."""
+    from repro_torch.core import make_params
+    from repro_torch.core.operators import Gram
+    from repro_torch.core.pathwise import pathwise_targets
+    from repro_torch.core.rff import sample_prior
+    from repro_torch.core.solvers import solve
+    from repro_torch.data.pipeline import regression_dataset
+
+    data = regression_dataset("protein", seed=SEED)
+    d = data["d"]
+    dev = torch.device("cuda")
+    params = make_params("matern32", lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1,
+                         d=d, device=dev)
+    x = torch.as_tensor(data["x"], device=dev)
+    y = torch.as_tensor(data["y"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prior = sample_prior(params, 64, 2048, d, generator=gen)
+    b, delta = pathwise_targets(Gram(x=x, params=params), y, prior, generator=gen)
+    for name, steps in [("sgd", 50), ("sgd", 100)] + [(k, PARITY_STEPS) for k in STOCH_STEPS]:
+        sols, launched = {}, {}
+        for backend in ("cuda", "chunked"):
+            _reset_counts(torch)
+            spec = _stochastic_spec(name, steps, backend=backend)
+            t0 = time.perf_counter()
+            res = solve(Gram(x=x, params=params), b, spec, delta=delta,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            launched[backend] = dict(seconds=time.perf_counter() - t0,
+                                     **_path_launches(_read_counts()[0]))
+            sols[backend] = res.solution
+        a, ref = sols["cuda"], sols["chunked"]
+        excess = ((a - ref).abs() - PARITY_TOL * ref.abs()).max().item()
+        emit("route_parity", solver=name, steps=steps, rtol=PARITY_TOL,
+             atol=PARITY_TOL, max_abs_diff=(a - ref).abs().max().item(),
+             max_rel_diff=((a - ref).norm() / ref.norm()).item(),
+             max_excess_over_rtol=excess, runs=launched)
+        if steps != PARITY_STEPS:
+            continue  # SGD's shorter runs measure how the routes drift apart
+        check(bool(torch.isfinite(a).all()), f"{name}: finite iterates")
+        check(excess <= PARITY_TOL, f"{name}: kernel and plain routes within "
+              f"rtol = atol = {PARITY_TOL} after {PARITY_STEPS} steps ({excess})")
+        own = launched["cuda"]
+        used = dict(sgd=own["gram_rows_pair"] + own["rff_pair"], sdd=own["gram_rows_pair"],
+                    ap=own["gram_matvec"])[name]
+        check(used > 0, f"{name}: the kernel route launched its kernels")
+        check(all(v == 0 for k, v in launched["chunked"].items() if k != "seconds"),
+              f"{name}: the plain route launched no kernel")
 
 
 def _device_ms_by_kernel(prof) -> dict:
@@ -601,8 +955,10 @@ def _device_ms_by_kernel(prof) -> dict:
 
 
 def profile_phase(torch) -> None:
-    """Both paths once more under ``torch.profiler``: device time by kernel and
-    the card's idle share of the wall time. Run after the counted passes so
+    """The serving and training paths, and each stochastic solver's
+    fit → predict at PROFILE_STOCH_STEPS steps, once more under
+    ``torch.profiler``: device time by kernel and the card's idle share of
+    the wall time. Run after the counted passes so
     that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,7 +981,17 @@ def profile_phase(torch) -> None:
                                               num_probes=TRAIN_PROBES)
         return gp.last_optim.total_solver_iters
 
-    for path, run in (("fit_predict", fit_predict), ("train", train)):
+    def stochastic(name):
+        def run():
+            gp = IterativeGP("matern32", spec=_stochastic_spec(name, PROFILE_STOCH_STEPS[name]),
+                             lengthscale=math.sqrt(data["d"]) * 0.5, signal=1.0, noise=0.1,
+                             seed=SEED)
+            gp.fit(data["x"], data["y"]).predict(data["x_test"])
+            return gp.posterior(64).solve_info.iterations  # cached: no launch
+        return run
+
+    for path, run in (("fit_predict", fit_predict), ("train", train),
+                      *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

@@ -12,6 +12,7 @@ import torch
 from .core.kernels_fn import KernelParams
 from .core.pathwise import PosteriorFunctions
 from .core.rff import FourierFeatures, PriorSamples
+from .core.solvers import RowDraws, SGDDraws
 from .device import DeviceLike, resolve_device
 
 
@@ -59,3 +60,18 @@ def posterior_from_numpy(params: KernelParams, x, v_mean, alpha,
     dev = resolve_device(device)
     return PosteriorFunctions(params=params, x=_t(x, dev), prior=prior,
                               v_mean=_t(v_mean, dev), alpha=_t(alpha, dev))
+
+
+def sgd_draws_from_numpy(idx, omega, *, device: DeviceLike = None) -> SGDDraws:
+    """An SGD solve's per-step draws: ``idx`` (num_steps, batch) minibatch
+    indices and ``omega`` (num_steps, num_features, d) frequencies, e.g. the
+    reference's own ``fold_in(key, t)`` draws."""
+    dev = resolve_device(device)
+    return SGDDraws(idx=torch.as_tensor(np.asarray(idx, dtype=np.int64), device=dev),
+                    omega=_t(omega, dev))
+
+
+def row_draws_from_numpy(idx, *, device: DeviceLike = None) -> RowDraws:
+    """An SDD or AP solve's per-step coordinate blocks ``idx`` (num_steps, batch)."""
+    dev = resolve_device(device)
+    return RowDraws(idx=torch.as_tensor(np.asarray(idx, dtype=np.int64), device=dev))

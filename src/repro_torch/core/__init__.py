@@ -1,5 +1,5 @@
-"""The GP core of the port: covariance functions, operators, CG, random
-features, pathwise conditioning, MLL optimisation and the ``IterativeGP``
+"""The GP core of the port: covariance functions, operators, CG and the
+stochastic solvers (SGD, SDD, AP), random features, pathwise conditioning, MLL optimisation and the ``IterativeGP``
 façade."""
 from .api import IterativeGP
 from .gp import exact_mll, exact_posterior
@@ -10,13 +10,17 @@ from .mll import MLLDraws, MLLGradEstimate, MLLOptimState, mll_grad, optimize_ml
 from .operators import Gram
 from .pathwise import PosteriorFunctions, posterior_functions
 from .rff import FourierFeatures, PriorSamples, make_fourier_features, sample_prior
-from .solvers import CG, SolveResult, solve, solve_cg
+from .solvers import (
+    AP, CG, SDD, SGD, RowDraws, SGDDraws, SolveResult, solve, solve_ap, solve_cg,
+    solve_sdd, solve_sgd,
+)
 
 __all__ = [
-    "CG", "FourierFeatures", "Gram", "IterativeGP", "KernelParams", "MLLDraws",
+    "AP", "CG", "FourierFeatures", "Gram", "IterativeGP", "KernelParams", "MLLDraws",
     "MLLGradEstimate", "MLLOptimState", "PosteriorFunctions", "PriorSamples",
-    "SolveResult", "exact_mll", "exact_posterior", "gram", "gram_diag",
-    "make_fourier_features", "make_params", "map_params", "matvec", "mll_grad",
-    "optimize_mll", "posterior_functions", "sample_prior", "solve", "solve_cg",
+    "RowDraws", "SDD", "SGD", "SGDDraws", "SolveResult", "exact_mll",
+    "exact_posterior", "gram", "gram_diag", "make_fourier_features", "make_params",
+    "map_params", "matvec", "mll_grad", "optimize_mll", "posterior_functions",
+    "sample_prior", "solve", "solve_ap", "solve_cg", "solve_sdd", "solve_sgd",
     "spectral_sample",
 ]

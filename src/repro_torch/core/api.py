@@ -5,9 +5,9 @@
     mean, var = gp.fit(x, y).optimize(num_steps=20).predict(x_new)
 
 ``fit`` stores the data; ``optimize`` runs Adam ascent on the marginal
-likelihood with warm-started CG solves (core/mll.py); ``predict`` runs ONE
-batched CG solve of (K+σ²I)V = [y | f_X + ε] and evaluates the
-pathwise-conditioned posterior at the new points. The model lives on the card
+likelihood with warm-started solves (core/mll.py); ``predict`` runs ONE
+batched solve of (K+σ²I)V = [y | f_X + ε] with the model's spec (CG, SGD, SDD
+or AP) and evaluates the pathwise-conditioned posterior at the new points. The model lives on the card
 unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations

@@ -123,7 +123,8 @@ def mll_grad(
         else:
             probes = draws.noise
         rhs = torch.cat([y[:, None], probes], dim=1)
-        res = solve(Gram(x=x, params=theta, backend=backend), rhs, s, x0=x0)
+        res = solve(Gram(x=x, params=theta, backend=backend), rhs, s, x0=x0,
+                    generator=generator)
     v_y, alpha = res.solution[:, 0], res.solution[:, 1:]
 
     p = map_params(lambda t: t.detach().requires_grad_(), params)

@@ -6,9 +6,10 @@ positive-definite matrix touched only through matvecs. The protocol (see
 :class:`LinearOperator`) requires ``shape``, ``mv(v)``, ``diag_part()`` and
 ``noise``; optional capabilities (row blocks, preconditioner factors) are
 declared by defining the method, and ``require_capabilities`` refuses a
-consumer that needs one the operator lacks. This slice ports :class:`Gram`,
-which offers none of them yet: the stochastic solvers and preconditioners that
-consume them are not ported (ROADMAP queue 1 items 4, 5 and 8).
+consumer that needs one the operator lacks. :class:`Gram` offers the row-block
+capabilities the stochastic solvers consume (``rows_mv``, ``rows_t_mv``,
+``rows_pair_mv``, ``block_at``); ``precond_factor`` and the other operators
+are not ported yet (ROADMAP queue 1 items 4 and 5).
 
 Pathwise conditioning writes every posterior sample as f(·) + K(·, X) w with the
 prior f a feature expansion Φ(·) w; :class:`FeatureOperator` is its protocol,
@@ -20,7 +21,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.ops import gram_mv
+from ..kernels.ops import gram_mv, gram_rows_matvec, gram_rows_pair
 from .kernels_fn import KernelParams, gram, gram_diag
 
 #: Capabilities beyond the required ``mv``/``shape``/``diag_part``/``noise``.
@@ -79,8 +80,8 @@ class LinearOperator:
 
 class FeatureOperator:
     """Protocol base for feature maps Φ into ``num_features`` dimensions,
-    touched only through ``phi_mv(x, w)`` = Φ(x) @ w. The transpose
-    ``phi_t_mv`` needs the Φᵀu kernel, which is not ported yet."""
+    touched only through ``phi_mv(x, w)`` = Φ(x) @ w and its transpose
+    ``phi_t_mv(x, u)`` = Φ(x)ᵀ @ u."""
 
     @property
     def num_features(self) -> int:
@@ -94,7 +95,7 @@ class FeatureOperator:
         raise NotImplementedError(f"{type(self).__name__} must define phi_mv")
 
     def phi_t_mv(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("phi_t_mv (rff_t_matvec): ROADMAP queue 2 item 3")
+        raise NotImplementedError(f"{type(self).__name__} must define phi_t_mv")
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +156,56 @@ class Gram(LinearOperator):
             _RUNTIME_COUNTS["mv"] += 1
         return out
 
+    def mv_k(self, v: torch.Tensor) -> torch.Tensor:
+        """K @ v (no jitter)."""
+        out = gram_mv(self.params, self.x, v, backend=self.backend,
+                      row_chunk=self.row_chunk, precision=self.precision)
+        if self.instrument:
+            _RUNTIME_COUNTS["mv"] += 1
+        return out
+
     def diag_part(self) -> torch.Tensor:
         """diag(K + σ²I) — (n,)."""
         return gram_diag(self.params, self.x) + self.noise
+
+    def rows_mv(self, idx: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """K[idx, :] @ u, the panel never materialised on ``cuda``.
+        u: (n,) or (n, s) → (|idx|, s-like)."""
+        out = gram_rows_matvec(self.params, self.x, idx, u, backend=self.backend,
+                               precision=self.precision)
+        if self.instrument:
+            _RUNTIME_COUNTS["rows"] += 1
+        return out
+
+    def rows_t_mv(self, idx: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """K[idx, :]ᵀ @ u = K[:, idx] @ u. u: (|idx|,) or (|idx|, s) → (n, s-like)."""
+        out = gram_rows_matvec(self.params, self.x, idx, u, transpose=True,
+                               backend=self.backend, precision=self.precision)
+        if self.instrument:
+            _RUNTIME_COUNTS["rows"] += 1
+        return out
+
+    def rows_pair_mv(self, idx: torch.Tensor, look: torch.Tensor,
+                     b: torch.Tensor) -> tuple:
+        """SGD's pair step: ``err = K[idx,:] @ look − b`` and
+        ``g = K[idx,:]ᵀ @ err`` in one dispatch, counted as two row-block
+        matvecs (the work it replaces). look: (n, s); b: (|idx|, s)."""
+        err, g = gram_rows_pair(self.params, self.x, idx, look, b,
+                                backend=self.backend, precision=self.precision)
+        if self.instrument:
+            _RUNTIME_COUNTS["rows"] += 2
+        return err, g
+
+    def block_at(self, idx: torch.Tensor) -> torch.Tensor:
+        """K[idx, idx], the |idx|×|idx| principal block (AP's exact sub-solve),
+        plain ``gram`` on the gathered points as in the reference."""
+        xi = self.x[idx]
+        return gram(self.params, xi, xi)
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """K[idx, :] materialised — O(|idx|·n) memory; the solvers use the
+        fused ``rows_mv``/``rows_t_mv``/``block_at`` instead."""
+        return gram(self.params, self.x[idx], self.x)
 
     def dense(self) -> torch.Tensor:
         """Materialised K + σ²I (tests / small-n reference only)."""

@@ -1,4 +1,4 @@
-"""Pathwise conditioning (§2.1.2, Eq. 2.12) driven by CG — twin of
+"""Pathwise conditioning (§2.1.2, Eq. 2.12) driven by any solver — twin of
 ``repro/core/pathwise.py``.
 
 A posterior function sample is a *function*
@@ -134,14 +134,16 @@ def posterior_functions(
     omega: Optional[torch.Tensor] = None,
     w: Optional[torch.Tensor] = None,
     eps: Optional[torch.Tensor] = None,
+    solver_draws=None,
     **spec_overrides,
 ) -> PosteriorFunctions:
     """End-to-end pathwise posterior: RFF prior + one batched iterative solve.
 
-    ``spec`` defaults to CG; extra keyword arguments are spec-field overrides.
-    ``omega`` (num_features/2, d), ``w`` (num_features, num_samples) and
-    ``eps`` (n, num_samples) inject the random draws; the rest come from
-    ``generator``.
+    ``spec`` (any registered solver: CG, SGD, SDD, AP) defaults to CG; extra
+    keyword arguments are spec-field overrides. ``omega`` (num_features/2, d),
+    ``w`` (num_features, num_samples), ``eps`` (n, num_samples) and a
+    stochastic solver's ``solver_draws`` (``SGDDraws``/``RowDraws``) inject
+    the random draws; the rest come from ``generator``.
     """
     s = as_spec("cg" if spec is None else spec, **spec_overrides)
     backend = getattr(s, "backend", None) or "auto"
@@ -149,7 +151,8 @@ def posterior_functions(
     prior = sample_prior(params, num_samples, num_features, x.shape[1],
                          generator=generator, omega=omega, w=w)
     data, delta = pathwise_targets(op, y, prior, generator=generator, eps=eps)
-    res = solve(op, data, s, x0=x0, delta=delta)
+    res = solve(op, data, s, generator=generator, draws=solver_draws, x0=x0,
+                delta=delta)
     sol = res.solution
     return PosteriorFunctions(
         params=params,

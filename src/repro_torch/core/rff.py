@@ -4,7 +4,10 @@ single-device part of ``repro/core/rff.py``.
 A prior sample is f(x) ≈ Φ(x) w with w ~ N(0, I) and the paired sin/cos map
 Φ(x) = √(σ_f²/m)·[sin(xΩᵀ) | cos(xΩᵀ)] (Sutherland & Schneider, 2015).
 Pathwise conditioning (core/pathwise.py) evaluates f_X (train) and f_X* (test)
-jointly through ``phi_mv``, which goes to the fused CUDA kernel on the card.
+jointly through ``phi_mv``, which goes to the fused CUDA kernel on the card;
+SGD's regulariser runs ``phi_pair_mv`` = Φ(Φᵀu) on fresh features every step
+through the fused pair kernel, and ``phi_t_mv`` = Φᵀu through the transposed
+kernel.
 
 Random draws come from an explicit ``torch.Generator``, or are injected
 (``omega``, ``w``): the parity tests hand both packages the same draws.
@@ -16,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.ops import materialised_features, rff_mv
+from ..kernels.ops import materialised_features, rff_mv, rff_pair_mv, rff_t_mv
 from .kernels_fn import KernelParams, spectral_sample
 from .operators import FeatureOperator
 
@@ -27,13 +30,16 @@ class FourierFeatures(FeatureOperator):
 
     ``backend`` selects the feature-matvec path (kernels/ops.py): ``"auto"``
     (the CUDA kernel on the card, materialised features on the CPU),
-    ``"cuda"`` or ``"features"``.
+    ``"cuda"`` or ``"features"``; ``precision`` the tile precision (only
+    ``"fp32"`` is ported). Each matvec may override both per call. The
+    reference's cos-only variant is not ported.
     """
 
     omega: torch.Tensor  # (m, d) frequencies
     phase: torch.Tensor  # (m,) phases of the reference's cos-only variant; unused here
     signal: torch.Tensor  # σ_f² signal variance
     backend: str = "auto"
+    precision: str = "fp32"
 
     @property
     def num_features(self) -> int:
@@ -43,9 +49,26 @@ class FourierFeatures(FeatureOperator):
         """Φ(x) materialised: (n, 2m) — the optional ``features`` capability."""
         return materialised_features(x, self.omega, self.signal)
 
-    def phi_mv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _kw(self, backend: Optional[str], precision: Optional[str]) -> dict:
+        return dict(signal=self.signal,
+                    backend=self.backend if backend is None else backend,
+                    precision=precision or self.precision)
+
+    def phi_mv(self, x: torch.Tensor, w: torch.Tensor, *, backend: Optional[str] = None,
+               precision: Optional[str] = None) -> torch.Tensor:
         """Φ(x) @ w: (n, s-like)."""
-        return rff_mv(x, self.omega, w, signal=self.signal, backend=self.backend)
+        return rff_mv(x, self.omega, w, **self._kw(backend, precision))
+
+    def phi_t_mv(self, x: torch.Tensor, u: torch.Tensor, *, backend: Optional[str] = None,
+                 precision: Optional[str] = None) -> torch.Tensor:
+        """Φ(x)ᵀ @ u: (num_features, s-like), sin rows first."""
+        return rff_t_mv(x, self.omega, u, **self._kw(backend, precision))
+
+    def phi_pair_mv(self, x: torch.Tensor, u: torch.Tensor, *,
+                    backend: Optional[str] = None,
+                    precision: Optional[str] = None) -> torch.Tensor:
+        """Φ(x) (Φ(x)ᵀ u): (n, s-like) — SGD's regulariser in one dispatch."""
+        return rff_pair_mv(x, self.omega, u, **self._kw(backend, precision))
 
 
 def make_fourier_features(
@@ -83,8 +106,14 @@ class PriorSamples(FeatureOperator):
     def features(self, x: torch.Tensor) -> torch.Tensor:
         return self.ff.features(x)
 
-    def phi_mv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return self.ff.phi_mv(x, w)
+    def phi_mv(self, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
+        return self.ff.phi_mv(x, w, **kw)
+
+    def phi_t_mv(self, x: torch.Tensor, u: torch.Tensor, **kw) -> torch.Tensor:
+        return self.ff.phi_t_mv(x, u, **kw)
+
+    def phi_pair_mv(self, x: torch.Tensor, u: torch.Tensor, **kw) -> torch.Tensor:
+        return self.ff.phi_pair_mv(x, u, **kw)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.phi_mv(x, self.w)  # (n, s)

@@ -54,6 +54,41 @@ class SolveResult:
         return self.flags is None or not bool(torch.any((self.flags & FROZEN_FLAGS) != 0))
 
 
+@dataclasses.dataclass(frozen=True)
+class RowDraws:
+    """The random coordinate blocks of an SDD or AP solve, one row per step:
+    ``idx`` (num_steps, batch) int64 indices into the n training rows. Drawn
+    from a ``torch.Generator`` by :func:`draw_rows`, or injected (the parity
+    tests pass the reference's own ``fold_in(key, t)`` draws)."""
+
+    idx: torch.Tensor
+
+
+def draw_rows(n: int, num_steps: int, batch: int, *, generator: torch.Generator,
+              device) -> RowDraws:
+    """``num_steps`` blocks of ``batch`` uniform indices in [0, n), in one draw."""
+    return RowDraws(idx=torch.randint(0, n, (num_steps, batch), generator=generator,
+                                      device=device))
+
+
+def check_draws(idx: torch.Tensor, num_steps: int, batch: int, solver: str) -> None:
+    if tuple(idx.shape) != (num_steps, batch):
+        raise ValueError(
+            f"{solver}: injected draws hold indices of shape {tuple(idx.shape)}, "
+            f"the spec needs (num_steps, batch) = {(num_steps, batch)}"
+        )
+
+
+def frozen_update(fl: torch.Tensor, ok: torch.Tensor) -> tuple:
+    """The in-loop NONFINITE bookkeeping of the stochastic solvers: a healthy
+    column whose step is not finite gets the flag, and only columns healthy
+    and finite apply the step. Tensor ops only, no host sync.
+    Returns (flags, apply (s,) bool)."""
+    healthy = (fl & FLAG_NONFINITE) == 0
+    fl = fl | torch.where(healthy & ~ok, FLAG_NONFINITE, 0).to(torch.int32)
+    return fl, healthy & ok
+
+
 def as_matrix_rhs(b: torch.Tensor) -> tuple:
     if b.ndim == 1:
         return b[:, None], True

@@ -1,9 +1,11 @@
 """Declarative solver configuration and the single ``solve()`` entry point —
-the CG part of ``repro/core/solvers/spec.py``.
+twin of ``repro/core/solvers/spec.py`` without its preconditioner specs and
+JSON round trip.
 
 Frozen spec dataclasses describe *how* to solve; a registry maps names
-(``"cg"``) to spec classes; ``solve(op, b, spec, x0=..., delta=...)`` handles
-warm starts, backend pinning and capability checks for any
+(``"cg"``, ``"sgd"``, ``"sdd"``, ``"ap"``) to spec classes;
+``solve(op, b, spec, generator=..., draws=..., x0=..., delta=...)`` handles
+random draws, warm starts, backend pinning and capability checks for any
 :class:`~repro_torch.core.operators.LinearOperator`.
 
 The system solved is always
@@ -11,12 +13,13 @@ The system solved is always
     (K + σ²I) V = b + σ² δ
 
 where ``delta`` is an optional extra channel: pathwise sampling passes δ = ε/σ².
-CG has no native δ channel and folds σ²δ into the right-hand side, which is
-algebraically identical.
+SGD keeps δ in its regulariser (Eq. 3.6); CG, SDD and AP fold σ²δ into the
+right-hand side, which is algebraically identical.
 
-The reference's stochastic solvers (``"sgd"``, ``"sdd"``, ``"ap"``) and its
-preconditioner specs are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The stochastic solvers draw from a ``torch.Generator`` (the twin of the
+reference's PRNG key) or take injected draws (``SGDDraws``, ``RowDraws``);
+``solve()`` refuses a stochastic spec that has neither. Preconditioner specs
+are not ported yet and raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,17 +30,13 @@ import torch
 
 from ...kernels.ops import BACKENDS, FEATURE_BACKENDS, PRECISIONS
 from ..operators import require_capabilities
+from .ap import solve_ap
 from .base import SolveResult
 from .cg import solve_cg
+from .sdd import solve_sdd
+from .sgd import solve_sgd
 
 _REGISTRY: Dict[str, Type["SolverSpec"]] = {}
-
-#: reference solver names the port does not have yet → where they come from
-_NOT_PORTED = {
-    "sgd": "ROADMAP queue 1 item 8",
-    "sdd": "ROADMAP queue 1 item 8",
-    "ap": "ROADMAP queue 1 item 8",
-}
 
 
 def register_solver(name: str, cls: Optional[type] = None):
@@ -52,11 +51,7 @@ def register_solver(name: str, cls: Optional[type] = None):
 
 
 def get_solver(name: str) -> Type["SolverSpec"]:
-    """String → spec class lookup; raises on unknown or unported names."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet: {_NOT_PORTED[name]}"
-        )
+    """String → spec class lookup; raises on unknown names."""
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -73,9 +68,12 @@ class SolverSpec:
     matvec backend and tile precision for the solve."""
 
     name: ClassVar[str] = "?"
+    #: stochastic solvers need a generator or injected draws
+    requires_generator: ClassVar[bool] = False
     needs: ClassVar[Tuple[str, ...]] = ()
 
-    def run(self, op, b: torch.Tensor, *, x0: Optional[torch.Tensor] = None,
+    def run(self, op, b: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+            draws: Any = None, x0: Optional[torch.Tensor] = None,
             delta: Optional[torch.Tensor] = None) -> SolveResult:
         raise NotImplementedError
 
@@ -100,7 +98,8 @@ class CG(SolverSpec):
     # is raised on a column (advisory)
     stall_window: int = 100
 
-    def run(self, op, b, *, x0=None, delta=None) -> SolveResult:
+    def run(self, op, b, *, generator=None, draws=None, x0=None,
+            delta=None) -> SolveResult:
         if self.precond is not None:
             raise NotImplementedError(
                 "preconditioned CG is not ported yet: ROADMAP queue 1 item 5"
@@ -108,6 +107,90 @@ class CG(SolverSpec):
         return solve_cg(
             op, _fold_delta(op, b, delta), x0,
             max_iters=self.max_iters, tol=self.tol, stall_window=self.stall_window,
+        )
+
+
+@register_solver("sgd")
+@dataclasses.dataclass(frozen=True)
+class SGD(SolverSpec):
+    """Primal stochastic gradient descent (Ch. 3), the only solver with a
+    native δ channel (Eq. 3.6). Its fresh-feature regulariser samples
+    frequencies from the operator's kernel and evaluates them on its inputs,
+    so the operator must expose ``x`` and ``params``. Draws: ``SGDDraws``."""
+
+    requires_generator: ClassVar[bool] = True
+    needs: ClassVar[Tuple[str, ...]] = ("rows_mv", "rows_t_mv", "x", "params")
+
+    num_steps: int = 20_000
+    batch_size: int = 512
+    num_features: int = 100
+    step_size_times_n: float = 0.5
+    momentum: float = 0.9
+    average_tail: float = 0.5
+    grad_clip: float = 0.1
+    tol: float = 1e-2
+    backend: Optional[str] = None
+    precision: Optional[str] = None
+
+    def run(self, op, b, *, generator=None, draws=None, x0=None,
+            delta=None) -> SolveResult:
+        return solve_sgd(
+            op, b, x0, generator=generator, draws=draws,
+            num_steps=self.num_steps, batch_size=self.batch_size,
+            num_features=self.num_features,
+            step_size_times_n=self.step_size_times_n, momentum=self.momentum,
+            average_tail=self.average_tail, grad_clip=self.grad_clip,
+            delta=delta, tol=self.tol,
+        )
+
+
+@register_solver("sdd")
+@dataclasses.dataclass(frozen=True)
+class SDD(SolverSpec):
+    """Stochastic dual descent (Ch. 4, Algorithm 4.1). Draws: ``RowDraws``."""
+
+    requires_generator: ClassVar[bool] = True
+    needs: ClassVar[Tuple[str, ...]] = ("rows_mv",)
+
+    num_steps: int = 20_000
+    batch_size: int = 512
+    step_size_times_n: float = 50.0
+    momentum: float = 0.9
+    averaging: Optional[float] = None
+    tol: float = 1e-2
+    backend: Optional[str] = None
+    precision: Optional[str] = None
+
+    def run(self, op, b, *, generator=None, draws=None, x0=None,
+            delta=None) -> SolveResult:
+        return solve_sdd(
+            op, _fold_delta(op, b, delta), x0, generator=generator, draws=draws,
+            num_steps=self.num_steps, batch_size=self.batch_size,
+            step_size_times_n=self.step_size_times_n, momentum=self.momentum,
+            averaging=self.averaging, tol=self.tol,
+        )
+
+
+@register_solver("ap")
+@dataclasses.dataclass(frozen=True)
+class AP(SolverSpec):
+    """Alternating projections / randomised block-coordinate descent
+    (§5.1.1). Draws: ``RowDraws``."""
+
+    requires_generator: ClassVar[bool] = True
+    needs: ClassVar[Tuple[str, ...]] = ("rows_t_mv", "block_at")
+
+    num_steps: int = 2000
+    block_size: int = 512
+    tol: float = 1e-2
+    backend: Optional[str] = None
+    precision: Optional[str] = None
+
+    def run(self, op, b, *, generator=None, draws=None, x0=None,
+            delta=None) -> SolveResult:
+        return solve_ap(
+            op, _fold_delta(op, b, delta), x0, generator=generator, draws=draws,
+            num_steps=self.num_steps, block_size=self.block_size, tol=self.tol,
         )
 
 
@@ -151,6 +234,8 @@ def solve(
     b: torch.Tensor,
     spec: SpecLike = "cg",
     *,
+    generator: Optional[torch.Generator] = None,
+    draws: Any = None,
     x0: Optional[torch.Tensor] = None,
     delta: Optional[torch.Tensor] = None,
     **overrides: Any,
@@ -161,6 +246,10 @@ def solve(
         op: a :class:`~repro_torch.core.operators.LinearOperator`.
         b: right-hand side(s), ``(n,)`` or ``(n, s)``.
         spec: a ``SolverSpec`` instance, spec class, or registered name.
+        generator: a ``torch.Generator`` on the operator's device; a
+            stochastic solver draws from it unless ``draws`` are given.
+        draws: injected draws of a stochastic solver (``SGDDraws`` for SGD,
+            ``RowDraws`` for SDD and AP).
         x0: optional warm start, same shape as ``b``.
         delta: optional δ channel, same shape as ``b``.
         **overrides: spec-field overrides, e.g. ``solve(op, b, "cg", max_iters=50)``.
@@ -184,7 +273,12 @@ def solve(
             and getattr(op, "precision", precision) != precision
         ):
             op = dataclasses.replace(op, precision=precision)
+    if s.requires_generator and generator is None and draws is None:
+        raise ValueError(
+            f"solver {s.name!r} is stochastic: solve(..., generator=torch.Generator"
+            f"(device=...).manual_seed(...)) or injected draws= are required"
+        )
     if x0 is not None:
         _validate_x0(op, b, x0)
     require_capabilities(op, s.needs, consumer=f"solver {s.name!r}")
-    return s.run(op, b, x0=x0, delta=delta)
+    return s.run(op, b, generator=generator, draws=draws, x0=x0, delta=delta)

@@ -45,10 +45,29 @@ SIGNATURES = {
     "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, omega, w, out, n, m, d, s, stream
     "repro_rff_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, z, v, partial, n, m, d, s, kind, chunk, stream
+    "repro_gram_matvec_chunked_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # xi, x, u, workspace, out, p, n, d, s, kind, stream
+    "repro_gram_rows_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # xi, x, look, b, workspace, err, g, p, n, d, s, kind, p_true, stream
+    "repro_gram_rows_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, omega, u, workspace, t, n, m, d, s, m_true, stream
+    "repro_rff_t_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, omega, u, workspace, t, out, n, m, d, s, m_true, stream
+    "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # d, s -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I),
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I),
     "repro_rff_matvec_smem_bytes": (_I, _I),
+    "repro_rff_t_matvec_smem_bytes": (_I, _I),
+    # (p, n, s) and (n, m, s) -> floats of the partial-sum workspace
+    "repro_gram_rows_workspace_floats": (_I, _I, _I),
+    "repro_rff_t_workspace_floats": (_I, _I, _I),
+}
+#: return types other than ``int``
+RESTYPES = {
+    "repro_gram_rows_workspace_floats": ctypes.c_longlong,
+    "repro_rff_t_workspace_floats": ctypes.c_longlong,
 }
 
 
@@ -196,7 +215,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

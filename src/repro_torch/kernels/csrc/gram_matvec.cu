@@ -19,6 +19,12 @@
 // broadcasts, with the v rows read as float4. The sequential column axis of
 // the Pallas grid becomes the loop inside the CTA; ragged n, m and s edges
 // are masked by zero-filled tiles instead of padded copies of x and v.
+//
+// The same kernel also computes a matvec's column chunks into partial sums
+// (repro_gram_matvec_chunked_f32): grid.y then cuts the column loop into
+// chunks, so that few output rows still fill the card. gram_rows_pair.cu
+// sums the partials; this is the row panel K~(xi, x) @ u of the stochastic
+// solvers, where xi holds only a few hundred rows.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -54,11 +60,14 @@ __host__ inline size_t gram_smem_bytes(int sc, int d) {
   return sizeof(float) * (size_t)(tiles > reduce ? tiles : reduce);
 }
 
+// One CTA: BM output rows, column slice blockIdx.z of SC columns, and the
+// column chunk blockIdx.y of `chunk` columns (a multiple of BN), whose partial
+// sums go to out + blockIdx.y * n * s. One chunk of m columns is the matvec.
 template <int KIND, int SC>
 __global__ void __launch_bounds__(NTHREADS)
 gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ v, float* __restrict__ out,
-                   int n, int m, int d, int s) {
+                   int n, int m, int d, int s, int chunk) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int SCP = padded_width<SC>();
@@ -72,8 +81,10 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
   const int r = threadIdx.x % BM;
   const int g = threadIdx.x / BM;
   const int row0 = blockIdx.x * BM;
-  const int c0 = blockIdx.y * SC;
+  const int c0 = blockIdx.z * SC;
   const int live = min(SC, s - c0);
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(m, j_begin + chunk);
 
   load_rows(xs, x, row0, BM, n, d, dp);
   __syncthreads();
@@ -84,10 +95,10 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
   for (int c = 0; c < SC; ++c) acc[c] = 0.0f;
 
   const float* xr = xs + r * dp;
-  for (int j0 = 0; j0 < m; j0 += BN) {
+  for (int j0 = j_begin; j0 < j_end; j0 += BN) {
     __syncthreads();  // the previous tile is consumed
-    load_rows(zs, z, j0, BN, m, d, d);
-    load_w_tile<SC>(vs, v, j0, m, s, c0, live);
+    load_rows(zs, z, j0, BN, j_end, d, d);
+    load_w_tile<SC>(vs, v, j0, j_end, s, c0, live);
     __syncthreads();
     if (threadIdx.x < BN) zn[threadIdx.x] = sq_norm(zs + threadIdx.x * d, d);
     __syncthreads();
@@ -99,12 +110,14 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
     }
   }
   __syncthreads();  // every tile read: the reduction may reuse the buffer
-  reduce_and_store<SC>(acc, smem, out, row0, n, s, c0, live, 1.0f);
+  reduce_and_store<SC>(acc, smem, out + (size_t)blockIdx.y * n * s, row0, n,
+                       s, c0, live, 1.0f);
 }
 
 template <int KIND, int SC>
 cudaError_t launch(const float* x, const float* z, const float* v, float* out,
-                   int n, int m, int d, int s, cudaStream_t stream) {
+                   int n, int m, int d, int s, int chunk,
+                   cudaStream_t stream) {
   const size_t bytes = gram_smem_bytes(SC, d);
   auto kernel = gram_matvec_kernel<KIND, SC>;
   if (bytes > 48 * 1024) {
@@ -112,28 +125,43 @@ cudaError_t launch(const float* x, const float* z, const float* v, float* out,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((n + BM - 1) / BM, (s + SC - 1) / SC);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(x, z, v, out, n, m, d, s);
+  const dim3 grid((n + BM - 1) / BM, (m + chunk - 1) / chunk, (s + SC - 1) / SC);
+  kernel<<<grid, NTHREADS, bytes, stream>>>(x, z, v, out, n, m, d, s, chunk);
   return cudaGetLastError();
 }
 
 template <int KIND>
 cudaError_t dispatch_width(const float* x, const float* z, const float* v,
-                           float* out, int n, int m, int d, int s,
+                           float* out, int n, int m, int d, int s, int chunk,
                            cudaStream_t st) {
   switch (pick_sc(s)) {
-    case 1: return launch<KIND, 1>(x, z, v, out, n, m, d, s, st);
-    case 2: return launch<KIND, 2>(x, z, v, out, n, m, d, s, st);
-    case 4: return launch<KIND, 4>(x, z, v, out, n, m, d, s, st);
-    case 8: return launch<KIND, 8>(x, z, v, out, n, m, d, s, st);
-    case 16: return launch<KIND, 16>(x, z, v, out, n, m, d, s, st);
-    case 24: return launch<KIND, 24>(x, z, v, out, n, m, d, s, st);
-    case 32: return launch<KIND, 32>(x, z, v, out, n, m, d, s, st);
-    case 48: return launch<KIND, 48>(x, z, v, out, n, m, d, s, st);
-    case 64: return launch<KIND, 64>(x, z, v, out, n, m, d, s, st);
-    case 72: return launch<KIND, 72>(x, z, v, out, n, m, d, s, st);
-    case 96: return launch<KIND, 96>(x, z, v, out, n, m, d, s, st);
-    default: return launch<KIND, kMaxSC>(x, z, v, out, n, m, d, s, st);
+    case 1: return launch<KIND, 1>(x, z, v, out, n, m, d, s, chunk, st);
+    case 2: return launch<KIND, 2>(x, z, v, out, n, m, d, s, chunk, st);
+    case 4: return launch<KIND, 4>(x, z, v, out, n, m, d, s, chunk, st);
+    case 8: return launch<KIND, 8>(x, z, v, out, n, m, d, s, chunk, st);
+    case 16: return launch<KIND, 16>(x, z, v, out, n, m, d, s, chunk, st);
+    case 24: return launch<KIND, 24>(x, z, v, out, n, m, d, s, chunk, st);
+    case 32: return launch<KIND, 32>(x, z, v, out, n, m, d, s, chunk, st);
+    case 48: return launch<KIND, 48>(x, z, v, out, n, m, d, s, chunk, st);
+    case 64: return launch<KIND, 64>(x, z, v, out, n, m, d, s, chunk, st);
+    case 72: return launch<KIND, 72>(x, z, v, out, n, m, d, s, chunk, st);
+    case 96: return launch<KIND, 96>(x, z, v, out, n, m, d, s, chunk, st);
+    default: return launch<KIND, kMaxSC>(x, z, v, out, n, m, d, s, chunk, st);
+  }
+}
+
+cudaError_t dispatch_kind(const float* x, const float* z, const float* v,
+                          float* out, int n, int m, int d, int s, int kind,
+                          int chunk, cudaStream_t st) {
+  switch (kind) {
+    case kSE: return dispatch_width<kSE>(x, z, v, out, n, m, d, s, chunk, st);
+    case kMatern12:
+      return dispatch_width<kMatern12>(x, z, v, out, n, m, d, s, chunk, st);
+    case kMatern32:
+      return dispatch_width<kMatern32>(x, z, v, out, n, m, d, s, chunk, st);
+    case kMatern52:
+      return dispatch_width<kMatern52>(x, z, v, out, n, m, d, s, chunk, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -150,17 +178,24 @@ extern "C" int repro_gram_matvec_f32(const float* x, const float* z,
   using namespace repro_torch;
   if (n < 1 || m < 1 || s < 1 || d < 1 || d > kMaxDim)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kSE: return (int)dispatch_width<kSE>(x, z, v, out, n, m, d, s, st);
-    case kMatern12:
-      return (int)dispatch_width<kMatern12>(x, z, v, out, n, m, d, s, st);
-    case kMatern32:
-      return (int)dispatch_width<kMatern32>(x, z, v, out, n, m, d, s, st);
-    case kMatern52:
-      return (int)dispatch_width<kMatern52>(x, z, v, out, n, m, d, s, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_kind(x, z, v, out, n, m, d, s, kind, m,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The same matvec in column chunks of `chunk` columns (a multiple of 64):
+// partial (ceil(m / chunk), n, s) receives each chunk's K~(x, z_chunk) @
+// v_chunk, to be summed by the caller. Same requirements and return value.
+extern "C" int repro_gram_matvec_chunked_f32(const float* x, const float* z,
+                                             const float* v, float* partial,
+                                             int n, int m, int d, int s,
+                                             int kind, int chunk,
+                                             void* stream) {
+  using namespace repro_torch;
+  if (n < 1 || m < 1 || s < 1 || d < 1 || d > kMaxDim || chunk < BN ||
+      chunk % BN != 0 || (m + chunk - 1) / chunk > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_kind(x, z, v, partial, n, m, d, s, kind, chunk,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory per CTA of a launch with these d and s, in bytes.

@@ -1,5 +1,6 @@
-"""Fused Gram matvec and its backward — the CUDA kernels ``csrc/gram_matvec.cu``
-and ``csrc/gram_matvec_bwd.cu`` and their wrappers.
+"""Fused Gram matvec, its backward and the row-panel kernels — the CUDA kernels
+``csrc/gram_matvec.cu``, ``csrc/gram_matvec_bwd.cu`` and
+``csrc/gram_rows_pair.cu`` and their wrappers.
 
 ``gram_matvec(x, z, v, kind=...)`` computes K̃(x, z) @ v: the unit-signal,
 jitter-free covariance core of already lengthscale-scaled inputs, the twin of
@@ -9,6 +10,11 @@ outside the core, as in the reference. Its backward is the reference's fused
 VJP: dv = K̃(z, x) @ ḡ by the forward kernel with swapped operands, and dx and
 dz by ``gram_matvec_bwd`` (the twin of ``gram_matvec_bwd_pallas``), each only
 where autograd asks for it.
+
+``gram_rows_matvec(xi, x, u)`` is the row panel K̃(xi, x) @ u of a few hundred
+gathered rows (SDD's ``rows_mv``), and ``gram_rows_pair(xi, x, look, b)`` the
+SGD pair err = K̃(xi, x) @ look − b, g = K̃(xi, x)ᵀ @ err, twin of
+``gram_rows_pair_fused`` with its composed VJP.
 
 A CUDA tensor launches the kernels or raises. CPU tensors go through the same
 autograd Function with the plain versions (``ref.gram_matvec_ref``,
@@ -22,7 +28,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .ref import gram_matvec_bwd_ref, gram_matvec_ref
+from .ref import (
+    gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
+)
 
 #: kernel kinds the CUDA kernel implements (tanimoto has no distance form)
 CUDA_KINDS = ("se", "matern12", "matern32", "matern52")
@@ -189,5 +197,158 @@ class GramMatvecBwd:
         return out
 
 
+def _check_chain(name, xi, x, u):
+    (p, d), (n, dx), (nu, _) = xi.shape, x.shape, u.shape
+    if dx != d or nu != n:
+        raise ValueError(
+            f"{name}: shapes xi {tuple(xi.shape)}, x {tuple(x.shape)}, "
+            f"u {tuple(u.shape)} do not chain"
+        )
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"{name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
+
+
+class GramRowsMatvec:
+    """The wrapper of the row-panel matvec (``repro_gram_rows_matvec_f32``:
+    the Gram kernel over column chunks, then a fixed-order sum of the chunks).
+    ``launches`` counts the launches it made (never the plain version's
+    calls). Differentiable in xi, x and u through ``_GramMatvecFn``."""
+
+    name = "gram_rows_matvec"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, xi: torch.Tensor, x: torch.Tensor, u: torch.Tensor, *,
+                 kind: str = "se") -> torch.Tensor:
+        """xi:(p,d) x:(n,d) u:(n,s) → (p,s), inputs pre-scaled by 1/ℓ."""
+        check_kind(kind)
+        if all(t.device.type == "cpu" for t in (xi, x, u)):
+            return _GramMatvecFn.apply(xi, x, u, kind, gram_rows_matvec_ref,
+                                       gram_matvec_bwd_ref)
+        return _GramMatvecFn.apply(xi, x, u, kind, self._launch, gram_matvec_bwd)
+
+    @staticmethod
+    def workspace_floats(p: int, n: int, s: int) -> int:
+        """Floats of the (chunks, p, s) partial-sum workspace of a launch."""
+        return _build.library().repro_gram_rows_workspace_floats(p, n, s)
+
+    def _launch(self, xi, x, u, *, kind):
+        check_operands(self.name, xi, x, u)
+        _check_chain(self.name, xi, x, u)
+        (p, d), n, s = xi.shape, x.shape[0], u.shape[1]
+        out = torch.empty((p, s), dtype=torch.float32, device=x.device)
+        if p == 0 or s == 0:
+            return out
+        if n == 0:
+            return out.zero_()
+        ws = torch.empty(self.workspace_floats(p, n, s), dtype=torch.float32,
+                         device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _build.library().repro_gram_rows_matvec_f32(
+                xi.data_ptr(), x.data_ptr(), u.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), p, n, d, s, CUDA_KINDS.index(kind), stream,
+            )
+        _build.check(err, self.name)
+        self.launches += 1
+        return out
+
+
+class _GramRowsPairFn(torch.autograd.Function):
+    """(err, g) = (A @ look − b masked to p_true rows, Aᵀ @ err), A = K̃(xi, x),
+    with the reference's composed VJP (``gram_matvec.py:464-489`` there): with
+    ê = ē + A ḡ masked like err, dlook = Aᵀ ê, db = −ê, and dA = ê lookᵀ + err ḡᵀ,
+    a rank-2s product the Gram backward takes on the concatenated factors.
+    ``ops`` holds the implementations: the kernels' wrappers, or the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, xi, x, look, b, kind, p_true, ops):
+        err, g = ops["pair"](xi, x, look, b, kind=kind, p_true=p_true)
+        ctx.save_for_backward(xi, x, look, err)
+        ctx.kind, ctx.p_true, ctx.ops = kind, p_true, ops
+        return err, g
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, e_bar, g_bar):
+        xi, x, look, err = ctx.saved_tensors
+        ops, kind = ctx.ops, ctx.kind
+        e_bar = torch.zeros_like(err) if e_bar is None else e_bar.contiguous()
+        g_bar = torch.zeros_like(look) if g_bar is None else g_bar.contiguous()
+        keep = (torch.arange(xi.shape[0], device=xi.device) < ctx.p_true)[:, None]
+        ehat = torch.where(keep, e_bar + ops["rows"](xi, x, g_bar, kind=kind),
+                           torch.zeros_like(err))
+        need_xi, need_x, need_look, need_b = ctx.needs_input_grad[:4]
+        dlook = ops["mv"](x, xi, ehat, kind=kind) if need_look else None
+        db = -ehat if need_b else None
+        dxi = dx = None
+        if need_xi or need_x:
+            rowv = torch.cat([ehat, err], dim=1).contiguous()  # (p, 2s)
+            colv = torch.cat([look, g_bar], dim=1).contiguous()  # (n, 2s)
+            dxi = ops["bwd"](xi, x, rowv, colv, kind=kind) if need_xi else None
+            dx = ops["bwd"](x, xi, colv, rowv, kind=kind) if need_x else None
+        return dxi, dx, dlook, db, None, None, None
+
+
+_PLAIN_PAIR_OPS = dict(pair=gram_rows_pair_ref, rows=gram_rows_matvec_ref,
+                       mv=gram_matvec_ref, bwd=gram_matvec_bwd_ref)
+
+
+class GramRowsPair:
+    """The wrapper of the fused pair step (``repro_gram_rows_pair_f32``: the
+    row panel's matvec, the chunk sum minus b, then the Gram kernel on
+    (x, xi, err); three launches on one stream). ``launches`` counts the pair
+    launches it made (never the plain version's calls, nor its backward's)."""
+
+    name = "gram_rows_pair"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor,
+                 b: torch.Tensor, *, kind: str = "se", p_true=None) -> tuple:
+        """xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → (err (p,s), g (n,s)), inputs
+        pre-scaled by 1/ℓ; err rows ≥ ``p_true`` (default p) are zeroed."""
+        check_kind(kind)
+        p_true = xi.shape[0] if p_true is None else int(p_true)
+        if all(t.device.type == "cpu" for t in (xi, x, look, b)):
+            ops = _PLAIN_PAIR_OPS
+        else:
+            ops = dict(pair=self._launch, rows=gram_rows_matvec._launch,
+                       mv=gram_matvec._launch, bwd=gram_matvec_bwd)
+        return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops)
+
+    def _launch(self, xi, x, look, b, *, kind, p_true):
+        check_operands(self.name, xi, x, look, b)
+        _check_chain(self.name, xi, x, look)
+        (p, d), n, s = xi.shape, x.shape[0], look.shape[1]
+        if tuple(b.shape) != (p, s):
+            raise ValueError(f"{self.name}: b has shape {tuple(b.shape)}, needs {(p, s)}")
+        if not 0 <= p_true <= p:
+            raise ValueError(f"{self.name}: needs 0 <= p_true <= p = {p}, got {p_true}")
+        err = torch.empty((p, s), dtype=torch.float32, device=x.device)
+        g = torch.empty((n, s), dtype=torch.float32, device=x.device)
+        if p == 0 or n == 0 or s == 0:
+            keep = (torch.arange(p, device=x.device) < p_true)[:, None]
+            err = torch.where(keep, -b, torch.zeros_like(b))
+            return err, g.zero_()
+        ws = torch.empty(gram_rows_matvec.workspace_floats(p, n, s),
+                         dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = _build.library().repro_gram_rows_pair_f32(
+                xi.data_ptr(), x.data_ptr(), look.data_ptr(), b.data_ptr(),
+                ws.data_ptr(), err.data_ptr(), g.data_ptr(), p, n, d, s,
+                CUDA_KINDS.index(kind), p_true, stream,
+            )
+        _build.check(code, self.name)
+        self.launches += 1
+        return err, g
+
+
 gram_matvec = GramMatvec()
 gram_matvec_bwd = GramMatvecBwd()
+gram_rows_matvec = GramRowsMatvec()
+gram_rows_pair = GramRowsPair()

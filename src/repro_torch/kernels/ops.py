@@ -12,14 +12,20 @@ Every Gram matvec goes through :func:`gram_mv`, dispatching on ``backend``:
 * ``"auto"``    — ``cuda`` for tensors on the card, ``chunked`` for CPU
   tensors; always ``chunked`` for ``tanimoto``.
 
-Every feature matvec Φ(x) @ w goes through :func:`rff_mv`, on ``"cuda"``
-(fused, the (n, 2m) feature matrix never in device memory), ``"features"``
-(materialise Φ) or ``"auto"``; the Gram names ``chunked``/``dense`` coerce to
-``features``. ``"pallas"`` names the reference's TPU kernels and raises with a
-pointer to ``"cuda"``.
+Row-panel matvecs go through :func:`gram_rows_matvec` (K[idx, :] @ u, or its
+transpose) and :func:`gram_rows_pair` (SGD's err/g pair, counted as two
+matvecs), on the same backends.
+
+Every feature matvec Φ(x) @ w goes through :func:`rff_mv`, its transpose
+Φ(x)ᵀ @ u through :func:`rff_t_mv`, and the pair Φ(Φᵀu) through
+:func:`rff_pair_mv` (counted as two), on ``"cuda"`` (fused, the (n, 2m)
+feature matrix never in device memory), ``"features"`` (materialise Φ) or
+``"auto"``; the Gram names ``chunked``/``dense`` coerce to ``features``.
+``"pallas"`` names the reference's TPU kernels and raises with a pointer to
+``"cuda"``.
 
 σ_f², 1/ℓ and the jitter are applied here, outside the kernel cores, as in the
-reference (``ops.py:150-163,200-204,381`` there).
+reference (``ops.py:150-163,200-204,287-297,381,496`` there).
 
 ``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
 backend dispatched (every call is eager in PyTorch), so a run can show that its
@@ -29,8 +35,10 @@ from __future__ import annotations
 
 import torch
 
-from .gram_matvec import CUDA_KINDS, gram_matvec
-from .rff_matvec import rff_matvec
+from .gram_matvec import (
+    CUDA_KINDS, gram_matvec, gram_rows_matvec as _rows_kernel, gram_rows_pair as _pair_kernel,
+)
+from .rff_matvec import rff_matvec, rff_pair, rff_t_matvec
 
 BACKENDS = ("auto", "cuda", "chunked", "dense")
 FEATURE_BACKENDS = ("auto", "cuda", "features")
@@ -64,7 +72,7 @@ def check_precision(precision: str) -> None:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     if precision == "bf16":
         raise NotImplementedError(
-            "precision='bf16' is not ported yet: ROADMAP queue 1 item 8"
+            "precision='bf16' is not ported yet: ROADMAP queue 1 item 15"
         )
 
 
@@ -129,6 +137,77 @@ def gram_mv(
     return out[:, 0] if squeeze else out
 
 
+def gram_rows_matvec(
+    params,
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    transpose: bool = False,
+    backend: str = "auto",
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Row-block matvec: K[idx, :] @ u, or K[idx, :]ᵀ @ u with ``transpose``
+    — the SGD/SDD/AP primitive. u: (n, s) (or (|idx|, s) with ``transpose``).
+
+    On ``cuda`` the (|idx|, n) panel never exists in device memory: the
+    forward is the row-panel kernel (column chunks across CTAs), and the
+    transpose is the Gram kernel on (x, x[idx]), counted by ``gram_mv``. The
+    chunked/dense backends build the panel once per call, as the reference's.
+    """
+    from ..core.kernels_fn import gram  # deferred: core imports kernels
+
+    bk = resolve_backend(backend, params.kind, x.device)
+    check_precision(precision)
+    if bk == "cuda" and transpose:
+        return gram_mv(params, x, u, z=x[idx], backend="cuda", precision=precision)
+    MATVEC_TRACE_COUNTS[bk] += 1
+    squeeze = u.ndim == 1
+    u2 = u[:, None] if squeeze else u
+    if bk == "cuda":
+        xs = (x / params.lengthscale).contiguous()
+        out = params.signal * _rows_kernel(xs[idx].contiguous(), xs, u2.contiguous(),
+                                           kind=params.kind)
+    else:
+        panel = gram(params, x[idx], x)  # (|idx|, n)
+        out = panel.T @ u2 if transpose else panel @ u2
+    return out[:, 0] if squeeze else out
+
+
+def gram_rows_pair(
+    params,
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    look: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    backend: str = "auto",
+    precision: str = "fp32",
+) -> tuple:
+    """The SGD pair step: err = K[idx,:] @ look − b and g = K[idx,:]ᵀ @ err in
+    one dispatch, counted as TWO row-block matvecs (the two calls it replaces).
+    look: (n, s); b: (|idx|, s) → ((|idx|, s), (n, s)). Differentiable in θ
+    on every backend.
+
+    On ``cuda`` the unit-signal core takes b/σ_f²: err = σ_f²·err_u and
+    g = σ_f⁴·g_u, with σ_f² outside the kernel as in the reference. The
+    chunked/dense backends build the panel once and use it twice.
+    """
+    from ..core.kernels_fn import gram  # deferred: core imports kernels
+
+    bk = resolve_backend(backend, params.kind, x.device)
+    check_precision(precision)
+    MATVEC_TRACE_COUNTS[bk] += 2
+    if bk == "cuda":
+        xs = (x / params.lengthscale).contiguous()
+        err_u, g_u = _pair_kernel(xs[idx].contiguous(), xs, look.contiguous(),
+                                  (b / params.signal).contiguous(), kind=params.kind)
+        return params.signal * err_u, params.signal ** 2 * g_u
+    panel = gram(params, x[idx], x)  # (|idx|, n), built once, used twice
+    err = panel @ look - b
+    return err, panel.T @ err
+
+
 def resolve_feature_backend(backend: str, device: torch.device) -> str:
     """Normalise a feature-matvec backend request. The Gram names
     ``chunked``/``dense`` coerce to ``features``, so a spec's single
@@ -160,10 +239,12 @@ def rff_mv(
     *,
     signal=1.0,
     backend: str = "auto",
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """Φ(x) @ w through the selected feature backend — THE feature matvec entry
     point. x:(n,d) ω:(m,d) w:(2m,) or (2m,s) → (n, s-like)."""
     bk = resolve_feature_backend(backend, x.device)
+    check_precision(precision)
     FEATURE_TRACE_COUNTS[bk] += 1
     signal = torch.as_tensor(signal, dtype=x.dtype, device=x.device)
     squeeze = w.ndim == 1
@@ -175,4 +256,59 @@ def rff_mv(
         )
     else:
         out = materialised_features(x, omega, signal) @ w2
+    return out[:, 0] if squeeze else out
+
+
+def rff_t_mv(
+    x: torch.Tensor,
+    omega: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    signal=1.0,
+    backend: str = "auto",
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Φ(x)ᵀ @ u through the selected feature backend — the transposed feature
+    matvec. x:(n,d) ω:(m,d) u:(n,) or (n,s) → (2m, s-like), sin rows first."""
+    bk = resolve_feature_backend(backend, x.device)
+    check_precision(precision)
+    FEATURE_TRACE_COUNTS[bk] += 1
+    signal = torch.as_tensor(signal, dtype=x.dtype, device=x.device)
+    squeeze = u.ndim == 1
+    u2 = u[:, None] if squeeze else u
+    if bk == "cuda":
+        out = torch.sqrt(signal) * rff_t_matvec(
+            x.contiguous(), omega.contiguous(), u2.contiguous()
+        )
+    else:
+        out = materialised_features(x, omega, signal).T @ u2
+    return out[:, 0] if squeeze else out
+
+
+def rff_pair_mv(
+    x: torch.Tensor,
+    omega: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    signal=1.0,
+    backend: str = "auto",
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Φ(x) (Φ(x)ᵀ u) — the SGD regulariser (Eq. 3.3) in ONE dispatch,
+    counted as TWO feature matvecs. On ``cuda`` the (2m, s) intermediate stays
+    in a device buffer between the pair kernel's phases and Φ is never
+    materialised; on ``features`` Φ is built once and used twice.
+    x:(n,d) ω:(m,d) u:(n,) or (n,s) → (n, s-like)."""
+    bk = resolve_feature_backend(backend, x.device)
+    check_precision(precision)
+    FEATURE_TRACE_COUNTS[bk] += 2
+    signal = torch.as_tensor(signal, dtype=x.dtype, device=x.device)
+    squeeze = u.ndim == 1
+    u2 = u[:, None] if squeeze else u
+    if bk == "cuda":
+        # the core's two √(1/m) factors give 1/m; σ_f² is applied here
+        out = signal * rff_pair(x.contiguous(), omega.contiguous(), u2.contiguous())
+    else:
+        feats = materialised_features(x, omega, signal)  # built once, used twice
+        out = feats @ (feats.T @ u2)
     return out[:, 0] if squeeze else out

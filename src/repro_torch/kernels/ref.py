@@ -55,6 +55,16 @@ def sqdist(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.clamp(xn + zn - 2.0 * (x @ z.T), min=0.0)
 
 
+def sqdist_diff(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Squared distances summed from coordinate differences, one coordinate at
+    a time: exactly 0 for coincident points on every device and dtype, as the
+    kernels' shared FMA order makes theirs (no (rows, m, d) temporary)."""
+    out = torch.zeros((x.shape[0], z.shape[0]), dtype=x.dtype, device=x.device)
+    for k in range(x.shape[1]):
+        out += (x[:, k, None] - z[None, :, k]) ** 2
+    return out
+
+
 def gram_matvec_ref(
     x: torch.Tensor,
     z: torch.Tensor,
@@ -100,9 +110,7 @@ def gram_matvec_bwd_ref(
     out = []
     for i in range(0, x.shape[0], row_chunk):
         xc = x[i:i + row_chunk]
-        raw = torch.zeros((xc.shape[0], z.shape[0]), dtype=x.dtype, device=x.device)
-        for k in range(x.shape[1]):  # one coordinate at a time: no (rows, m, d) temporary
-            raw += (xc[:, k, None] - z[None, :, k]) ** 2
+        raw = sqdist_diff(xc, z)
         mask = (raw > 0).to(raw.dtype)
         if kind != "matern12":
             mask = mask + 0.5 * (raw == 0).to(raw.dtype)
@@ -118,3 +126,60 @@ def rff_matvec_ref(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor) -> tor
     proj = x @ omega.T
     phi = math.sqrt(1.0 / m) * torch.cat([torch.sin(proj), torch.cos(proj)], -1)
     return phi @ w
+
+
+def gram_rows_matvec_ref(xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor, *,
+                         kind: str = "se") -> torch.Tensor:
+    """K̃(xi, x) @ look: the row panel's matvec with unit signal, inputs
+    pre-scaled by 1/ℓ. xi:(p,d) x:(n,d) look:(n,s) → (p,s)."""
+    return stationary_map(sqdist_diff(xi, x), kind) @ look
+
+
+def gram_rows_pair_ref(
+    xi: torch.Tensor,
+    x: torch.Tensor,
+    look: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    kind: str = "se",
+    p_true=None,
+) -> tuple:
+    """err = K̃(xi, x) @ look − b with rows ≥ ``p_true`` zeroed, and
+    g = K̃(xi, x)ᵀ @ err, from ONE panel — ``gram_rows_pair_pallas``'s
+    semantics (unit signal, inputs pre-scaled by 1/ℓ).
+    xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → ((p,s), (n,s))."""
+    p = xi.shape[0]
+    p_true = p if p_true is None else p_true
+    panel = stationary_map(sqdist_diff(xi, x), kind)  # (p, n), built once
+    err = panel @ look - b
+    keep = (torch.arange(p, device=xi.device) < p_true)[:, None]
+    err = torch.where(keep, err, torch.zeros_like(err))
+    return err, panel.T @ err
+
+
+def _proj_features(x: torch.Tensor, omega: torch.Tensor) -> tuple:
+    proj = x @ omega.T
+    return torch.sin(proj), torch.cos(proj)
+
+
+def rff_t_matvec_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
+                     m_true=None) -> torch.Tensor:
+    """Φ(x)ᵀ @ u with paired sin/cos features, unit signal, scale √(1/m) of
+    the (possibly padded) m, sin rows first, rows of frequencies ≥ ``m_true``
+    zeroed in both halves. x:(n,d) ω:(m,d) u:(n,s) → (2m,s)."""
+    m = omega.shape[0]
+    m_true = m if m_true is None else m_true
+    sn, cs = _proj_features(x, omega)
+    scale = math.sqrt(1.0 / m)
+    t = scale * torch.cat([sn.T @ u, cs.T @ u], dim=0)
+    keep = (torch.arange(2 * m, device=x.device) % m < m_true)[:, None]
+    return torch.where(keep, t, torch.zeros_like(t))
+
+
+def rff_pair_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
+                 m_true=None) -> torch.Tensor:
+    """Φ̃(Φ̃ᵀu) with Φ̃ = √(1/m)·[sin | cos] of the (possibly padded) m, the
+    intermediate's rows of frequencies ≥ ``m_true`` zeroed (a zero frequency's
+    cos is 1: its row would be Σᵢuᵢ, not 0) — ``rff_pair_pallas``'s semantics.
+    x:(n,d) ω:(m,d) u:(n,s) → (n,s)."""
+    return rff_matvec_ref(x, omega, rff_t_matvec_ref(x, omega, u, m_true=m_true))

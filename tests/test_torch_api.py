@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro.data.pipeline import regression_dataset as jregression_dataset
 from repro_torch.core import CG, IterativeGP, exact_posterior
+from repro_torch.core.solvers import as_spec
 from repro_torch.data.pipeline import UCI_SHAPES, regression_dataset
 from repro_torch.device import resolve_device
 
@@ -75,8 +76,15 @@ def test_paths_outside_the_slice_raise():
     gp = IterativeGP(device="cpu").fit(x, y)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         gp.engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        IterativeGP(spec="sdd", device="cpu")
+    # the stochastic solvers are ported: "sgd", "sdd" and "ap" run end to end
+    # (SDD at a step size for n = 50: the paper's 50/n is for large n)
+    for name, kw in (("sgd", dict(batch_size=16)),
+                     ("sdd", dict(batch_size=16, step_size_times_n=1.0)),
+                     ("ap", dict(block_size=16))):
+        spec = as_spec(name, num_steps=20, **kw)
+        mean, var = IterativeGP(spec=spec, device="cpu").fit(x, y).predict(x[:5])
+        assert mean.shape == var.shape == (5,)
+        assert bool(torch.isfinite(mean).all() and torch.isfinite(var).all())
     with pytest.raises(RuntimeError, match="fit"):
         IterativeGP(device="cpu").predict(x)
 

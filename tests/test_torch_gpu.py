@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
-the fit → predict and MLL-optimisation paths through the kernels against the
-same paths on the CPU.
+the fit → predict, MLL-optimisation and stochastic-solver paths through the
+kernels against the same paths on the CPU.
 
 Every test is marked ``gpu`` and skips without a card, deciding inside the
 ``card`` fixture. This file imports neither JAX nor the reference package, so
@@ -22,9 +22,17 @@ from repro_torch.core import (
 from repro_torch.core.mll import draw_mll
 from repro_torch.data.pipeline import regression_dataset
 from repro_torch.kernels import ops
-from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, plain_gram_matvec
-from repro_torch.kernels.ref import gram_matvec_bwd_ref, gram_matvec_ref, rff_matvec_ref
-from repro_torch.kernels.rff_matvec import rff_matvec
+from repro_torch.core.operators import Gram
+from repro_torch.core.solvers import AP, SDD, SGD, RowDraws, SGDDraws, solve
+from repro_torch.core.solvers.sgd import draw_sgd
+from repro_torch.kernels.gram_matvec import (
+    gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair, plain_gram_matvec,
+)
+from repro_torch.kernels.ref import (
+    gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
+    rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref,
+)
+from repro_torch.kernels.rff_matvec import rff_matvec, rff_pair, rff_t_matvec
 
 KINDS = ["se", "matern12", "matern32", "matern52"]
 #: the reference's own kernel tolerances (tests/test_kernels_pallas.py:23,57),
@@ -33,6 +41,11 @@ GRAM_TOL = 2e-4
 RFF_TOL = 1e-4
 #: the reference's fused-VJP tolerance (tests/test_kernels_pallas.py:131-134)
 GRAD_TOL = 1e-4
+#: the reference's pair tolerances (tests/test_pair_and_precision.py:62,75)
+PAIR_TOL, PAIR_GRAD_TOL = 3e-4, 2e-3
+#: the reference's fused-vs-features tolerance after 200 SGD steps
+#: (tests/test_features.py:283)
+ROUTE_TOL = 2e-3
 
 
 @pytest.fixture
@@ -129,11 +142,20 @@ def test_kernels_count_launches_and_refuse_gradients(card):
     assert gram_matvec.launches == before + 1
     out.sum().backward()  # dx and dz, no dv: v needs no gradient
     assert (gram_matvec.launches, gram_matvec_bwd.launches) == (before + 1, before_bwd + 2)
-    omega, w = _normal(3, 8, 3), _normal(4, 16, 2)
-    before = rff_matvec.launches
-    out = rff_matvec(x, omega, w)
+    # the RFF matvec's ∂w is the transposed kernel, against the plain version;
+    # ∂x (and ∂ω) still need the RFF backward kernel
+    omega, w = _normal(3, 8, 3), _normal(4, 16, 2).requires_grad_()
+    u = _normal(5, 100, 2)
+    before, before_t = rff_matvec.launches, rff_t_matvec.launches
+    out = rff_matvec(x.detach(), omega, w)
     assert rff_matvec.launches == before + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 items 3 and 7"):
+    (dw,) = torch.autograd.grad(torch.sum(u * out), [w])
+    assert rff_t_matvec.launches == before_t + 1
+    want = rff_t_matvec_ref(x.detach().double(), omega.double(), u.double())
+    err, scale = _max_err(dw, want)
+    assert err <= RFF_TOL * scale
+    out = rff_matvec(x, omega, w)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 7"):
         out.sum().backward()
 
 
@@ -203,3 +225,119 @@ def test_optimize_on_card_matches_cpu(card):
     for name in ("log_lengthscale", "log_signal", "log_noise"):
         a, b = getattr(on_card.params, name).cpu(), getattr(on_cpu.params, name)
         assert float((a - b).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("p,p_true,s", [(70, 63, 5), (512, 505, 65)])
+def test_gram_rows_kernels_match_plain_on_card(card, kind, p, p_true, s):
+    # the row-panel pair and rows matvec against their plain versions in
+    # float64, at n over three column chunks, ragged p, one launch each
+    n = 3000
+    x = _normal(1, n, 3)
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, n, size=p)).cuda()
+    xi, look, b = x[idx].contiguous(), _normal(3, n, s), _normal(4, p, s)
+    before = (gram_rows_pair.launches, gram_rows_matvec.launches)
+    err, g = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true)
+    mv = gram_rows_matvec(xi, x, look, kind=kind)
+    assert (gram_rows_pair.launches, gram_rows_matvec.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    want_e, want_g = gram_rows_pair_ref(xi.double(), x.double(), look.double(), b.double(),
+                                        kind=kind, p_true=p_true)
+    want_mv = gram_rows_matvec_ref(xi.double(), x.double(), look.double(), kind=kind)
+    for got, want in ((err, want_e), (g, want_g), (mv, want_mv)):
+        e, scale = _max_err(got, want)
+        assert e <= GRAM_TOL * scale
+    assert bool((err[p_true:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,m_true", [(100, 100), (128, 100), (1024, 1024)])
+@pytest.mark.parametrize("s", [1, 65])
+def test_rff_t_and_pair_kernels_match_plain_on_card(card, m, m_true, s):
+    n = 5000
+    x, u = _normal(1, n, 9), _normal(2, n, s)
+    omega = _normal(3, m, 9, scale=0.8)
+    omega[m_true:] = 0.0  # padded frequencies: cos = 1, masked by m_true
+    before = (rff_t_matvec.launches, rff_pair.launches)
+    t = rff_t_matvec(x, omega, u, m_true=m_true)
+    out = rff_pair(x, omega, u, m_true=m_true)
+    assert (rff_t_matvec.launches, rff_pair.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((t, rff_t_matvec_ref(x.double(), omega.double(), u.double(),
+                                           m_true=m_true)),
+                      (out, rff_pair_ref(x.double(), omega.double(), u.double(),
+                                         m_true=m_true))):
+        e, scale = _max_err(got, want)
+        assert e <= RFF_TOL * scale
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 7"):
+        rff_pair(x, omega, u.requires_grad_()).sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["se", "matern32"])
+def test_gram_rows_pair_grads_match_plain_on_card(card, kind):
+    # the pair's VJP through the kernels (rows matvec, Gram forward, Gram
+    # backward) against the same Function with the plain versions in float64
+    n, p, s = 2000, 70, 3
+    x = _normal(1, n, 3)
+    idx = torch.from_numpy(np.random.default_rng(4).integers(0, n, size=p)).cuda()
+    look, b, cot = _normal(2, n, s), _normal(3, p, s), _normal(5, n, s)
+    got, want = [], []
+    for dt, sink in ((torch.float32, got), (torch.float64, want)):
+        xs = x.to(dt).detach().requires_grad_()
+        lk = look.to(dt).detach().requires_grad_()
+        bb = b.to(dt).detach().requires_grad_()
+        xi = xs[idx]
+        if dt == torch.float32:
+            err, g = gram_rows_pair(xi.contiguous(), xs, lk, bb, kind=kind, p_true=p - 5)
+        else:  # the plain versions behind the same Function: CPU tensors
+            err, g = gram_rows_pair(xi.cpu(), xs.cpu(), lk.cpu(), bb.cpu(), kind=kind,
+                                    p_true=p - 5)
+        loss = torch.sum(err ** 2) + torch.sum(cot.to(dt).to(g.device) * g)
+        sink.extend(t.double().cpu() for t in torch.autograd.grad(loss, [xs, lk, bb]))
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= PAIR_GRAD_TOL * max(1.0, float(w.abs().max()))
+
+
+def _toy_card_problem():
+    data = regression_dataset(600, d=4, seed=1, n_test=100)
+    params = make_params("matern32", lengthscale=0.9, noise=0.3, d=4, device="cpu")
+    x, y = (torch.from_numpy(data[k]) for k in ("x", "y"))
+    b = torch.stack([y, torch.randn(600, generator=torch.Generator().manual_seed(3))], 1)
+    return params, x, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sgd", "sdd", "ap"])
+def test_stochastic_solvers_on_card_match_cpu(card, name):
+    # 50 steps on one problem and one set of injected draws (made on the
+    # CPU), on both devices; on the card every row panel and feature pair is
+    # a kernel launch, and no plain backend is dispatched
+    params, x, b = _toy_card_problem()
+    op = Gram(x=x, params=params)
+    gen = torch.Generator().manual_seed(0)
+    if name == "sgd":
+        spec = SGD(num_steps=50, batch_size=64, num_features=32)
+        draws = draw_sgd(op, 50, 64, 32, generator=gen)
+        card_draws = SGDDraws(idx=draws.idx.cuda(), omega=draws.omega.cuda())
+    else:
+        spec = (SDD(num_steps=50, batch_size=64, step_size_times_n=1.0, averaging=0.05)
+                if name == "sdd"
+                else AP(num_steps=50, block_size=64))
+        draws = RowDraws(idx=torch.randint(0, 600, (50, 64), generator=gen))
+        card_draws = RowDraws(idx=draws.idx.cuda())
+    on_cpu = solve(op, b, spec, draws=draws)
+    gop = Gram(x=x.cuda(), params=map_params(torch.Tensor.cuda, params))
+    ops.reset_matvec_trace_counts()
+    ops.reset_feature_trace_counts()
+    before = (gram_rows_pair.launches, gram_rows_matvec.launches, rff_pair.launches,
+              gram_matvec.launches)
+    on_card = solve(gop, b.cuda(), spec, draws=card_draws)
+    launched = tuple(k.launches - b0 for k, b0 in zip(
+        (gram_rows_pair, gram_rows_matvec, rff_pair, gram_matvec), before))
+    want = {"sgd": (50, 0, 50, 1), "sdd": (0, 50, 0, 1), "ap": (0, 0, 0, 50)}[name]
+    assert launched == want
+    assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+    assert ops.FEATURE_TRACE_COUNTS["features"] == 0
+    torch.testing.assert_close(on_card.solution.cpu(), on_cpu.solution, rtol=ROUTE_TOL,
+                               atol=ROUTE_TOL)

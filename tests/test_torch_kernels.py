@@ -140,7 +140,7 @@ def test_backend_resolution():
 def test_bf16_is_not_ported_yet():
     _, tp = _params("se", 2)
     x = torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
         ops.gram_mv(tp, x, torch.ones(4), precision="bf16")
     with pytest.raises(ValueError, match="unknown precision"):
         ops.gram_mv(tp, x, torch.ones(4), precision="fp16")

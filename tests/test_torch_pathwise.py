@@ -125,5 +125,7 @@ def test_generator_draws_are_reproducible(problem):
     b = sample_prior(tp, 4, 64, D, generator=torch.Generator().manual_seed(5))
     assert torch.equal(a.ff.omega, b.ff.omega) and torch.equal(a.w, b.w)
     assert a.w.shape == (64, 4) and a(torch.zeros(3, D)).shape == (3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 3"):
-        a.phi_t_mv(torch.zeros(3, D), torch.zeros(3, 1))
+    # the transpose is ported: Φᵀu against the materialised features
+    xq, uq = torch.randn(3, D), torch.randn(3, 2)
+    torch.testing.assert_close(a.phi_t_mv(xq, uq), a.features(xq).T @ uq,
+                               rtol=1e-5, atol=1e-6)

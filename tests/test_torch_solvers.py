@@ -153,9 +153,16 @@ def test_solve_spec_dispatch_and_refusals(toy_regression):
     folded = solve(op, b + op.noise * delta, CG(tol=1e-4))
     via_delta = solve(op, b, CG(tol=1e-4), delta=delta)
     np.testing.assert_array_equal(folded.solution.numpy(), via_delta.solution.numpy())
-    for name in ("sgd", "sdd", "ap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            solve(op, b, name)
+    # the stochastic solvers are ported: they run from a generator, and
+    # refuse to run without one or injected draws
+    gen = torch.Generator().manual_seed(0)
+    for name, kw in (("sgd", dict(num_steps=5, batch_size=16, num_features=8)),
+                     ("sdd", dict(num_steps=5, batch_size=16)),
+                     ("ap", dict(num_steps=5, block_size=16))):
+        out = solve(op, b, name, generator=gen, **kw)
+        assert out.solution.shape == b.shape and out.iterations == 5
+        with pytest.raises(ValueError, match="stochastic"):
+            solve(op, b, name, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         solve(op, b, CG(precond=object()))
     with pytest.raises(ValueError, match="unknown solver"):
