@@ -15,7 +15,12 @@ on the protein-shaped problem at full n through those kernels:
 * the stochastic solvers, ``IterativeGP(spec=SGD | SDD | AP).fit(x, y)
   .predict(x_test)``, through the row-panel pair, the rows matvec and the
   feature pair kernels, each held against the same Cholesky oracle, and each
-  run's first steps held against the plain route on the same draws.
+  run's first steps held against the plain route on the same draws;
+* parallel Thompson sampling, ``thompson_step`` on SDD from 50,000 observed
+  points in 8-D, whose Adam ascent takes every gradient through the RFF
+  backward and the Gram backward kernels, held to the reference's launch
+  identities, to the plain Functions' gradient in float64, and to acquiring
+  batches better than the median observation.
 
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and one Gram matvec runs at 3droad's n, where K could
@@ -82,9 +87,18 @@ SDD_PAPER_STEP = 50.0
 #: tolerance (tests/test_features.py:283), and of the profiled solver runs
 PARITY_STEPS, PARITY_TOL = 200, 2e-3
 PROFILE_STOCH_STEPS = {"sgd": 500, "sdd": 500, "ap": 200}
+#: Parallel Thompson sampling: benchmarks/bench_thompson.py:18-40's full run
+#: (d = 8, Matérn-3/2, ℓ = 0.3, σ_f² = 1, σ² = 1e-3, the objective a prior
+#: draw on 2,048 features, acquisition batch 100, 512 candidates, top 4, 20
+#: ascent steps, 1,024 features, its SDD spec), from n0 = 50,000 uniform
+#: points in place of the bench's 2,000, for 3 acquisition steps
+THOMPSON = dict(d=8, kind="matern32", lengthscale=0.3, signal=1.0, noise=1e-3,
+                n0=50_000, acq_batch=100, num_candidates=512, num_top=4,
+                ascent_steps=20, num_features=1024, objective_features=2048, steps=3)
+THOMPSON_SDD = dict(num_steps=3000, batch_size=128, step_size_times_n=2.0)
 #: the kernels' records on the last lines, in order
 RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
-           "rff_t_matvec", "rff_pair")
+           "rff_t_matvec", "rff_pair", "rff_bwd")
 
 _T0 = time.perf_counter()
 
@@ -105,12 +119,12 @@ def _wrappers() -> dict:
     from repro_torch.kernels.gram_matvec import (
         gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair,
     )
-    from repro_torch.kernels.rff_matvec import rff_matvec, rff_pair, rff_t_matvec
+    from repro_torch.kernels.rff_matvec import rff_bwd, rff_matvec, rff_pair, rff_t_matvec
 
     return dict(gram_matvec=gram_matvec, gram_matvec_bwd=gram_matvec_bwd,
                 rff_matvec=rff_matvec, gram_rows_pair=gram_rows_pair,
                 gram_rows_matvec=gram_rows_matvec, rff_t_matvec=rff_t_matvec,
-                rff_pair=rff_pair)
+                rff_pair=rff_pair, rff_bwd=rff_bwd)
 
 
 def _reset_counts(torch) -> None:
@@ -172,6 +186,7 @@ def main() -> int:
     train_phase(torch, kernels)
     stochastic_phase(torch, kernels, oracle)
     route_parity_phase(torch)
+    thompson_phase(torch, kernels)
     profile_phase(torch)
     large_n_phase(torch)
 
@@ -312,6 +327,10 @@ def kernels_phase(torch) -> dict:
                          source="src/repro_torch/kernels/csrc/rff_t_matvec.cu",
                          replaces="src/repro/kernels/rff_matvec.py:447",
                          max_abs_err=0.0),
+        "rff_bwd": dict(name="rff_bwd", route="cuda",
+                        source="src/repro_torch/kernels/csrc/rff_bwd.cu",
+                        replaces="src/repro/kernels/rff_matvec.py:252",
+                        max_abs_err=0.0),
     }
 
     def gram_case(kind, rows, cols, s, label):
@@ -425,14 +444,18 @@ def kernels_phase(torch) -> dict:
             if label == "mll_prior":  # f_X on the training path
                 paths["train"]["rff_matvec"] = line
 
-    paths.update(sgd={}, sdd={}, ap={})
+    paths.update(sgd={}, sdd={}, ap={}, thompson={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
+    rff_bwd_cases(torch, x, rff_omega, gen, rec)
+    thompson_kernel_cases(torch, gen, rec, paths)
 
-    keep = ("s", "m", "p", "ms", "plain_ms", "bound_ms", "bound_by")
+    keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by")
     # each record's own numbers: the training path's shape for the kernels of
-    # the earlier slices, SGD's for the new ones
+    # the first slices, SGD's for the row-panel and feature-pair kernels, the
+    # Thompson ascent's for the RFF backward
     home = dict(gram_matvec="train", gram_matvec_bwd="train", rff_matvec="train",
-                gram_rows_pair="sgd", rff_t_matvec="sgd", rff_pair="sgd")
+                gram_rows_pair="sgd", rff_t_matvec="sgd", rff_pair="sgd",
+                rff_bwd="thompson")
     for key in rec:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -440,8 +463,10 @@ def kernels_phase(torch) -> dict:
                         by_path={p: {k: lines[key][k] for k in keep if k in lines[key]}
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
-    rec["gram_rows_pair"]["by_path"]["sdd"] = {
-        k: paths["sdd"]["gram_rows_matvec"][k] for k in keep if k in paths["sdd"]["gram_rows_matvec"]}
+    for path in ("sdd", "thompson"):
+        rec["gram_rows_pair"]["by_path"][path] = {
+            k: paths[path]["gram_rows_matvec"][k] for k in keep
+            if k in paths[path]["gram_rows_matvec"]}
     return rec
 
 
@@ -560,6 +585,175 @@ def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
         if m == 100:  # SGD's fresh features: its pair and the pair's phase 1
             paths["sgd"][name] = line
+
+
+def _rff_bwd_bound_ms(rows, cols, d, s, ws_floats, operands):
+    """rows·cols·(4d + 4s) flops (2d for the projection, 2s for each factor
+    product, 2d for W C; the sincos uncounted, as in the other RFF bounds);
+    each distinct operand read once, dR written once, the workspace written
+    and read."""
+    flops = rows * cols * (4 * d + 4 * s)
+    floats = sum(t.numel() for t in {id(t): t for t in operands}.values())
+    floats += rows * d + 2 * ws_floats
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, 4 * floats / PEAK_BYTES), flops, 4 * floats
+
+
+def _rff_bwd_case(torch, rec, label, r, c, p1, p2, q1, q2, scale, check_rows=CHECK_ROWS):
+    """One RFF backward launch against its plain version in float64 (on the
+    first ``check_rows`` output rows), timed beside the fp32 plain version."""
+    from repro_torch.kernels.gram_matvec import MAX_BWD_COLUMNS
+    from repro_torch.kernels.ref import rff_bwd_ref
+    from repro_torch.kernels.rff_matvec import rff_bwd
+
+    (rows, d), cols, s = r.shape, c.shape[0], p1.shape[1]
+    out = rff_bwd(r, c, p1, p2, q1, q2, scale=scale)
+    k = min(rows, check_rows)
+    ref64 = rff_bwd_ref(r[:k].double(), c.double(), p1[:k].double(), p2[:k].double(),
+                        q1.double(), q2.double(), scale=scale)
+    torch.cuda.synchronize()
+    err = (out[:k].double() - ref64).abs().max().item()
+    tol = GRAD_TOL * max(1.0, ref64.abs().max().item())
+    slices = -(-s // MAX_BWD_COLUMNS)
+    ws = slices * rff_bwd.workspace_floats(rows, cols, d)
+    chunks = max(1, ws // (slices * rows * d))
+    bound, flops, nbytes = _rff_bwd_bound_ms(rows, cols, d, s, ws, (r, c, p1, p2, q1, q2))
+    line = dict(kernel="rff_bwd", case=label, rows=rows, cols=cols, d=d, s=s,
+                launches_per_call=slices, chunks=chunks, ctas=-(-rows // 64) * chunks,
+                checked_rows=k, max_abs_err=err, tol=tol,
+                finite=bool(torch.isfinite(out).all()),
+                smem_bytes=rff_bwd.smem_bytes(d, min(s, MAX_BWD_COLUMNS)),
+                ms=_events_ms(torch, lambda: rff_bwd(r, c, p1, p2, q1, q2, scale=scale), 20),
+                plain_ms=_events_ms(torch, lambda: rff_bwd_ref(r, c, p1, p2, q1, q2,
+                                                               scale=scale), 3),
+                bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes)
+    emit("kernels", **line)
+    check(line["finite"], f"rff_bwd {label}: finite")
+    check(err <= tol, f"rff_bwd {label}: {err} > {tol}")
+    rec["rff_bwd"]["max_abs_err"] = max(rec["rff_bwd"]["max_abs_err"], err)
+    return line
+
+
+def rff_bwd_cases(torch, x, rff_omega, gen, rec) -> None:
+    """The RFF backward kernel against its plain version in float64 on the
+    card, in both orientations, at protein's forward-VJP shape (n = 45,730
+    points, m = 1,024 frequencies, s = 65) and at the SGD pair VJP's (m = 100,
+    2s = 130, sliced at 128); then the three RFF autograd Functions' ∂x, ∂ω
+    and ∂w/∂u through the kernels against the plain Functions in float64, at
+    SGD's m = 100 and s = 65 with a padded Ω (m_true = 93) for the transpose
+    and the pair."""
+    from repro_torch.kernels.rff_matvec import (
+        plain_rff_matvec, plain_rff_pair, plain_rff_t_matvec, rff_matvec, rff_pair,
+        rff_t_matvec,
+    )
+
+    dev = x.device
+    n, d = x.shape
+    ls = math.sqrt(d) * 0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    omega = rff_omega(ls, 1024)
+    g, w_sin, w_cos = randn(n, 65), randn(1024, 65), randn(1024, 65)
+    sc = math.sqrt(1.0 / 1024)
+    _rff_bwd_case(torch, rec, "dx_forward_vjp", x, omega, g, g, w_sin, w_cos, sc)
+    _rff_bwd_case(torch, rec, "domega_forward_vjp", omega, x, w_sin, w_cos, g, g, sc)
+    omega = rff_omega(ls, 100)
+    pp, q1, q2 = randn(n, 130), randn(100, 130), randn(100, 130)
+    sc = math.sqrt(1.0 / 100)
+    _rff_bwd_case(torch, rec, "dx_pair_vjp", x, omega, pp, pp, q1, q2, sc)
+    _rff_bwd_case(torch, rec, "domega_pair_vjp", omega, x, q1, q2, pp, pp, sc)
+
+    omega[93:] = 0.0  # padded frequencies for the transpose and the pair
+    w, u = randn(200, 65), randn(n, 65)
+    cases = (("rff_matvec", rff_matvec, plain_rff_matvec, w, (n, 65), {}),
+             ("rff_t_matvec", rff_t_matvec, plain_rff_t_matvec, u, (200, 65), {"m_true": 93}),
+             ("rff_pair", rff_pair, plain_rff_pair, u, (n, 65), {"m_true": 93}))
+    for name, kernel, plain, operand, gshape, kw in cases:
+        gbar = randn(*gshape)
+        grads = []
+        for fn, dt in ((kernel, torch.float32), (plain, torch.float64)):
+            ins = [t.to(dt).detach().requires_grad_() for t in (x, omega, operand)]
+            out = torch.sum(gbar.to(dt) * fn(*ins, **kw))
+            grads.append(torch.autograd.grad(out, ins))
+        errs = {}
+        for key, a, b in zip(("dx", "domega", "doperand"), *grads):
+            errs[key] = ((a.double() - b).abs().max().item(),
+                         GRAD_TOL * max(1.0, b.abs().max().item()))
+        emit("rff_grads", function=name, n=n, m=100, m_true=kw.get("m_true", 100), d=d, s=65,
+             errors={k: dict(max_abs_err=e, tol=t) for k, (e, t) in errs.items()})
+        for key, (e, t) in errs.items():
+            check(e <= t, f"{name} {key} through the kernels: {e} > {t}")
+
+
+def thompson_kernel_cases(torch, gen, rec, paths) -> None:
+    """The kernels of the Thompson path at its shapes, against their plain
+    versions in float64: the ascent's Gram forward and backward at the
+    num_top·acq_batch = 400 query rows against n0 = 50,000 observations
+    (s = 100; 7 CTAs of 64 rows), the prior's RFF matvec and backward at 400
+    rows and m = 512, and SDD's rows matvec at p = 128, s = 101."""
+    from repro_torch.core.kernels_fn import make_params, spectral_sample
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, gram_rows_matvec
+    from repro_torch.kernels.ref import (
+        gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, rff_matvec_ref,
+    )
+    from repro_torch.kernels.rff_matvec import rff_matvec
+
+    cfg, dev = THOMPSON, torch.device("cuda")
+    d, kind, ls, s = cfg["d"], cfg["kind"], cfg["lengthscale"], cfg["acq_batch"]
+    rows, n, m = cfg["num_top"] * s, cfg["n0"], cfg["num_features"] // 2
+    xs = (torch.rand((n, d), generator=gen, device=dev) / ls).contiguous()
+    xq = torch.rand((rows, d), generator=gen, device=dev)
+    xqs = (xq / ls).contiguous()
+    v = torch.randn((n, s), generator=gen, device=dev)
+    g = torch.randn((rows, s), generator=gen, device=dev)
+
+    def case(name, out, ref64, fn, plain, bound, ctas, **fields):
+        torch.cuda.synchronize()
+        err = (out.double() - ref64).abs().max().item()
+        tol = (GRAD_TOL if "bwd" in name else GRAM_TOL) * max(1.0, ref64.abs().max().item())
+        b, flops, nbytes = bound
+        line = dict(kernel=name, case="thompson", ctas=ctas, max_abs_err=err, tol=tol,
+                    ms=_events_ms(torch, fn, 20), plain_ms=_events_ms(torch, plain, 3),
+                    bound_ms=b, bound_by=_bound_by(flops, nbytes), flops=flops,
+                    bytes=nbytes, **fields)
+        emit("kernels", **line)
+        check(err <= tol, f"{name} at the Thompson shape: {err} > {tol}")
+        key = "gram_rows_pair" if name == "gram_rows_matvec" else name
+        rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+        paths["thompson"][name] = line
+
+    blocks = -(-rows // 64)
+    case("gram_matvec", gram_matvec(xqs, xs, v, kind=kind),
+         gram_matvec_ref(xqs.double(), xs.double(), v.double(), kind=kind),
+         lambda: gram_matvec(xqs, xs, v, kind=kind),
+         lambda: gram_matvec_ref(xqs, xs, v, kind=kind), _gram_bound_ms(rows, n, d, s),
+         blocks, n=rows, m=n, d=d, s=s)
+    case("gram_matvec_bwd", gram_matvec_bwd(xqs, xs, g, v, kind=kind),
+         gram_matvec_bwd_ref(xqs.double(), xs.double(), g.double(), v.double(), kind=kind),
+         lambda: gram_matvec_bwd(xqs, xs, g, v, kind=kind),
+         lambda: gram_matvec_bwd_ref(xqs, xs, g, v, kind=kind),
+         _gram_bwd_bound_ms(rows, n, d, s), blocks, n=rows, m=n, d=d, s=s)
+    params = make_params(kind, lengthscale=ls, d=d, device=dev)
+    omega = spectral_sample(params, m, d, generator=gen)
+    w = torch.randn((2 * m, s), generator=gen, device=dev)
+    case("rff_matvec", rff_matvec(xq, omega, w),
+         rff_matvec_ref(xq.double(), omega.double(), w.double()),
+         lambda: rff_matvec(xq, omega, w), lambda: rff_matvec_ref(xq, omega, w),
+         _rff_bound_ms(rows, m, d, s), blocks, n=rows, m=m, d=d, s=s)
+    p, sr = THOMPSON_SDD["batch_size"], s + 1
+    xi = xs[torch.randint(0, n, (p,), generator=gen, device=dev)].contiguous()
+    u = torch.randn((n, sr), generator=gen, device=dev)
+    chunks = gram_rows_matvec.workspace_floats(p, n, sr) // (p * sr)
+    case("gram_rows_matvec", gram_rows_matvec(xi, xs, u, kind=kind),
+         gram_rows_matvec_ref(xi.double(), xs.double(), u.double(), kind=kind),
+         lambda: gram_rows_matvec(xi, xs, u, kind=kind),
+         lambda: gram_rows_matvec_ref(xi, xs, u, kind=kind),
+         _rows_bound_ms(p, n, d, sr, chunks, False), -(-p // 64) * chunks,
+         p=p, n=n, d=d, s=sr, chunks=chunks)
+    paths["thompson"]["rff_bwd"] = _rff_bwd_case(
+        torch, rec, "thompson_dx", xq, omega, g, g, w[:m].contiguous(), w[m:].contiguous(),
+        math.sqrt(1.0 / m))
 
 
 def main_path_phase(torch, kernels: dict) -> dict:
@@ -867,7 +1061,8 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
         # prior at X* on the RFF kernel, one row-panel or feature-pair launch
         # per step where the solver has one
         want = dict(gram_matvec=info.matvecs + 2, gram_matvec_bwd=0, rff_matvec=2,
-                    gram_rows_pair=0, gram_rows_matvec=0, rff_t_matvec=0, rff_pair=0)
+                    gram_rows_pair=0, gram_rows_matvec=0, rff_t_matvec=0, rff_pair=0,
+                    rff_bwd=0)
         if name == "sgd":
             want.update(gram_rows_pair=steps, rff_pair=steps)
         elif name == "sdd":
@@ -942,6 +1137,146 @@ def route_parity_phase(torch) -> None:
               f"{name}: the plain route launched no kernel")
 
 
+def _plain_ascent_value64(torch, post, xs):
+    """``thompson.ascent_value`` in float64 through the plain autograd
+    Functions, with σ_f², 1/ℓ and the weights applied as ``kernels/ops.py``
+    applies them around the kernels."""
+    from repro_torch.kernels.gram_matvec import plain_gram_matvec
+    from repro_torch.kernels.rff_matvec import plain_rff_matvec
+
+    top, s, d = xs.shape
+    q = xs.reshape(top * s, d)
+    p = post.params
+    ls, sig = p.lengthscale.double(), p.signal.double()
+    prior = torch.sqrt(sig) * plain_rff_matvec(q, post.prior.ff.omega.double(),
+                                               post.prior.w.double())
+    w = (post.v_mean[:, None] - post.alpha).double()
+    cross = sig * plain_gram_matvec(q / ls, post.x.double() / ls, w, kind=p.kind)
+    return torch.diagonal((prior + cross).reshape(top, s, s), dim1=1, dim2=2).sum()
+
+
+def thompson_phase(torch, kernels: dict) -> None:
+    """Parallel Thompson sampling: THOMPSON["steps"] calls of
+    ``thompson_step`` on SDD from n0 = 50,000 observations, with every launch
+    count read just around each step and held to its identity (per step:
+    the RFF and Gram backward kernels once per ascent step and no ∂ω, ∂z, ∂v
+    or ∂w launch; the Gram forward ascent steps + 3: SDD's finalize, the
+    candidates, the final values; the RFF forward ascent steps + 4: f_X, the
+    candidates, the final values, the objective; SDD's rows matvec once per
+    solver step), the wall time of each step split into the solve and the
+    ascent, and each acquired batch's mean objective held above the median
+    of the initial observations. The first step's ascent gradient at its
+    starts through the kernels is then held against the plain Functions in
+    float64."""
+    import repro_torch.core.thompson as th
+    from repro_torch.core import SDD, ThompsonState, make_params, sample_prior, thompson_step
+
+    cfg, dev = THOMPSON, torch.device("cuda")
+    d, acq, steps_t = cfg["d"], cfg["acq_batch"], cfg["ascent_steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = make_params(cfg["kind"], lengthscale=cfg["lengthscale"], signal=cfg["signal"],
+                         noise=cfg["noise"], d=d, device=dev)
+    target = sample_prior(params, 1, cfg["objective_features"], d,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 1000))
+
+    def objective(x):
+        return target(x)[:, 0]
+
+    with torch.no_grad():
+        x0 = torch.rand((cfg["n0"], d), generator=gen, device=dev)
+        y0 = objective(x0)
+    state = ThompsonState(x=x0, y=y0, best=float(y0.max()))
+    best0, median0 = state.best, float(y0.median())
+    spec = SDD(**THOMPSON_SDD)
+    kw = {k: cfg[k] for k in ("acq_batch", "num_features", "num_candidates", "num_top",
+                              "ascent_steps")}
+
+    # each step's solve (posterior_functions) and ascent (ascend_samples)
+    # timed between synchronisations; the calls' arguments kept
+    split, calls = {}, {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            calls[name] = (args, out)
+            return out
+        return run
+
+    originals = (th.posterior_functions, th._maximise_samples, th.ascend_samples)
+    th.posterior_functions = timed("solve", originals[0])
+    th._maximise_samples = timed("maximise", originals[1])
+    th.ascend_samples = timed("ascent", originals[2])
+    total, first = {}, None
+    try:
+        for step in range(cfg["steps"]):
+            split.clear()
+            _reset_counts(torch)
+            t0 = time.perf_counter()
+            state = thompson_step(params, state, objective, generator=gen, spec=spec, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, matvec_counts, feature_counts = _read_counts()
+            first = first or dict(calls)
+            info = calls["solve"][1].solve_info
+            with torch.no_grad():
+                f_new = objective(state.x[-acq:])
+            mean_new = f_new.mean().item()
+            emit("thompson", step=step, n=int(state.x.shape[0]) - acq, d=d, acq_batch=acq,
+                 wall_s=wall, solve_s=split["solve"], ascent_s=split["ascent"],
+                 candidates_and_final_s=split["maximise"] - split["ascent"],
+                 rest_s=wall - split["solve"] - split["maximise"],
+                 ms_per_ascent_step=1e3 * split["ascent"] / steps_t,
+                 sdd_steps=info.iterations, rel_residual_mean=info.rel_residual[0].item(),
+                 max_rel_residual=info.rel_residual.max().item(),
+                 flags=sorted(set(info.flags.tolist())), batch_mean_objective=mean_new,
+                 batch_max_objective=f_new.max().item(), median_y0=median0,
+                 best=state.best, best_gain=state.best - best0, launches=launches,
+                 matvec_counts=matvec_counts, feature_counts=feature_counts)
+            want = dict(gram_matvec=steps_t + 3, gram_matvec_bwd=steps_t,
+                        rff_matvec=steps_t + 4, gram_rows_pair=0,
+                        gram_rows_matvec=THOMPSON_SDD["num_steps"], rff_t_matvec=0,
+                        rff_pair=0, rff_bwd=steps_t)
+            check(launches == want, f"thompson step {step}: launches {launches} == {want}")
+            check(matvec_counts["chunked"] == matvec_counts["dense"] == 0,
+                  f"thompson step {step}: no plain Gram matvec")
+            check(feature_counts["features"] == 0,
+                  f"thompson step {step}: no materialised feature matrix")
+            check(info.healthy, f"thompson step {step}: no nonfinite SDD column")
+            check(bool(torch.isfinite(state.x).all() and torch.isfinite(state.y).all()),
+                  f"thompson step {step}: finite state")
+            check(mean_new > median0, f"thompson step {step}: the batch's mean objective "
+                  f"{mean_new} lies above the initial median {median0}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        th.posterior_functions, th._maximise_samples, th.ascend_samples = originals
+    _record_path(kernels, "thompson", total)
+
+    # the first step's ascent gradient at its starts, through the kernels and
+    # through the plain Functions in float64
+    post, x_start = first["ascent"][0][:2]
+    xk = x_start.detach().clone().requires_grad_()
+    (gk,) = torch.autograd.grad(th.ascent_value(post, xk), [xk])
+    x64 = x_start.detach().double().requires_grad_()
+    (g64,) = torch.autograd.grad(_plain_ascent_value64(torch, post, x64), [x64])
+    err = (gk.double() - g64).abs().max().item()
+    tol = GRAD_TOL * max(1.0, g64.abs().max().item())
+    # random search at the same budget, printed beside the ascent's gain
+    with torch.no_grad():
+        xr = torch.rand((cfg["steps"] * acq, d), generator=gen, device=dev)
+        best_rand = max(best0, objective(xr).max().item())
+    emit("thompson_check", ascent_grad_max_abs_err=err, tol=tol, starts=list(x_start.shape),
+         best0=best0, best=state.best, gain=state.best - best0,
+         random_search_best=best_rand, random_search_gain=best_rand - best0,
+         acquired=int(state.x.shape[0]) - cfg["n0"])
+    check(err <= tol, f"the ascent gradient through the kernels: {err} > {tol}")
+    check(state.x.shape == (cfg["n0"] + cfg["steps"] * acq, d), "the state grew by the batches")
+
+
 def _device_ms_by_kernel(prof) -> dict:
     """Device time by kernel name from a profile, device-side events only: a
     host op's device time repeats its kernels'."""
@@ -955,14 +1290,15 @@ def _device_ms_by_kernel(prof) -> dict:
 
 
 def profile_phase(torch) -> None:
-    """The serving and training paths, and each stochastic solver's
-    fit → predict at PROFILE_STOCH_STEPS steps, once more under
-    ``torch.profiler``: device time by kernel and the card's idle share of
-    the wall time. Run after the counted passes so
+    """The serving and training paths, each stochastic solver's
+    fit → predict at PROFILE_STOCH_STEPS steps, and one Thompson acquisition
+    step, once more under ``torch.profiler``: device time by kernel and the
+    card's idle share of the wall time. Run after the counted passes so
     that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import CG, IterativeGP
+    from repro_torch.core import CG, SDD, IterativeGP, ThompsonState, make_params, sample_prior
+    from repro_torch.core import thompson_step
     from repro_torch.data.pipeline import regression_dataset
 
     data = regression_dataset("protein", seed=SEED)
@@ -990,8 +1326,25 @@ def profile_phase(torch) -> None:
             return gp.posterior(64).solve_info.iterations  # cached: no launch
         return run
 
+    cfg, dev = THOMPSON, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tparams = make_params(cfg["kind"], lengthscale=cfg["lengthscale"], signal=cfg["signal"],
+                          noise=cfg["noise"], d=cfg["d"], device=dev)
+    target = sample_prior(tparams, 1, cfg["objective_features"], cfg["d"], generator=gen)
+    with torch.no_grad():
+        tx = torch.rand((cfg["n0"], cfg["d"]), generator=gen, device=dev)
+        tstate = ThompsonState(x=tx, y=target(tx)[:, 0], best=0.0)
+
+    def thompson():
+        thompson_step(tparams, tstate, lambda x: target(x)[:, 0], generator=gen,
+                      spec=SDD(**THOMPSON_SDD),
+                      **{k: cfg[k] for k in ("acq_batch", "num_features", "num_candidates",
+                                             "num_top", "ascent_steps")})
+        return cfg["ascent_steps"]
+
     for path, run in (("fit_predict", fit_predict), ("train", train),
-                      *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS)):
+                      *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS),
+                      ("thompson", thompson)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

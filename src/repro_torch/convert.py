@@ -13,6 +13,7 @@ from .core.kernels_fn import KernelParams
 from .core.pathwise import PosteriorFunctions
 from .core.rff import FourierFeatures, PriorSamples
 from .core.solvers import RowDraws, SGDDraws
+from .core.thompson import ThompsonDraws, ThompsonState
 from .device import DeviceLike, resolve_device
 
 
@@ -75,3 +76,27 @@ def row_draws_from_numpy(idx, *, device: DeviceLike = None) -> RowDraws:
     """An SDD or AP solve's per-step coordinate blocks ``idx`` (num_steps, batch)."""
     dev = resolve_device(device)
     return RowDraws(idx=torch.as_tensor(np.asarray(idx, dtype=np.int64), device=dev))
+
+
+def thompson_draws_from_numpy(omega, w, eps, uniform, pick, perturb, obs, *,
+                              solver_draws=None, device: DeviceLike = None) -> ThompsonDraws:
+    """One ``thompson_step``'s draws: the posterior's ``omega``
+    (num_features/2, d), ``w`` (num_features, acq_batch), ``eps``
+    (n, acq_batch), the ``uniform`` explore candidates, the incumbents
+    ``pick`` and their ``perturb`` normals, and the observation normals
+    ``obs`` (acq_batch,); ``solver_draws`` from :func:`row_draws_from_numpy`
+    or :func:`sgd_draws_from_numpy` (None for CG)."""
+    dev = resolve_device(device)
+    return ThompsonDraws(
+        omega=_t(omega, dev), w=_t(w, dev), eps=_t(eps, dev), uniform=_t(uniform, dev),
+        pick=torch.as_tensor(np.asarray(pick, dtype=np.int64), device=dev),
+        perturb=_t(perturb, dev), obs=_t(obs, dev), solver_draws=solver_draws,
+    )
+
+
+def thompson_state_from_numpy(x, y, *, device: DeviceLike = None) -> ThompsonState:
+    """A Thompson state from observed inputs ``x`` (n, d) and values ``y``
+    (n,)."""
+    dev = resolve_device(device)
+    x, y = _t(x, dev), _t(y, dev)
+    return ThompsonState(x=x, y=y, best=float(torch.max(y)))

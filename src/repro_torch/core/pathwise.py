@@ -49,6 +49,10 @@ class PosteriorFunctions:
     solve_info: Optional[SolveResult] = None
     backend: str = "auto"
 
+    @property
+    def num_samples(self) -> int:
+        return self.alpha.shape[1]
+
     def mean(self, xs: torch.Tensor) -> torch.Tensor:
         return gram_mv(self.params, xs, self.v_mean, z=self.x, backend=self.backend)
 

@@ -36,6 +36,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C entry points: name -> argument types. The launchers return the launch's
 #: ``cudaError_t`` as an int.
 SIGNATURES = {
@@ -55,19 +56,25 @@ SIGNATURES = {
     "repro_rff_t_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, omega, u, workspace, t, out, n, m, d, s, m_true, stream
     "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, stream
+    "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # d, s -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I),
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I),
     "repro_rff_matvec_smem_bytes": (_I, _I),
     "repro_rff_t_matvec_smem_bytes": (_I, _I),
-    # (p, n, s) and (n, m, s) -> floats of the partial-sum workspace
+    "repro_rff_bwd_smem_bytes": (_I, _I),
+    # (p, n, s), (n, m, s) and (rows, cols, d) -> floats of the partial-sum
+    # workspace
     "repro_gram_rows_workspace_floats": (_I, _I, _I),
     "repro_rff_t_workspace_floats": (_I, _I, _I),
+    "repro_rff_bwd_workspace_floats": (_I, _I, _I),
 }
 #: return types other than ``int``
 RESTYPES = {
     "repro_gram_rows_workspace_floats": ctypes.c_longlong,
     "repro_rff_t_workspace_floats": ctypes.c_longlong,
+    "repro_rff_bwd_workspace_floats": ctypes.c_longlong,
 }
 
 

@@ -25,7 +25,9 @@ feature matrix never in device memory), ``"features"`` (materialise Φ) or
 ``"cuda"``.
 
 σ_f², 1/ℓ and the jitter are applied here, outside the kernel cores, as in the
-reference (``ops.py:150-163,200-204,287-297,381,496`` there).
+reference (``ops.py:150-163,200-204,287-297,381,496`` there): the cores'
+autograd Functions carry the kernels' VJPs (∂x, ∂ω and the operand's), and
+the factors around them keep their plain autodiff.
 
 ``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
 backend dispatched (every call is eager in PyTorch), so a run can show that its

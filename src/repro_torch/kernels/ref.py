@@ -176,6 +176,31 @@ def rff_t_matvec_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
     return torch.where(keep, t, torch.zeros_like(t))
 
 
+def rff_bwd_ref(
+    r: torch.Tensor,
+    c: torch.Tensor,
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    q1: torch.Tensor,
+    q2: torch.Tensor,
+    *,
+    scale: float,
+    row_chunk: int = 256,
+) -> torch.Tensor:
+    """dR = scale·(cos(RCᵀ) ⊙ P₁Q₁ᵀ − sin(RCᵀ) ⊙ P₂Q₂ᵀ) @ C: the input
+    cotangent of the projection RCᵀ, as ``rff_bwd_pallas`` computes it. With
+    (x, ω, ḡ, ḡ, w_sin, w_cos) it is ∂x of Φ̃w, with (ω, x, w_sin, w_cos, ḡ, ḡ)
+    its ∂ω. r:(rows,d) c:(cols,d) p1,p2:(rows,s) q1,q2:(cols,s) → (rows,d);
+    in row chunks, so that the (rows, cols) weights are never whole."""
+    out = []
+    for i in range(0, r.shape[0], row_chunk):
+        proj = r[i:i + row_chunk] @ c.T
+        w = (torch.cos(proj) * (p1[i:i + row_chunk] @ q1.T)
+             - torch.sin(proj) * (p2[i:i + row_chunk] @ q2.T))
+        out.append(scale * (w @ c))
+    return torch.cat(out) if out else r.new_zeros((0, r.shape[1]))
+
+
 def rff_pair_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
                  m_true=None) -> torch.Tensor:
     """Φ̃(Φ̃ᵀu) with Φ̃ = √(1/m)·[sin | cos] of the (possibly padded) m, the

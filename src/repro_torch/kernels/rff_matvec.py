@@ -1,5 +1,6 @@
-"""Fused random-Fourier-feature matvecs — the CUDA kernels ``csrc/rff_matvec.cu``
-and ``csrc/rff_t_matvec.cu`` and their wrappers.
+"""Fused random-Fourier-feature matvecs and their backward — the CUDA kernels
+``csrc/rff_matvec.cu``, ``csrc/rff_t_matvec.cu`` and ``csrc/rff_bwd.cu`` and
+their wrappers.
 
 ``rff_matvec(x, omega, w)`` computes √(1/m)·[sin(xΩᵀ) | cos(xΩᵀ)] @ w with w's
 m sin rows first and m cos rows second, the twin of
@@ -12,66 +13,150 @@ by the caller (``kernels/ops.py``), outside the kernel, as in the reference.
 Φ̃(Φ̃ᵀu) (``rff_pair_pallas``); both take ``m_true``, the reference's mask of
 padded frequencies (a zero frequency's cos is 1), with √(1/m) of the padded m.
 
-A CUDA tensor launches the kernel or raises; CPU tensors take the plain
-versions (``ref.rff_matvec_ref``, ``ref.rff_t_matvec_ref``,
-``ref.rff_pair_ref``). Gradients: ∂w of Φ̃w and ∂u of Φ̃ᵀu are the other
-kernel; ∂x and ∂ω need the RFF backward kernel, which is not ported
-(ROADMAP queue 2 item 7), and the pair's VJP needs it too: they raise.
+``rff_bwd(r, c, p1, p2, q1, q2, scale=...)`` is the input cotangent of the
+projection RCᵀ (``rff_bwd_pallas``), scale·(cos(RCᵀ)⊙P₁Q₁ᵀ − sin(RCᵀ)⊙P₂Q₂ᵀ)·C.
+
+All three matvecs are differentiable in x, ω and their operand, with the
+reference's fused VJPs (``rff_matvec.py:299-338,342-377,491-537`` there):
+∂x and ∂ω by ``rff_bwd``, ∂w of Φ̃w by the transposed kernel, ∂u of Φ̃ᵀu by the
+forward kernel and ∂u of the pair by the pair itself, each only where autograd
+asks for it. Every VJP is ported.
+
+A CUDA tensor launches the kernels or raises. CPU tensors go through the same
+autograd Functions with the plain versions (``ref.rff_matvec_ref``,
+``ref.rff_t_matvec_ref``, ``ref.rff_pair_ref``, ``ref.rff_bwd_ref``) in place of
+the launches; ``plain_rff_matvec``, ``plain_rff_t_matvec`` and
+``plain_rff_pair`` are those Functions on any device and dtype, the float64
+yardstick of the kernels' gradients on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
-from .gram_matvec import MAX_DIM, check_operands
-from .ref import rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
+from .gram_matvec import MAX_BWD_COLUMNS, MAX_DIM, check_operands
+from .ref import rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 
-_NO_RFF_BWD = "ROADMAP queue 2 item 7 (the RFF backward kernel)"
+
+def _projection_grads(ctx, x, omega, p, q):
+    """(dx, dω) when the cotangent of Φ̃(x) is p qᵀ, p (n, s), q = [q_sin; q_cos]
+    (2m, s): dx = rff_bwd(x, ω, p, p, q_sin, q_cos) and dω = rff_bwd(ω, x,
+    q_sin, q_cos, p, p), each only where autograd asks for it."""
+    need_x, need_omega = ctx.needs_input_grad[:2]
+    if not (need_x or need_omega):
+        return None, None
+    m = omega.shape[0]
+    q_sin, q_cos = q[:m].contiguous(), q[m:].contiguous()
+    scale = math.sqrt(1.0 / m)
+    bwd = ctx.ops["bwd"]
+    return (bwd(x, omega, p, p, q_sin, q_cos, scale=scale) if need_x else None,
+            bwd(omega, x, q_sin, q_cos, p, p, scale=scale) if need_omega else None)
 
 
 class _RFFMatvecFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, omega, w):
-        ctx.save_for_backward(x, omega)
-        return rff_matvec._launch(x, omega, w)
+    """Φ̃(x) @ w with the reference's fused VJP: the cotangent of Φ̃ is ḡwᵀ, so
+    dx and dω are ``_projection_grads`` of (ḡ, w), and dw = Φ̃ᵀḡ. ``ops`` holds
+    the implementations: the kernels' wrappers, or the plain versions."""
 
     @staticmethod
+    def forward(ctx, x, omega, w, ops):
+        ctx.save_for_backward(x, omega, w)
+        ctx.ops = ops
+        return ops["mv"](x, omega, w)
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            raise NotImplementedError(f"rff_matvec: ∂x and ∂ω need {_NO_RFF_BWD}")
-        x, omega = ctx.saved_tensors
-        # ∂w = Φ̃ᵀ ḡ, the transposed kernel
-        return None, None, rff_t_matvec._launch(x, omega, grad.contiguous(),
-                                                 omega.shape[0])
+        x, omega, w = ctx.saved_tensors
+        g = grad.contiguous()
+        dx, domega = _projection_grads(ctx, x, omega, g, w)
+        dw = ctx.ops["t"](x, omega, g, omega.shape[0]) if ctx.needs_input_grad[2] else None
+        return dx, domega, dw, None
 
 
 class _RFFTMatvecFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, omega, u, m_true):
-        ctx.save_for_backward(x, omega)
-        ctx.m_true = m_true
-        return rff_t_matvec._launch(x, omega, u, m_true)
+    """Φ̃(x)ᵀ @ u, rows of frequencies ≥ m_true zeroed, with the reference's
+    fused VJP on the masked cotangent ḡ (2m, s): the cotangent of Φ̃ is uḡᵀ,
+    so dx and dω are ``_projection_grads`` of (u, ḡ), and du = Φ̃ḡ."""
 
     @staticmethod
+    def forward(ctx, x, omega, u, m_true, ops):
+        ctx.save_for_backward(x, omega, u)
+        ctx.m_true, ctx.ops = m_true, ops
+        return ops["t"](x, omega, u, m_true)
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            raise NotImplementedError(f"rff_t_matvec: ∂x and ∂ω need {_NO_RFF_BWD}")
-        x, omega = ctx.saved_tensors
+        x, omega, u = ctx.saved_tensors
         m = omega.shape[0]
         keep = (torch.arange(2 * m, device=x.device) % m < ctx.m_true)[:, None]
         g = torch.where(keep, grad, torch.zeros_like(grad)).contiguous()
-        # ∂u = Φ̃ (mask ⊙ ḡ), the forward kernel
-        return None, None, rff_matvec._launch(x, omega, g), None
+        dx, domega = _projection_grads(ctx, x, omega, u, g)
+        du = ctx.ops["mv"](x, omega, g) if ctx.needs_input_grad[2] else None
+        return dx, domega, du, None, None
 
 
 class _RFFPairFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, omega, u, m_true):
-        return rff_pair._launch(x, omega, u, m_true)
+    """Φ̃(M Φ̃ᵀu), M the m_true mask, with the reference's composed VJP:
+    du is the pair itself (the operator is symmetric), and with t = MΦ̃ᵀu,
+    t̃ = MΦ̃ᵀḡ the cotangent of Φ̃ is ḡtᵀ + ut̃ᵀ = [ḡ | u][t | t̃]ᵀ, whose
+    rank-2s factors give dx and dω."""
 
     @staticmethod
+    def forward(ctx, x, omega, u, m_true, ops):
+        ctx.save_for_backward(x, omega, u)
+        ctx.m_true, ctx.ops = m_true, ops
+        return ops["pair"](x, omega, u, m_true)
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
-        raise NotImplementedError(f"rff_pair: its VJP needs {_NO_RFF_BWD}")
+        x, omega, u = ctx.saved_tensors
+        ops, g, m_true = ctx.ops, grad.contiguous(), ctx.m_true
+        dx = domega = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            t = ops["t"](x, omega, u, m_true)  # masked to m_true, like the forward's
+            tt = ops["t"](x, omega, g, m_true)
+            dx, domega = _projection_grads(ctx, x, omega, torch.cat([g, u], dim=1).contiguous(),
+                                           torch.cat([t, tt], dim=1))
+        du = ops["pair"](x, omega, g, m_true) if ctx.needs_input_grad[2] else None
+        return dx, domega, du, None, None
+
+
+def _t_ref(x, omega, u, m_true):
+    return rff_t_matvec_ref(x, omega, u, m_true=m_true)
+
+
+def _pair_ref(x, omega, u, m_true):
+    return rff_pair_ref(x, omega, u, m_true=m_true)
+
+
+_PLAIN_OPS = dict(mv=rff_matvec_ref, t=_t_ref, pair=_pair_ref, bwd=rff_bwd_ref)
+
+
+def plain_rff_matvec(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The differentiable Φ̃(x) @ w with the plain versions in place of the
+    kernels, on any device and dtype: what CPU tensors take, and the yardstick
+    of the kernels' gradients on the card."""
+    return _RFFMatvecFn.apply(x, omega, w, _PLAIN_OPS)
+
+
+def plain_rff_t_matvec(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
+                       m_true=None) -> torch.Tensor:
+    """The differentiable Φ̃(x)ᵀ @ u on the plain versions (see
+    :func:`plain_rff_matvec`)."""
+    return _RFFTMatvecFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS)
+
+
+def plain_rff_pair(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
+                   m_true=None) -> torch.Tensor:
+    """The differentiable Φ̃(Φ̃ᵀu) on the plain versions (see
+    :func:`plain_rff_matvec`)."""
+    return _RFFPairFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS)
 
 
 def _check_rff(name, x, omega, u):
@@ -108,8 +193,8 @@ class RFFMatvec:
                  w: torch.Tensor) -> torch.Tensor:
         """x:(n,d) ω:(m,d) w:(2m,s) → (n,s)."""
         if all(t.device.type == "cpu" for t in (x, omega, w)):
-            return rff_matvec_ref(x, omega, w)
-        return _RFFMatvecFn.apply(x, omega, w)
+            return plain_rff_matvec(x, omega, w)
+        return _RFFMatvecFn.apply(x, omega, w, _KERNEL_OPS)
 
     @staticmethod
     def smem_bytes(d: int, s: int) -> int:
@@ -160,8 +245,8 @@ class RFFTMatvec:
         frequencies ≥ ``m_true`` (default m) zeroed."""
         m_true = _m_true(omega, m_true)
         if all(t.device.type == "cpu" for t in (x, omega, u)):
-            return rff_t_matvec_ref(x, omega, u, m_true=m_true)
-        return _RFFTMatvecFn.apply(x, omega, u, m_true)
+            return _RFFTMatvecFn.apply(x, omega, u, m_true, _PLAIN_OPS)
+        return _RFFTMatvecFn.apply(x, omega, u, m_true, _KERNEL_OPS)
 
     @staticmethod
     def smem_bytes(d: int, s: int) -> int:
@@ -211,8 +296,8 @@ class RFFPair:
         """x:(n,d) ω:(m,d) u:(n,s) → Φ̃(Φ̃ᵀu) (n,s), Φ̃ = √(1/m)[sin | cos]."""
         m_true = _m_true(omega, m_true)
         if all(t.device.type == "cpu" for t in (x, omega, u)):
-            return rff_pair_ref(x, omega, u, m_true=m_true)
-        return _RFFPairFn.apply(x, omega, u, m_true)
+            return _RFFPairFn.apply(x, omega, u, m_true, _PLAIN_OPS)
+        return _RFFPairFn.apply(x, omega, u, m_true, _KERNEL_OPS)
 
     def _launch(self, x, omega, u, m_true):
         check_operands(self.name, x, omega, u)
@@ -235,6 +320,78 @@ class RFFPair:
         return out
 
 
+class RFFBwd:
+    """The wrapper of the RFF backward kernel (``repro_rff_bwd_f32``: column
+    chunks into a partial-sum workspace, then a fixed-order sum, when the
+    output rows alone would not fill the card). ``launches`` counts the
+    launches it made (never the plain version's calls)."""
+
+    name = "rff_bwd"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, r: torch.Tensor, c: torch.Tensor, p1: torch.Tensor,
+                 p2: torch.Tensor, q1: torch.Tensor, q2: torch.Tensor, *,
+                 scale: float) -> torch.Tensor:
+        """r:(rows,d) c:(cols,d) p1,p2:(rows,s) q1,q2:(cols,s) → (rows,d) =
+        scale·(cos(rcᵀ)⊙p1q1ᵀ − sin(rcᵀ)⊙p2q2ᵀ)·c."""
+        if all(t.device.type == "cpu" for t in (r, c, p1, p2, q1, q2)):
+            return rff_bwd_ref(r, c, p1, p2, q1, q2, scale=scale)
+        return self._launch(r, c, p1, p2, q1, q2, float(scale))
+
+    @staticmethod
+    def smem_bytes(d: int, s: int) -> int:
+        """Dynamic shared memory per CTA of a launch at these d and s."""
+        return _build.library().repro_rff_bwd_smem_bytes(d, s)
+
+    @staticmethod
+    def workspace_floats(rows: int, cols: int, d: int) -> int:
+        """Floats of the (chunks, rows, d) partial-sum workspace of a launch
+        (0 when one chunk covers the columns)."""
+        return _build.library().repro_rff_bwd_workspace_floats(rows, cols, d)
+
+    def _launch(self, r, c, p1, p2, q1, q2, scale):
+        check_operands(self.name, r, c, p1, p2, q1, q2)
+        (rows, d), (cols, dc), s = r.shape, c.shape, p1.shape[1]
+        if (dc != d or tuple(p2.shape) != (rows, s)
+                or tuple(p1.shape) != (rows, s) or tuple(q1.shape) != (cols, s)
+                or tuple(q2.shape) != (cols, s)):
+            raise ValueError(
+                f"{self.name}: shapes r {tuple(r.shape)}, c {tuple(c.shape)}, p1 "
+                f"{tuple(p1.shape)}, p2 {tuple(p2.shape)}, q1 {tuple(q1.shape)}, "
+                f"q2 {tuple(q2.shape)} do not chain"
+            )
+        if not 1 <= d <= MAX_DIM:
+            raise ValueError(f"{self.name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
+        if s > MAX_BWD_COLUMNS:  # dR is linear in each rank-s product
+            return sum(
+                self._launch(r, c, *(f[:, k:k + MAX_BWD_COLUMNS].contiguous()
+                                     for f in (p1, p2, q1, q2)), scale)
+                for k in range(0, s, MAX_BWD_COLUMNS)
+            )
+        out = torch.empty((rows, d), dtype=torch.float32, device=r.device)
+        if rows == 0:
+            return out
+        if cols == 0 or s == 0:
+            return out.zero_()
+        ws = torch.empty(self.workspace_floats(rows, cols, d), dtype=torch.float32,
+                         device=r.device)
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = _build.library().repro_rff_bwd_f32(
+                r.data_ptr(), c.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+                q1.data_ptr(), q2.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                rows, cols, d, s, scale, stream,
+            )
+        _build.check(err, self.name)
+        self.launches += 1
+        return out
+
+
 rff_matvec = RFFMatvec()
 rff_t_matvec = RFFTMatvec()
 rff_pair = RFFPair()
+rff_bwd = RFFBwd()
+_KERNEL_OPS = dict(mv=rff_matvec._launch, t=rff_t_matvec._launch, pair=rff_pair._launch,
+                   bwd=rff_bwd)

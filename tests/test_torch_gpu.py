@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
-the fit → predict, MLL-optimisation and stochastic-solver paths through the
-kernels against the same paths on the CPU.
+the fit → predict, MLL-optimisation, stochastic-solver and Thompson-sampling
+paths through the kernels against the same paths on the CPU.
 
 Every test is marked ``gpu`` and skips without a card, deciding inside the
 ``card`` fixture. This file imports neither JAX nor the reference package, so
@@ -16,8 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import (
-    CG, KernelParams, MLLDraws, make_params, map_params, optimize_mll, posterior_functions,
-    sample_prior,
+    CG, KernelParams, MLLDraws, ThompsonDraws, ThompsonState, make_params, map_params,
+    optimize_mll, posterior_functions, sample_prior, thompson_step,
 )
 from repro_torch.core.mll import draw_mll
 from repro_torch.data.pipeline import regression_dataset
@@ -30,9 +30,12 @@ from repro_torch.kernels.gram_matvec import (
 )
 from repro_torch.kernels.ref import (
     gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
-    rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref,
+    rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref,
 )
-from repro_torch.kernels.rff_matvec import rff_matvec, rff_pair, rff_t_matvec
+from repro_torch.kernels.rff_matvec import (
+    plain_rff_matvec, plain_rff_pair, plain_rff_t_matvec, rff_bwd, rff_matvec, rff_pair,
+    rff_t_matvec,
+)
 
 KINDS = ["se", "matern12", "matern32", "matern52"]
 #: the reference's own kernel tolerances (tests/test_kernels_pallas.py:23,57),
@@ -142,8 +145,9 @@ def test_kernels_count_launches_and_refuse_gradients(card):
     assert gram_matvec.launches == before + 1
     out.sum().backward()  # dx and dz, no dv: v needs no gradient
     assert (gram_matvec.launches, gram_matvec_bwd.launches) == (before + 1, before_bwd + 2)
-    # the RFF matvec's ∂w is the transposed kernel, against the plain version;
-    # ∂x (and ∂ω) still need the RFF backward kernel
+    # the RFF matvec's ∂w is the transposed kernel, against the plain version,
+    # and its ∂x is the RFF backward kernel alone: no gradient is refused,
+    # and none is computed that autograd did not ask for
     omega, w = _normal(3, 8, 3), _normal(4, 16, 2).requires_grad_()
     u = _normal(5, 100, 2)
     before, before_t = rff_matvec.launches, rff_t_matvec.launches
@@ -154,9 +158,14 @@ def test_kernels_count_launches_and_refuse_gradients(card):
     want = rff_t_matvec_ref(x.detach().double(), omega.double(), u.double())
     err, scale = _max_err(dw, want)
     assert err <= RFF_TOL * scale
-    out = rff_matvec(x, omega, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 7"):
-        out.sum().backward()
+    before = (rff_t_matvec.launches, rff_bwd.launches)
+    (dx,) = torch.autograd.grad(torch.sum(u * rff_matvec(x, omega, w.detach())), [x])
+    assert (rff_t_matvec.launches, rff_bwd.launches) == (before[0], before[1] + 1)
+    x64 = x.detach().double().requires_grad_()
+    (want,) = torch.autograd.grad(torch.sum(u.double() * plain_rff_matvec(
+        x64, omega.double(), w.detach().double())), [x64])
+    err, scale = _max_err(dx, want)
+    assert err <= GRAD_TOL * scale
 
 
 @pytest.mark.gpu
@@ -269,8 +278,14 @@ def test_rff_t_and_pair_kernels_match_plain_on_card(card, m, m_true, s):
                                          m_true=m_true))):
         e, scale = _max_err(got, want)
         assert e <= RFF_TOL * scale
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 7"):
-        rff_pair(x, omega, u.requires_grad_()).sum().backward()
+    # the pair's ∂u is the pair itself: one more pair launch, no refusal
+    ur = u.clone().requires_grad_()
+    before = rff_pair.launches
+    (du,) = torch.autograd.grad(rff_pair(x, omega, ur, m_true=m_true).sum(), [ur])
+    assert rff_pair.launches == before + 2
+    e, scale = _max_err(du, rff_pair_ref(x.double(), omega.double(),
+                                         torch.ones_like(u).double(), m_true=m_true))
+    assert e <= RFF_TOL * scale
 
 
 @pytest.mark.gpu
@@ -341,3 +356,93 @@ def test_stochastic_solvers_on_card_match_cpu(card, name):
     assert ops.FEATURE_TRACE_COUNTS["features"] == 0
     torch.testing.assert_close(on_card.solution.cpu(), on_cpu.solution, rtol=ROUTE_TOL,
                                atol=ROUTE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,d,s", [
+    (400, 512, 8, 100), (3000, 100, 9, 130), (100, 3000, 9, 130), (1000, 777, 3, 17),
+    (65, 129, 1, 1), (130, 70, 128, 3),
+])
+def test_rff_bwd_kernel_matches_plain_on_card(card, rows, cols, d, s):
+    # both orientations: rows of points against frequencies (dx, with
+    # P1 = P2), rows of frequencies against points (dω, with Q1 = Q2), and
+    # four distinct factors; s above 128 is sliced; one and several chunks
+    r, c = _normal(1, rows, d), _normal(2, cols, d, scale=2.0)
+    p1, q1, q2 = _normal(3, rows, s), _normal(4, cols, s), _normal(5, cols, s)
+    scale = (1.0 / min(rows, cols)) ** 0.5
+    for args in ((r, c, p1, p1, q1, q2), (c, r, q1, q2, p1, p1),
+                 (r, c, p1, _normal(6, rows, s), q1, q2)):
+        before = rff_bwd.launches
+        out = rff_bwd(*args, scale=scale)
+        assert rff_bwd.launches == before + -(-s // 128)
+        err, sc = _max_err(out, rff_bwd_ref(*(t.double() for t in args), scale=scale))
+        assert err <= GRAD_TOL * sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,m_true", [(100, 100), (128, 93)])
+def test_rff_function_gradients_match_plain_on_card(card, m, m_true):
+    # ∂x, ∂ω and ∂w/∂u of the three RFF Functions through the kernels against
+    # the plain Functions in float64
+    n, s = 3000, 5
+    x, omega = _normal(1, n, 9), _normal(2, m, 9, scale=0.8)
+    omega[m_true:] = 0.0
+    w, u = _normal(3, 2 * m, s), _normal(4, n, s)
+    cases = ((rff_matvec, plain_rff_matvec, w, (n, s), {}),
+             (rff_t_matvec, plain_rff_t_matvec, u, (2 * m, s), {"m_true": m_true}),
+             (rff_pair, plain_rff_pair, u, (n, s), {"m_true": m_true}))
+    for seed, (kernel, plain, operand, gshape, kw) in enumerate(cases):
+        gbar = _normal(10 + seed, *gshape)
+        grads = []
+        for fn, dt in ((kernel, torch.float32), (plain, torch.float64)):
+            ins = [t.to(dt).detach().requires_grad_() for t in (x, omega, operand)]
+            grads.append(torch.autograd.grad(
+                torch.sum(gbar.to(dt) * fn(*ins, **kw)), ins))
+        for a, b in zip(*grads):
+            err, sc = _max_err(a, b)
+            assert err <= GRAD_TOL * sc
+
+
+@pytest.mark.gpu
+def test_thompson_step_on_card_matches_cpu(card):
+    # one acquisition step on SDD from one set of draws made on the CPU, on
+    # both devices: on the card every ascent step is one RFF backward and one
+    # Gram backward launch, and no plain backend is dispatched
+    gen = torch.Generator().manual_seed(0)
+    n, d, acq, steps = 400, 3, 8, 5
+    params = make_params("matern32", lengthscale=0.4, noise=0.01, d=d, device="cpu")
+    target = sample_prior(params, 1, 512, d, generator=gen)
+    x = torch.rand((n, d), generator=gen)
+    spec = SDD(num_steps=200, batch_size=32, step_size_times_n=2.0)
+    prior = sample_prior(params, acq, 256, d, generator=gen)
+    draws = ThompsonDraws(
+        omega=prior.ff.omega, w=prior.w, eps=0.1 * torch.randn((n, acq), generator=gen),
+        uniform=torch.rand((7, d), generator=gen),
+        pick=torch.randint(0, n, (57,), generator=gen),
+        perturb=torch.randn((57, d), generator=gen), obs=torch.randn((acq,), generator=gen),
+        solver_draws=RowDraws(idx=torch.randint(0, n, (200, 32), generator=gen)))
+    kw = dict(acq_batch=acq, num_features=256, num_candidates=64, num_top=2,
+              ascent_steps=steps, spec=spec)
+    state = ThompsonState(x=x, y=target(x)[:, 0], best=0.0)
+    on_cpu = thompson_step(params, state, lambda z: target(z)[:, 0], draws=draws, **kw)
+    cuda = lambda t: t.cuda()  # noqa: E731
+    gparams = map_params(cuda, params)
+    gtarget = dataclasses.replace(target, w=target.w.cuda(), ff=dataclasses.replace(
+        target.ff, omega=target.ff.omega.cuda(), phase=target.ff.phase.cuda(),
+        signal=target.ff.signal.cuda()))
+    gdraws = ThompsonDraws(**{f.name: (RowDraws(idx=draws.solver_draws.idx.cuda())
+                                       if f.name == "solver_draws" else
+                                       getattr(draws, f.name).cuda())
+                              for f in dataclasses.fields(draws)})
+    gstate = ThompsonState(x=x.cuda(), y=state.y.cuda(), best=0.0)
+    ops.reset_matvec_trace_counts()
+    ops.reset_feature_trace_counts()
+    before = (rff_bwd.launches, gram_matvec_bwd.launches, rff_t_matvec.launches)
+    on_card = thompson_step(gparams, gstate, lambda z: gtarget(z)[:, 0], draws=gdraws, **kw)
+    launched = tuple(k.launches - b0 for k, b0 in zip(
+        (rff_bwd, gram_matvec_bwd, rff_t_matvec), before))
+    assert launched == (steps, steps, 0)
+    assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+    assert ops.FEATURE_TRACE_COUNTS["features"] == 0
+    assert on_card.x.device.type == "cuda"
+    torch.testing.assert_close(on_card.x.cpu(), on_cpu.x, rtol=ROUTE_TOL, atol=ROUTE_TOL)
