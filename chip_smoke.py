@@ -20,7 +20,11 @@ on the protein-shaped problem at full n through those kernels:
   points in 8-D, whose Adam ascent takes every gradient through the RFF
   backward and the Gram backward kernels, held to the reference's launch
   identities, to the plain Functions' gradient in float64, and to acquiring
-  batches better than the median observation.
+  batches better than the median observation;
+* LM serving, ``repro_torch.launch.serve.generate`` on llama3-8b at full width
+  and depth (random fp32 weights from a seed): prefill's causal attention
+  through the flash-attention kernel, greedy decode, held against the plain
+  attention route and against ``forward_train`` at one more position.
 
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and one Gram matvec runs at 3droad's n, where K could
@@ -96,9 +100,25 @@ THOMPSON = dict(d=8, kind="matern32", lengthscale=0.3, signal=1.0, noise=1e-3,
                 n0=50_000, acq_batch=100, num_candidates=512, num_top=4,
                 ascent_steps=20, num_features=1024, objective_features=2048, steps=3)
 THOMPSON_SDD = dict(num_steps=3000, batch_size=128, step_size_times_n=2.0)
+#: LM serving: llama3-8b (src/repro_torch/configs/llama3_8b.py) at full width
+#: and depth, batch 4 × prompt 1,024 from the planted-bigram token batch, 16
+#: greedy tokens; the flash kernel's cases of the kernels phase (label, b, s,
+#: hq, hkv, d, causal): the path's shape, a ragged s causal and not, and the
+#: reduced configs' d = 64
+LM = dict(arch="llama3-8b", batch=4, prompt=1024, gen=16)
+FLASH_CASES = (("lm_serve", 4, 1024, 32, 8, 128, True), ("ragged", 4, 1000, 32, 8, 128, True),
+               ("ragged_full", 4, 1000, 32, 8, 128, False), ("d64", 4, 1024, 4, 2, 64, True))
+#: the reference's flash tolerance (tests/test_kernels_pallas.py:72); the
+#: kernel and plain routes' last-position logits; the reference's
+#: prefill/decode-vs-forward tolerances (tests/test_models.py:114,118); a
+#: greedy token is held to the plain route's where that route's top-2 margin
+#: exceeds LM_MARGIN × the measured logit difference
+FLASH_TOL, LM_LOGIT_TOL, CONSIST_RTOL, CONSIST_ATOL, LM_MARGIN = 2e-3, 1e-3, 5e-2, 5e-3, 10.0
+#: decode steps of the profiled decode window
+PROFILE_DECODE_STEPS = 8
 #: the kernels' records on the last lines, in order
 RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
-           "rff_t_matvec", "rff_pair", "rff_bwd")
+           "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
 
 _T0 = time.perf_counter()
 
@@ -116,6 +136,7 @@ def check(cond: bool, what: str) -> None:
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gram_matvec import (
         gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair,
     )
@@ -124,7 +145,7 @@ def _wrappers() -> dict:
     return dict(gram_matvec=gram_matvec, gram_matvec_bwd=gram_matvec_bwd,
                 rff_matvec=rff_matvec, gram_rows_pair=gram_rows_pair,
                 gram_rows_matvec=gram_rows_matvec, rff_t_matvec=rff_t_matvec,
-                rff_pair=rff_pair, rff_bwd=rff_bwd)
+                rff_pair=rff_pair, rff_bwd=rff_bwd, flash_attention=flash_attention)
 
 
 def _reset_counts(torch) -> None:
@@ -134,6 +155,7 @@ def _reset_counts(torch) -> None:
     torch.cuda.synchronize()
     ops.reset_matvec_trace_counts()
     ops.reset_feature_trace_counts()
+    ops.reset_attention_trace_counts()
     for w in _wrappers().values():
         w.launches = 0
 
@@ -187,6 +209,7 @@ def main() -> int:
     stochastic_phase(torch, kernels, oracle)
     route_parity_phase(torch)
     thompson_phase(torch, kernels)
+    lm_serve_phase(torch, kernels)
     profile_phase(torch)
     large_n_phase(torch)
 
@@ -331,6 +354,10 @@ def kernels_phase(torch) -> dict:
                         source="src/repro_torch/kernels/csrc/rff_bwd.cu",
                         replaces="src/repro/kernels/rff_matvec.py:252",
                         max_abs_err=0.0),
+        "flash_attention": dict(name="flash_attention", route="cuda",
+                                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                                replaces="src/repro/kernels/flash_attention.py:72",
+                                max_abs_err=0.0),
     }
 
     def gram_case(kind, rows, cols, s, label):
@@ -444,22 +471,26 @@ def kernels_phase(torch) -> dict:
             if label == "mll_prior":  # f_X on the training path
                 paths["train"]["rff_matvec"] = line
 
-    paths.update(sgd={}, sdd={}, ap={}, thompson={})
+    paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
     rff_bwd_cases(torch, x, rff_omega, gen, rec)
     thompson_kernel_cases(torch, gen, rec, paths)
+    flash_cases(torch, gen, rec, paths)
 
-    keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by")
+    keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     # each record's own numbers: the training path's shape for the kernels of
     # the first slices, SGD's for the row-panel and feature-pair kernels, the
-    # Thompson ascent's for the RFF backward
+    # Thompson ascent's for the RFF backward, LM serving's for flash attention.
+    # Only attention has one PyTorch call for the same function (SDPA); the
+    # GP kernels' fused functions have none.
     home = dict(gram_matvec="train", gram_matvec_bwd="train", rff_matvec="train",
                 gram_rows_pair="sgd", rff_t_matvec="sgd", rff_pair="sgd",
-                rff_bwd="thompson")
+                rff_bwd="thompson", flash_attention="lm_serve")
     for key in rec:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                        library_ms=None,
+                        library_ms=line.get("library_ms"),
                         by_path={p: {k: lines[key][k] for k in keep if k in lines[key]}
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
@@ -754,6 +785,57 @@ def thompson_kernel_cases(torch, gen, rec, paths) -> None:
     paths["thompson"]["rff_bwd"] = _rff_bwd_case(
         torch, rec, "thompson_dx", xq, omega, g, g, w[:m].contiguous(), w[m:].contiguous(),
         math.sqrt(1.0 / m))
+
+
+def _flash_bound_ms(b, s, hq, hkv, d, causal):
+    """2d flops for q·k and 2d for p·v per visible (query, key) pair, of which
+    there are b·hq·s(s + 1)/2 when causal and b·hq·s² otherwise; q and the
+    output at hq heads, k and v at hkv heads, each read or written once."""
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+    flops = 4 * d * pairs
+    nbytes = 4 * 2 * b * s * d * (hq + hkv)
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
+
+
+def flash_cases(torch, gen, rec, paths) -> None:
+    """The flash-attention kernel against its plain version in float64 on the
+    card (FLASH_CASES): the serving path's shape, s = 1,000 causal and not
+    (the ragged last block masked by bounds) and d = 64. Times: the kernel
+    over 20 warm launches, the fp32 plain version over 3 calls, and SDPA
+    (``scaled_dot_product_attention`` with ``enable_gqa``, on (b, h, s, d)
+    copies made beforehand) over 20, by CUDA events."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    for label, b, s, hq, hkv, d, causal in FLASH_CASES:
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev)
+        k = torch.randn((b, s, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=dev)
+        out = flash_attention(q, k, v, causal=causal)
+        ref64 = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+        torch.cuda.synchronize()
+        err = (out.double() - ref64).abs().max().item()
+        scale = max(1.0, ref64.abs().max().item())
+        del ref64
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        bound, flops, nbytes = _flash_bound_ms(b, s, hq, hkv, d, causal)
+        line = dict(
+            kernel="flash_attention", case=label, b=b, s=s, hq=hq, hkv=hkv, d=d,
+            causal=causal, ctas=b * hq * -(-s // 64), max_abs_err=err, rel_err=err / scale,
+            tol=FLASH_TOL * scale, smem_bytes=flash_attention.smem_bytes(d),
+            ms=_events_ms(torch, lambda: flash_attention(q, k, v, causal=causal), 20),
+            plain_ms=_events_ms(torch, lambda: flash_attention_ref(q, k, v, causal=causal), 3),
+            library_ms=_events_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20),
+            bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes)
+        emit("kernels", **line)
+        check(err <= FLASH_TOL * scale, f"flash_attention {label}: {err} > {FLASH_TOL * scale}")
+        rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
+        if label == "lm_serve":
+            paths["lm_serve"]["flash_attention"] = line
 
 
 def main_path_phase(torch, kernels: dict) -> dict:
@@ -1062,7 +1144,7 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
         # per step where the solver has one
         want = dict(gram_matvec=info.matvecs + 2, gram_matvec_bwd=0, rff_matvec=2,
                     gram_rows_pair=0, gram_rows_matvec=0, rff_t_matvec=0, rff_pair=0,
-                    rff_bwd=0)
+                    rff_bwd=0, flash_attention=0)
         if name == "sgd":
             want.update(gram_rows_pair=steps, rff_pair=steps)
         elif name == "sdd":
@@ -1239,7 +1321,7 @@ def thompson_phase(torch, kernels: dict) -> None:
             want = dict(gram_matvec=steps_t + 3, gram_matvec_bwd=steps_t,
                         rff_matvec=steps_t + 4, gram_rows_pair=0,
                         gram_rows_matvec=THOMPSON_SDD["num_steps"], rff_t_matvec=0,
-                        rff_pair=0, rff_bwd=steps_t)
+                        rff_pair=0, rff_bwd=steps_t, flash_attention=0)
             check(launches == want, f"thompson step {step}: launches {launches} == {want}")
             check(matvec_counts["chunked"] == matvec_counts["dense"] == 0,
                   f"thompson step {step}: no plain Gram matvec")
@@ -1275,6 +1357,152 @@ def thompson_phase(torch, kernels: dict) -> None:
          acquired=int(state.x.shape[0]) - cfg["n0"])
     check(err <= tol, f"the ascent gradient through the kernels: {err} > {tol}")
     check(state.x.shape == (cfg["n0"] + cfg["steps"] * acq, d), "the state grew by the batches")
+
+
+def _greedy_plain(torch, cfg, model, tokens, gen_n):
+    """Greedy decoding with prefill on the plain attention route: the tokens
+    (b, gen_n), the last-position prefill logits and each step's top-2 margin
+    (b, gen_n). Decode steps are the same on both routes (the plain product)."""
+    from repro_torch.models import model as model_lib
+
+    b, prompt = tokens.shape
+    cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+    logits, cache = model_lib.prefill(cfg, model, {"tokens": tokens}, cache, backend="plain")
+    first, toks, margins = logits[:, -1], [], []
+    for i in range(gen_n):
+        top2 = torch.topk(logits[:, -1], 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        toks.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        if i < gen_n - 1:
+            logits, cache = model_lib.decode_step(cfg, model, toks[-1], cache, prompt + i)
+    return torch.cat(toks, dim=1), first, torch.stack(margins, dim=1)
+
+
+def lm_serve_phase(torch, kernels: dict) -> None:
+    """LM serving at full width and depth: llama3-8b with random fp32 weights
+    drawn on the card from a seeded generator, ``generate`` on a batch of 4
+    prompts of 1,024 tokens for 16 greedy tokens, with the launch counts read
+    just around it (one flash launch a layer, no plain attention dispatch).
+    Then, on the same weights and tokens: prefill on the plain attention
+    route (its last-position logits within LM_LOGIT_TOL of the kernel
+    route's, scaled by max(1, max|logits|)); the plain route's greedy tokens,
+    each held equal where its top-2 margin exceeds LM_MARGIN × the measured
+    logit difference, row by row until the first position that is not; and
+    ``forward_train`` on prompt + first token against prefill + decode_step at
+    the reference's tolerances. Last, one prefill and PROFILE_DECODE_STEPS
+    decode steps under the profiler: device time by kernel, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(LM["arch"])
+    b, prompt, gen_n = LM["batch"], LM["prompt"], LM["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    tokens = token_batch(SEED, 0, b, prompt, cfg.vocab_size)["tokens"]
+    check(tokens.is_cuda and all(p.is_cuda for p in model.parameters()),
+          "the model and tokens default to the card")
+
+    _reset_counts(torch)
+    toks, timings = generate(cfg, model, tokens, prompt + gen_n, gen_n)
+    launches = _read_counts()[0]
+    attention = dict(ops.ATTENTION_TRACE_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decoded = b * (gen_n - 1)  # the first token comes from prefill's logits
+    emit("lm_serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=model_lib.count_params(cfg),
+         weights_gb=weights_gb, batch=b, prompt=prompt, gen=gen_n, init_s=init_s,
+         prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
+         prefill_tok_per_s=b * prompt / timings["prefill_s"], decode_tokens=decoded,
+         decode_tok_per_s=decoded / timings["decode_s"],
+         ms_per_decode_step=1e3 * timings["decode_s"] / (gen_n - 1),
+         max_memory_allocated_gb=peak_gb, launches=launches, attention_dispatches=attention,
+         tokens_row0=toks[0].tolist())
+    check(toks.shape == (b, gen_n), f"generated tokens of shape {(b, gen_n)}: {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "tokens inside the vocabulary")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"flash launches {launches['flash_attention']} == {cfg.num_layers} layers")
+    check(attention == {"cuda": cfg.num_layers, "plain": 0},
+          f"prefill's attention on the kernel route only: {attention}")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          "no GP kernel on the LM path")
+    _record_path(kernels, "lm_serve", launches)
+
+    with torch.no_grad():
+        cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+        logits_k, cache = model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+        logits_k = logits_k[:, -1]
+        check(torch.equal(torch.argmax(logits_k, dim=-1), toks[:, 0]),
+              "a second prefill gives generate's first tokens")
+        plain_toks, logits_p, margins = _greedy_plain(torch, cfg, model, tokens, gen_n)
+        diff = (logits_k - logits_p).abs().max().item()
+        scale = max(1.0, logits_p.abs().max().item())
+        checked = mismatched = 0
+        for row in range(b):
+            for i in range(gen_n):
+                if margins[row, i].item() <= LM_MARGIN * diff:
+                    break  # below the margin, and past it the two contexts may differ
+                checked += 1
+                mismatched += int(toks[row, i].item() != plain_toks[row, i].item())
+        # the reference's prefill/decode consistency at one more position
+        ext = torch.cat([tokens, toks[:, :1]], dim=1)
+        full = model_lib.forward_train(cfg, model, {"tokens": ext})
+        logits_d, _ = model_lib.decode_step(cfg, model, toks[:, :1], cache, prompt)
+        consist = {}
+        for name, got, want in (("prefill", logits_k, full[:, -2]),
+                                ("decode", logits_d[:, -1], full[:, -1])):
+            consist[name] = dict(
+                max_abs_diff=(got - want).abs().max().item(),
+                excess=((got - want).abs() - CONSIST_RTOL * want.abs()).max().item())
+        del full
+    emit("lm_route_parity", logit_max_abs_diff=diff, logit_scale=scale,
+         tol=LM_LOGIT_TOL * scale, margin_factor=LM_MARGIN, positions=b * gen_n,
+         positions_checked=checked, positions_mismatched=mismatched,
+         tokens_equal_everywhere=bool(torch.equal(toks, plain_toks)),
+         min_margin=margins.min().item(), consistency=consist, rtol=CONSIST_RTOL,
+         atol=CONSIST_ATOL)
+    check(diff <= LM_LOGIT_TOL * scale, f"plain-route logits within {LM_LOGIT_TOL}: {diff}")
+    check(mismatched == 0, f"{mismatched} greedy tokens differ above the margin")
+    for name, line in consist.items():
+        check(line["excess"] <= CONSIST_ATOL,
+              f"{name} logits against forward_train: {line['excess']} > {CONSIST_ATOL}")
+
+    with torch.no_grad():
+        for window in ("prefill", "decode"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if window == "prefill":
+                    model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+                else:
+                    tok = toks[:, :1]
+                    for i in range(PROFILE_DECODE_STEPS):
+                        logits, cache = model_lib.decode_step(cfg, model, tok, cache, prompt + i)
+                        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            by_name = _device_ms_by_kernel(prof)
+            device_ms = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            emit("lm_profile", window=window,
+                 decode_steps=PROFILE_DECODE_STEPS if window == "decode" else 0,
+                 wall_ms=wall * 1e3, device_ms=device_ms,
+                 idle_share=1.0 - device_ms / (wall * 1e3),
+                 flash_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
+                 top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+            check(0 < device_ms <= wall * 1e3, f"{window}: device time within the wall time")
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 def _device_ms_by_kernel(prof) -> dict:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's state across, as numpy arrays, into the port's objects.
+"""Carry the JAX package's state across, as numpy arrays, into the port's objects
+(GP hyperparameters, features, posteriors and draws; LM params).
 
 The parity tests pull these arrays out of ``repro`` objects; the port itself
 never sees JAX. Every function takes the target ``device`` (the card unless
@@ -15,6 +16,8 @@ from .core.rff import FourierFeatures, PriorSamples
 from .core.solvers import RowDraws, SGDDraws
 from .core.thompson import ThompsonDraws, ThompsonState
 from .device import DeviceLike, resolve_device
+from .models.model import Transformer
+from .models.param import tree_map
 
 
 def _t(a, device: torch.device) -> torch.Tensor:
@@ -100,3 +103,26 @@ def thompson_state_from_numpy(x, y, *, device: DeviceLike = None) -> ThompsonSta
     dev = resolve_device(device)
     x, y = _t(x, dev), _t(y, dev)
     return ThompsonState(x=x, y=y, best=float(torch.max(y)))
+
+
+def lm_params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Transformer:
+    """The reference's LM params pytree as numpy arrays (``embed.tok`` and
+    ``embed.unembed``, ``final_norm``, and ``layers.*`` stacked with a leading
+    layer axis) → the port's :class:`Transformer`, its layers unstacked. The
+    weights keep their (in, out) orientation: both packages compute h @ W, and
+    no weight goes into an ``nn.Linear`` (which would want Wᵀ)."""
+    dev = resolve_device(device)
+    return Transformer(cfg, tree_map(lambda a: _t(a, dev), tree))
+
+
+def lm_params_to_numpy(model: Transformer) -> dict:
+    """:func:`lm_params_from_numpy`'s inverse: the reference's params pytree,
+    layers stacked again."""
+    def arrays(pd):
+        return {k: p.detach().cpu().numpy() for k, p in pd.items()}
+
+    per_layer = [{name: arrays(pd) for name, pd in blk.named_children()} for blk in model.layers]
+    layers = {name: {k: np.stack([lay[name][k] for lay in per_layer]) for k in group}
+              for name, group in per_layer[0].items()}
+    return {"embed": arrays(model.embed), "final_norm": arrays(model.final_norm),
+            "layers": layers}

@@ -1,1 +1,1 @@
-"""Synthetic datasets (numpy copies of ``repro/data/pipeline.py``)."""
+"""Synthetic data: twins of ``repro/data/pipeline.py``."""

@@ -1,14 +1,40 @@
-"""Deterministic synthetic regression data — numpy copy of the regression part
-of ``repro/data/pipeline.py``.
+"""Deterministic synthetic data — twin of ``repro/data/pipeline.py``'s LM token
+batches and regression datasets.
 
-The reference is pure numpy up to its final ``jnp.asarray``, so these return the
-bit-identical float32 arrays, as numpy arrays; callers move them to a device.
+``regression_dataset``: the reference is pure numpy up to its final
+``jnp.asarray``, so this returns the bit-identical float32 arrays, as numpy
+arrays; callers move them to a device. ``token_batch``: the same planted bigram
+chain, drawn from a ``torch.Generator`` (so not the reference's tokens: the
+parity tests hand both packages the same tokens instead).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+
+def token_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int, *,
+                device: DeviceLike = None) -> dict:
+    """Stateless LM batch, a pure function of (seed, step): each row starts
+    uniform, then next = (31·cur + 17) mod vocab with probability 0.8 and
+    uniform otherwise. Returns int64 ``tokens`` (batch, seq_len) and their
+    next tokens ``labels``. Drawn on the CPU, so the tokens are the same on
+    every device."""
+    gen = torch.Generator().manual_seed((int(seed) << 32) + int(step))
+    a, c = 31, 17
+    cur = torch.randint(0, vocab, (batch,), generator=gen)
+    rnd = torch.randint(0, vocab, (seq_len, batch), generator=gen)
+    coin = torch.rand((seq_len, batch), generator=gen) < 0.8
+    chain = [cur]
+    for t in range(seq_len):
+        cur = torch.where(coin[t], (a * cur + c) % vocab, rnd[t])
+        chain.append(cur)
+    tokens = torch.stack(chain, dim=1).to(resolve_device(device))  # (batch, seq_len + 1)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 # name → (n, d) matching the paper's Table 3.1/4.1 datasets (synthetic stand-ins)
 UCI_SHAPES = {

@@ -58,6 +58,10 @@ SIGNATURES = {
     "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, stream
     "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, b, s, hq, hkv, d, causal, scale, stream
+    "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # d -> dynamic shared memory per CTA in bytes
+    "repro_flash_attention_smem_bytes": (_I,),
     # d, s -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I),
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I),

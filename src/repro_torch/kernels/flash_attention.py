@@ -1,0 +1,79 @@
+"""Causal flash attention — the CUDA kernel ``csrc/flash_attention.cu`` and its
+wrapper, twin of ``repro.kernels.flash_attention.flash_attention_pallas``
+behind ``repro.kernels.ops.flash_attention``.
+
+``flash_attention(q, k, v, causal=...)`` takes q (b, s, hq, d) and k, v
+(b, s, hkv, d) with hq a multiple of hkv (grouped-query heads) and returns
+(b, s, hq, d). The kernel reads the tensors in that layout and maps the heads
+itself: nothing is gathered, transposed or padded first.
+
+A CUDA tensor launches the kernel or raises. CPU tensors take the plain version
+``ref.flash_attention_ref`` (materialised logits), as the reference runs the
+Pallas kernel in interpret mode off the TPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import flash_attention_ref
+
+#: head dimensions the kernel is instantiated for (the reduced configs', llama3-8b's)
+HEAD_DIMS = (64, 128)
+
+
+class FlashAttention:
+    """The wrapper of the flash-attention kernel. ``launches`` counts the
+    kernel launches it made (never the plain version's calls)."""
+
+    name = "flash_attention"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True) -> torch.Tensor:
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            return flash_attention_ref(q, k, v, causal=causal)
+        return self._launch(q, k, v, causal)
+
+    @staticmethod
+    def smem_bytes(d: int) -> int:
+        """Dynamic shared memory per CTA of a launch at head dimension d."""
+        return _build.library().repro_flash_attention_smem_bytes(d)
+
+    def _launch(self, q, k, v, causal):
+        dev = q.device
+        for t in (q, k, v):
+            if t.device != dev or dev.type != "cuda":
+                raise ValueError(f"{self.name}: q, k and v must be on one CUDA device")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{self.name}: operands must be float32, got {t.dtype}")
+            if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{self.name}: operands must be contiguous, 16-byte "
+                                 f"aligned (b, s, heads, d) tensors")
+        (b, s, hq, d), (bk, sk, hkv, dk) = q.shape, k.shape
+        if (bk, sk, dk) != (b, s, d) or v.shape != k.shape or hq % hkv:
+            raise ValueError(
+                f"{self.name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                f"v {tuple(v.shape)} do not chain (equal b, s and d; hq a multiple of hkv)"
+            )
+        if d not in HEAD_DIMS:
+            raise ValueError(f"{self.name}: head dimension {d} not in {HEAD_DIMS}")
+        if b * hq > 65535:
+            raise ValueError(f"{self.name}: b·hq = {b * hq} CTAs exceed grid.y's 65,535")
+        out = torch.empty_like(q)
+        if b == 0 or s == 0:
+            return out
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _build.library().repro_flash_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, s, hq, hkv, d, int(causal), d ** -0.5, stream,
+            )
+        _build.check(err, self.name)
+        self.launches += 1
+        return out
+
+
+flash_attention = FlashAttention()

@@ -29,26 +29,34 @@ reference (``ops.py:150-163,200-204,287-297,381,496`` there): the cores'
 autograd Functions carry the kernels' VJPs (∂x, ∂ω and the operand's), and
 the factors around them keep their plain autodiff.
 
+Causal attention goes through :func:`flash_attention` on ``"cuda"`` (the flash
+kernel, ``flash_attention.py``) or ``"plain"`` (materialised logits).
+
 ``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
-backend dispatched (every call is eager in PyTorch), so a run can show that its
-hot path never took the plain backends.
+backend dispatched, ``ATTENTION_TRACE_COUNTS`` the attention calls (every call
+is eager in PyTorch), so a run can show that its hot path never took the plain
+backends.
 """
 from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention as _flash_kernel
 from .gram_matvec import (
     CUDA_KINDS, gram_matvec, gram_rows_matvec as _rows_kernel, gram_rows_pair as _pair_kernel,
 )
+from .ref import flash_attention_ref
 from .rff_matvec import rff_matvec, rff_pair, rff_t_matvec
 
 BACKENDS = ("auto", "cuda", "chunked", "dense")
 FEATURE_BACKENDS = ("auto", "cuda", "features")
+ATTENTION_BACKENDS = ("auto", "cuda", "plain")
 #: tile precisions the reference knows; only "fp32" is ported
 PRECISIONS = ("fp32", "bf16")
 
 MATVEC_TRACE_COUNTS = {"cuda": 0, "chunked": 0, "dense": 0}
 FEATURE_TRACE_COUNTS = {"cuda": 0, "features": 0}
+ATTENTION_TRACE_COUNTS = {"cuda": 0, "plain": 0}
 
 
 def reset_matvec_trace_counts() -> None:
@@ -59,6 +67,11 @@ def reset_matvec_trace_counts() -> None:
 def reset_feature_trace_counts() -> None:
     for k in FEATURE_TRACE_COUNTS:
         FEATURE_TRACE_COUNTS[k] = 0
+
+
+def reset_attention_trace_counts() -> None:
+    for k in ATTENTION_TRACE_COUNTS:
+        ATTENTION_TRACE_COUNTS[k] = 0
 
 
 def _no_pallas(backend: str) -> None:
@@ -314,3 +327,22 @@ def rff_pair_mv(
         feats = materialised_features(x, omega, signal)  # built once, used twice
         out = feats @ (feats.T @ u2)
     return out[:, 0] if squeeze else out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, backend: str = "auto") -> torch.Tensor:
+    """q: (b, s, hq, d), k/v: (b, s, hkv, d) with hq % hkv == 0 (GQA) →
+    (b, s, hq, d) — THE attention entry point, as the reference's. ``auto``
+    is ``cuda`` for tensors on the card and ``plain`` for CPU tensors; the
+    kernel maps the heads and masks the ragged edge itself, so nothing is
+    gathered or padded here."""
+    _no_pallas(backend)
+    if backend not in ATTENTION_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
+    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
+        check_precision("bf16")
+    bk = ("cuda" if q.device.type == "cuda" else "plain") if backend == "auto" else backend
+    ATTENTION_TRACE_COUNTS[bk] += 1
+    if bk == "cuda":
+        return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    return flash_attention_ref(q, k, v, causal=causal)

@@ -208,3 +208,19 @@ def rff_pair_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
     cos is 1: its row would be Σᵢuᵢ, not 0) — ``rff_pair_pallas``'s semantics.
     x:(n,d) ω:(m,d) u:(n,s) → (n,s)."""
     return rff_matvec_ref(x, omega, rff_t_matvec_ref(x, omega, u, m_true=m_true))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention with materialised logits, ``flash_attention_pallas``'s
+    semantics: q (b, s, hq, d), k and v (b, s, hkv, d) with hq % hkv == 0,
+    query head h reading key/value head h // (hq / hkv) → (b, s, hq, d)."""
+    hq, hkv = q.shape[2], k.shape[2]
+    head_map = torch.arange(hq, device=q.device) // (hq // hkv)
+    k, v = k[:, :, head_map], v[:, :, head_map]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
+    if causal:
+        s_q, s_k = q.shape[1], k.shape[1]
+        mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device).tril(s_k - s_q)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)

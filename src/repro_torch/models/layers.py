@@ -1,0 +1,89 @@
+"""Common layers — twin of ``repro/models/layers.py``: RMSNorm (parametric and
+OLMo's non-parametric), RoPE, the SwiGLU MLP, embeddings. Plain functions over
+dicts of tensors (a ``ParameterDict`` serves), schemas declared with ``P``.
+
+M-RoPE (``apply_mrope``, qwen2-vl) is not ported: ROADMAP queue 1 item 14.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .param import P
+
+
+def rmsnorm_params(cfg):
+    if not cfg.parametric_norm:
+        return {}
+    return {"scale": P((cfg.d_model,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x / rms(x) (· scale), in fp32 whatever x's dtype; OLMo's empty ``p`` is
+    the non-parametric form."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    if "scale" in p:
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE -------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (b, s, h, d); positions: (b, s) ints. Split halves (x₁, x₂), not
+    interleaved pairs; the angle is fp32 position × frequency."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (d/2,)
+    ang = positions[..., None].float() * freqs  # (b, s, d/2)
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]  # (b,s,1,d/2)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLP -------
+
+
+def mlp_params(cfg, d_ff: Optional[int] = None):
+    ff = d_ff or cfg.d_ff
+    d = cfg.d_model
+    return {
+        "gate": P((d, ff), ("embed", "mlp")),
+        "up": P((d, ff), ("embed", "mlp")),
+        "down": P((ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x W_gate) ⊙ x W_up) W_down, weights in (in, out) layout."""
+    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+# ----------------------------------------------------------- embeddings ------
+
+
+def embed_params(cfg):
+    out = {"tok": P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed")}
+    if not cfg.tie_embeddings:
+        out["unembed"] = P((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return out
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["tok"])
+
+
+def unembed(p, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits; tied embeddings (no ``unembed``) use ``tok``ᵀ."""
+    w = p["unembed"] if "unembed" in p else p["tok"].T
+    return h.float() @ w.float()

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
 the fit → predict, MLL-optimisation, stochastic-solver and Thompson-sampling
-paths through the kernels against the same paths on the CPU.
+paths through the kernels against the same paths on the CPU, and LM serving's
+kernel route against its plain route.
 
 Every test is marked ``gpu`` and skips without a card, deciding inside the
 ``card`` fixture. This file imports neither JAX nor the reference package, so
@@ -28,8 +29,9 @@ from repro_torch.core.solvers.sgd import draw_sgd
 from repro_torch.kernels.gram_matvec import (
     gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair, plain_gram_matvec,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (
-    gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
+    flash_attention_ref, gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
     rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref,
 )
 from repro_torch.kernels.rff_matvec import (
@@ -446,3 +448,69 @@ def test_thompson_step_on_card_matches_cpu(card):
     assert ops.FEATURE_TRACE_COUNTS["features"] == 0
     assert on_card.x.device.type == "cuda"
     torch.testing.assert_close(on_card.x.cpu(), on_cpu.x, rtol=ROUTE_TOL, atol=ROUTE_TOL)
+
+
+#: the reference's own flash-kernel tolerance (tests/test_kernels_pallas.py:72)
+FLASH_TOL = 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(1, 130, 8, 2, 128), (2, 256, 4, 2, 64),
+                                          (3, 1000, 32, 8, 128)])
+def test_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d):
+    q, k, v = _normal(1, b, s, hq, d), _normal(2, b, s, hkv, d), _normal(3, b, s, hkv, d)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    err, scale = _max_err(out, flash_attention_ref(q.double(), k.double(), v.double(),
+                                                   causal=causal))
+    assert err <= FLASH_TOL * scale
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    q, k = _normal(1, 1, 64, 4, 64), _normal(2, 1, 64, 2, 64)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="head dimension"):
+        flash_attention(_normal(3, 1, 64, 4, 96), _normal(4, 1, 64, 2, 96),
+                        _normal(5, 1, 64, 2, 96))
+    with pytest.raises(ValueError, match="do not chain"):
+        flash_attention(q, _normal(6, 1, 64, 3, 64), _normal(7, 1, 64, 3, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+
+
+@pytest.mark.gpu
+def test_generate_on_card_matches_plain_route(card):
+    """A reduced llama3-8b (2 layers, d 256, 4 → 2 heads of 64) served on the
+    card: prefill's attention through the flash kernel (one launch a layer,
+    no plain dispatch), its logits within 1e-4 of the plain route's, and the
+    same greedy tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = token_batch(0, 0, 3, 200, cfg.vocab_size)["tokens"]
+    logits = {}
+    for backend in ("cuda", "plain"):
+        with torch.no_grad():
+            logits[backend], _ = model_lib.prefill(
+                cfg, model, {"tokens": tokens}, model_lib.zero_cache(cfg, 3, 200),
+                backend=backend)
+    err, scale = _max_err(logits["cuda"], logits["plain"].double())
+    assert err <= 1e-4 * scale
+    ops.reset_attention_trace_counts()
+    before = flash_attention.launches
+    out, timings = generate(cfg, model, tokens, 216, 16)
+    assert flash_attention.launches - before == cfg.num_layers
+    assert ops.ATTENTION_TRACE_COUNTS == {"cuda": cfg.num_layers, "plain": 0}
+    plain, _ = generate(cfg, model, tokens, 216, 16, backend="plain")
+    assert out.shape == (3, 16) and torch.equal(out, plain)
+    assert timings["prefill_s"] > 0 and timings["decode_s"] > 0
