@@ -51,6 +51,13 @@ SRC = ROOT / "src"
 #: and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+#: and TF32 on the tensor cores (dense), the SFU's 16 operations per clock
+#: per SM, at the 1.98 GHz that the fp32 peak implies (132 SMs x 128 lanes x
+#: 2 flops); the SFU operations per Gram entry of each kind: exp, sqrt for
+#: the Matérn kinds, and the reciprocal of Matérn-5/2's division by 3
+PEAK_TF32_FLOPS = 495e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+SFU_OPS = {"se": 1, "matern12": 2, "matern32": 2, "matern52": 3}
 
 KINDS = ("se", "matern12", "matern32", "matern52")
 #: the reference's own kernel tolerances (tests/test_kernels_pallas.py:23,57)
@@ -280,6 +287,24 @@ def _gram_bound_ms(n, m, d, s):
     return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
 
 
+def _gram_floors(entries, d, s, kind) -> dict:
+    """The Gram kernel's own floors for ``entries`` kernel entries (n·m, or
+    p·n per row-panel contraction): ``sfu_floor_ms``, the SFU operations of
+    the covariance map at 16 per clock per SM, and ``tc_split_bound_ms``, the
+    larger of stage 1's 2d flops per entry on the FMA pipe and the three-way
+    TF32 split's 3 × 2·s_pad flops per entry on the tensor cores, s_pad the
+    v width the launch pads to (gram_plan's slices × width). ``bound_ms``
+    stays the all-fp32 bound (_gram_bound_ms), comparable across versions."""
+    from repro_torch.kernels.gram_matvec import gram_plan
+
+    plan = gram_plan(1, 1, d, s)
+    s_pad = plan.slices * plan.width
+    return dict(sfu_floor_ms=1e3 * entries * SFU_OPS[kind] / SFU_OPS_PER_S,
+                tc_split_bound_ms=1e3 * max(entries * 2 * d / PEAK_FP32_FLOPS,
+                                            entries * 6 * s_pad / PEAK_TF32_FLOPS),
+                s_pad=s_pad)
+
+
 def _gram_bwd_bound_ms(n, m, d, s):
     """2d flops for the distance, 2s for rowv·colv and 2d for W z per pair;
     x, z, rowv and colv read once, dx written once."""
@@ -306,7 +331,7 @@ def kernels_phase(torch) -> dict:
     line on each path under ``by_path``."""
     from repro_torch.core.kernels_fn import make_params, spectral_sample
     from repro_torch.data.pipeline import regression_dataset
-    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, gram_plan
     from repro_torch.kernels.ref import gram_matvec_bwd_ref, gram_matvec_ref, rff_matvec_ref
     from repro_torch.kernels.rff_matvec import rff_matvec
 
@@ -334,13 +359,13 @@ def kernels_phase(torch) -> dict:
                            source="src/repro_torch/kernels/csrc/rff_matvec.cu",
                            replaces="src/repro/kernels/rff_matvec.py:78",
                            max_abs_err=0.0),
-        # both C entries of the row-panel source: the pair (SGD) and its
-        # phases 0-1 alone, the rows matvec (SDD)
+        # the pair (SGD) and its phases 0-1 alone, the rows matvec (SDD): the
+        # row-panel source's entry and the Gram entry on the same plan
         "gram_rows_pair": dict(name="gram_rows_pair", route="cuda",
                                source="src/repro_torch/kernels/csrc/gram_rows_pair.cu",
                                replaces="src/repro/kernels/gram_matvec.py:390",
                                entries=["repro_gram_rows_pair_f32",
-                                        "repro_gram_rows_matvec_f32"],
+                                        "repro_gram_matvec_f32"],
                                max_abs_err=0.0),
         "rff_t_matvec": dict(name="rff_t_matvec", route="cuda",
                              source="src/repro_torch/kernels/csrc/rff_t_matvec.cu",
@@ -371,14 +396,16 @@ def kernels_phase(torch) -> dict:
         scale = max(1.0, ref64.abs().max().item())
         n, m = rows.shape[0], cols.shape[0]
         bound, flops, nbytes = _gram_bound_ms(n, m, d, s)
+        plan = gram_plan(n, m, d, s)
         line = dict(kernel="gram_matvec", case=label, kind=kind, n=n, m=m, d=d, s=s,
+                    ctas=plan.ctas, chunks=plan.chunks, rows_per_cta=plan.rows_per_cta,
                     max_abs_err=err, tol=GRAM_TOL * scale,
                     err_vs_fp32_plain=(out - ref32).abs().max().item(),
-                    smem_bytes=gram_matvec.smem_bytes(d, s),
+                    smem_bytes=gram_matvec.smem_bytes(d, s, plan.rows_per_cta),
                     ms=_events_ms(torch, lambda: gram_matvec(rows, cols, v, kind=kind), 20),
                     plain_ms=_events_ms(torch, lambda: gram_matvec_ref(rows, cols, v, kind=kind), 3),
                     bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
-                    bytes=nbytes)
+                    bytes=nbytes, **_gram_floors(n * m, d, s, kind))
         emit("kernels", **line)
         check(err <= GRAM_TOL * scale, f"gram_matvec {label} {kind} s={s}: {err}")
         rec["gram_matvec"]["max_abs_err"] = max(rec["gram_matvec"]["max_abs_err"], err)
@@ -478,7 +505,7 @@ def kernels_phase(torch) -> dict:
     flash_cases(torch, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "sfu_floor_ms", "tc_split_bound_ms")
     # each record's own numbers: the training path's shape for the kernels of
     # the first slices, SGD's for the row-panel and feature-pair kernels, the
     # Thompson ascent's for the RFF backward, LM serving's for flash attention.
@@ -491,6 +518,7 @@ def kernels_phase(torch) -> dict:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         library_ms=line.get("library_ms"),
+                        **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms") if k in line},
                         by_path={p: {k: lines[key][k] for k in keep if k in lines[key]}
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
@@ -530,7 +558,7 @@ def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
     512 with p_true = p − 7 for every kind (SGD's pair, SDD's rows matvec),
     Φᵀu at m = 100 and 1,024, and the feature pair at m = 100 and at a
     padded m = 128 with m_true = 100, all at s = 65."""
-    from repro_torch.kernels.gram_matvec import gram_rows_matvec, gram_rows_pair
+    from repro_torch.kernels.gram_matvec import gram_plan, gram_rows_matvec, gram_rows_pair
     from repro_torch.kernels.ref import (
         gram_rows_matvec_ref, gram_rows_pair_ref, rff_pair_ref, rff_t_matvec_ref,
     )
@@ -551,7 +579,8 @@ def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
             look = torch.randn((n, s), generator=gen, device=dev)
             b = torch.randn((p, s), generator=gen, device=dev)
             p_true = p - 7
-            chunks = gram_rows_matvec.workspace_floats(p, n, s) // (p * s)
+            panel = gram_plan(p, n, d, s)
+            chunks = panel.chunks
             err, g = gram_rows_pair(xi, xs, look, b, kind=kind, p_true=p_true)
             mv = gram_rows_matvec(xi, xs, look, kind=kind)
             re, rg = gram_rows_pair_ref(xi.double(), xs.double(), look.double(), b.double(),
@@ -573,7 +602,9 @@ def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
                 ok = all(a <= GRAM_TOL * scale for a, scale in errs)
                 bound, flops, nbytes = _rows_bound_ms(p, n, d, s, chunks, pair)
                 line = dict(kernel=name, kind=kind, n=n, p=p, p_true=p_true, d=d, s=s,
-                            chunks=chunks, ctas_phase0=-(-p // 64) * chunks,
+                            chunks=chunks, ctas_phase0=panel.ctas,
+                            ctas_phase2=gram_plan(n, p, d, s).ctas if pair else None,
+                            **_gram_floors((2 if pair else 1) * p * n, d, s, kind),
                             max_abs_err=e, tol=[GRAM_TOL * scale for _, scale in errs],
                             err_masked_rows_zero=masked,
                             ms=_events_ms(torch, fn, 20), plain_ms=_events_ms(torch, plain, 3),
@@ -721,10 +752,13 @@ def thompson_kernel_cases(torch, gen, rec, paths) -> None:
     """The kernels of the Thompson path at its shapes, against their plain
     versions in float64: the ascent's Gram forward and backward at the
     num_top·acq_batch = 400 query rows against n0 = 50,000 observations
-    (s = 100; 7 CTAs of 64 rows), the prior's RFF matvec and backward at 400
+    (s = 100; the forward on gram_plan's column chunks, the backward on 7 CTAs
+    of 64 rows), the prior's RFF matvec and backward at 400
     rows and m = 512, and SDD's rows matvec at p = 128, s = 101."""
     from repro_torch.core.kernels_fn import make_params, spectral_sample
-    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, gram_rows_matvec
+    from repro_torch.kernels.gram_matvec import (
+        gram_matvec, gram_matvec_bwd, gram_plan, gram_rows_matvec,
+    )
     from repro_torch.kernels.ref import (
         gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, rff_matvec_ref,
     )
@@ -759,7 +793,8 @@ def thompson_kernel_cases(torch, gen, rec, paths) -> None:
          gram_matvec_ref(xqs.double(), xs.double(), v.double(), kind=kind),
          lambda: gram_matvec(xqs, xs, v, kind=kind),
          lambda: gram_matvec_ref(xqs, xs, v, kind=kind), _gram_bound_ms(rows, n, d, s),
-         blocks, n=rows, m=n, d=d, s=s)
+         gram_plan(rows, n, d, s).ctas, n=rows, m=n, d=d, s=s,
+         chunks=gram_plan(rows, n, d, s).chunks, **_gram_floors(rows * n, d, s, kind))
     case("gram_matvec_bwd", gram_matvec_bwd(xqs, xs, g, v, kind=kind),
          gram_matvec_bwd_ref(xqs.double(), xs.double(), g.double(), v.double(), kind=kind),
          lambda: gram_matvec_bwd(xqs, xs, g, v, kind=kind),
@@ -775,13 +810,14 @@ def thompson_kernel_cases(torch, gen, rec, paths) -> None:
     p, sr = THOMPSON_SDD["batch_size"], s + 1
     xi = xs[torch.randint(0, n, (p,), generator=gen, device=dev)].contiguous()
     u = torch.randn((n, sr), generator=gen, device=dev)
-    chunks = gram_rows_matvec.workspace_floats(p, n, sr) // (p * sr)
+    panel = gram_plan(p, n, d, sr)
+    chunks = panel.chunks
     case("gram_rows_matvec", gram_rows_matvec(xi, xs, u, kind=kind),
          gram_rows_matvec_ref(xi.double(), xs.double(), u.double(), kind=kind),
          lambda: gram_rows_matvec(xi, xs, u, kind=kind),
          lambda: gram_rows_matvec_ref(xi, xs, u, kind=kind),
-         _rows_bound_ms(p, n, d, sr, chunks, False), -(-p // 64) * chunks,
-         p=p, n=n, d=d, s=sr, chunks=chunks)
+         _rows_bound_ms(p, n, d, sr, chunks, False), panel.ctas,
+         p=p, n=n, d=d, s=sr, chunks=chunks, **_gram_floors(p * n, d, sr, kind))
     paths["thompson"]["rff_bwd"] = _rff_bwd_case(
         torch, rec, "thompson_dx", xq, omega, g, g, w[:m].contiguous(), w[m:].contiguous(),
         math.sqrt(1.0 / m))
@@ -1170,12 +1206,16 @@ def route_parity_phase(torch) -> None:
     the main path's pathwise targets: the iterates agree within the
     reference's fused-vs-features tolerance. This holds the kernels inside
     the loop. SGD also runs 50 and 100 steps, unchecked, to show how fast
-    the two routes' rounding drifts apart."""
+    the two routes' rounding drifts apart, and its PARITY_STEPS run is also
+    held, unchecked, against the plain route in float64 on the same draws
+    (``vs_fp64``): which of the two fp32 routes drifted from it, and how far,
+    tells a rounding change from a kernel at fault."""
     from repro_torch.core import make_params
     from repro_torch.core.operators import Gram
     from repro_torch.core.pathwise import pathwise_targets
     from repro_torch.core.rff import sample_prior
     from repro_torch.core.solvers import solve
+    from repro_torch.core.solvers.sgd import SGDDraws, draw_sgd
     from repro_torch.data.pipeline import regression_dataset
 
     data = regression_dataset("protein", seed=SEED)
@@ -1202,10 +1242,25 @@ def route_parity_phase(torch) -> None:
             sols[backend] = res.solution
         a, ref = sols["cuda"], sols["chunked"]
         excess = ((a - ref).abs() - PARITY_TOL * ref.abs()).max().item()
+        vs_fp64 = None
+        if name == "sgd" and steps == PARITY_STEPS:
+            spec = _stochastic_spec(name, steps, backend="chunked")
+            draws = draw_sgd(Gram(x=x, params=params), steps, spec.batch_size,
+                             spec.num_features,
+                             generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+            params64 = make_params("matern32", lengthscale=math.sqrt(d) * 0.5, signal=1.0,
+                                   noise=0.1, d=d, dtype=torch.float64, device=dev)
+            ref64 = solve(Gram(x=x.double(), params=params64), b.double(), spec,
+                          delta=delta.double(),
+                          draws=SGDDraws(idx=draws.idx, omega=draws.omega.double())).solution
+            vs_fp64 = {k: dict(max_abs_diff=(v.double() - ref64).abs().max().item(),
+                               max_excess_over_rtol=((v.double() - ref64).abs()
+                                                     - PARITY_TOL * ref64.abs()).max().item())
+                       for k, v in sols.items()}
         emit("route_parity", solver=name, steps=steps, rtol=PARITY_TOL,
              atol=PARITY_TOL, max_abs_diff=(a - ref).abs().max().item(),
              max_rel_diff=((a - ref).norm() / ref.norm()).item(),
-             max_excess_over_rtol=excess, runs=launched)
+             max_excess_over_rtol=excess, vs_fp64=vs_fp64, runs=launched)
         if steps != PARITY_STEPS:
             continue  # SGD's shorter runs measure how the routes drift apart
         check(bool(torch.isfinite(a).all()), f"{name}: finite iterates")
@@ -1584,9 +1639,13 @@ def profile_phase(torch) -> None:
         processing_s = time.perf_counter() - t0
         device_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        # the Gram forward's device code: its kernel and its chunk sums (the
+        # row-panel launches' included), not the backward
+        gram_ms = sum(v for k, v in by_name.items()
+                      if "gram_matvec_kernel" in k or "chunk_sum_kernel" in k)
         emit("profile", path=path, wall_ms=wall * 1e3, device_ms=device_ms,
              idle_share=1.0 - device_ms / (wall * 1e3), iterations=iterations,
-             processing_s=processing_s,
+             processing_s=processing_s, gram_ms=gram_ms, gram_share=gram_ms / device_ms,
              top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
         check(0 < device_ms <= wall * 1e3, f"device time {device_ms} ms within the wall time")
 
@@ -1615,6 +1674,7 @@ def large_n_phase(torch) -> None:
     scale = max(1.0, ref.abs().max().item())
     bound, flops, nbytes = _gram_bound_ms(n, n, d, s)
     emit("large_n", n=n, d=d, s=s, kind="matern32", ms=ms, bound_ms=bound, flops=flops,
+         **_gram_floors(n * n, d, s, "matern32"),
          checked_rows=rows, max_abs_err=err, tol=GRAM_TOL * scale,
          max_memory_allocated_gb=peak / 1e9, finite=bool(torch.isfinite(out).all()))
     check(bool(torch.isfinite(out).all()), "finite 3droad-shaped matvec")

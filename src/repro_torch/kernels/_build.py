@@ -40,18 +40,18 @@ _F = ctypes.c_float
 #: C entry points: name -> argument types. The launchers return the launch's
 #: ``cudaError_t`` as an int.
 SIGNATURES = {
-    # x, z, v, out, n, m, d, s, kind, stream
-    "repro_gram_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, z, v, b, workspace, out, n, m, d, s, kind, rows_true, width, chunk,
+    # rows_per_cta, stream
+    "repro_gram_matvec_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
     # x, z, rowv, colv, out, n, m, d, s, kind, stream
     "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, omega, w, out, n, m, d, s, stream
     "repro_rff_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, z, v, partial, n, m, d, s, kind, chunk, stream
-    "repro_gram_matvec_chunked_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # xi, x, u, workspace, out, p, n, d, s, kind, stream
-    "repro_gram_rows_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xi, x, look, b, workspace, err, g, p, n, d, s, kind, p_true, stream
-    "repro_gram_rows_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # xi, x, look, b, workspace, err, g, p, n, d, s, kind, p_true, width,
+    # chunk0, rows_per_cta0, chunk2, rows_per_cta2, stream
+    "repro_gram_rows_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P),
     # x, omega, u, workspace, t, n, m, d, s, m_true, stream
     "repro_rff_t_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, omega, u, workspace, t, out, n, m, d, s, m_true, stream
@@ -62,21 +62,19 @@ SIGNATURES = {
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # d -> dynamic shared memory per CTA in bytes
     "repro_flash_attention_smem_bytes": (_I,),
+    # d, width, rows_per_cta -> dynamic shared memory per CTA in bytes
+    "repro_gram_matvec_smem_bytes": (_I, _I, _I),
     # d, s -> dynamic shared memory per CTA in bytes
-    "repro_gram_matvec_smem_bytes": (_I, _I),
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I),
     "repro_rff_matvec_smem_bytes": (_I, _I),
     "repro_rff_t_matvec_smem_bytes": (_I, _I),
     "repro_rff_bwd_smem_bytes": (_I, _I),
-    # (p, n, s), (n, m, s) and (rows, cols, d) -> floats of the partial-sum
-    # workspace
-    "repro_gram_rows_workspace_floats": (_I, _I, _I),
+    # (n, m, s) and (rows, cols, d) -> floats of the partial-sum workspace
     "repro_rff_t_workspace_floats": (_I, _I, _I),
     "repro_rff_bwd_workspace_floats": (_I, _I, _I),
 }
 #: return types other than ``int``
 RESTYPES = {
-    "repro_gram_rows_workspace_floats": ctypes.c_longlong,
     "repro_rff_t_workspace_floats": ctypes.c_longlong,
     "repro_rff_bwd_workspace_floats": ctypes.c_longlong,
 }

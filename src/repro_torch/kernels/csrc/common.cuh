@@ -1,7 +1,8 @@
-// Shared tiling, distances and dispatch for the fused kernels (gram_matvec.cu,
-// gram_matvec_bwd.cu, rff_matvec.cu).
+// Shared tiling, distances and dispatch for the fused kernels
+// (gram_matvec_bwd.cu and the RFF kernels; gram_matvec.cu, which has its own
+// tile, keeps the FMA order of sq_norm and raw_sqdist).
 //
-// Both kernels compute out(n, s) = M(x, y) @ w with M built tile by tile from
+// These kernels compute out(n, s) = M(x, y) @ w with M built tile by tile from
 // the rows of x and y and never written to device memory. One CTA of
 // NTHREADS = BM * KSPLIT threads owns BM output rows. Thread t works on row
 // t % BM and on every KSPLIT-th column of each column tile, starting at

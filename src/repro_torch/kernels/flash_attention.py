@@ -7,19 +7,47 @@ behind ``repro.kernels.ops.flash_attention``.
 (b, s, hq, d). The kernel reads the tensors in that layout and maps the heads
 itself: nothing is gathered, transposed or padded first.
 
-A CUDA tensor launches the kernel or raises. CPU tensors take the plain version
-``ref.flash_attention_ref`` (materialised logits), as the reference runs the
-Pallas kernel in interpret mode off the TPU.
+A CUDA tensor launches the kernel or raises, inside ``_FlashAttentionFn``: the
+kernel has no backward (nor has the reference's, which defines no VJP), so the
+Function's backward recomputes the output through the plain version under
+autograd and differentiates that. CPU tensors take the plain version
+``ref.flash_attention_ref`` (materialised logits) directly, as the reference
+runs the Pallas kernel in interpret mode off the TPU.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .ref import flash_attention_ref
 
 #: head dimensions the kernel is instantiated for (the reduced configs', llama3-8b's)
 HEAD_DIMS = (64, 128)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """``fwd(q, k, v, causal=...)`` with the gradients of autograd through the
+    plain version: the backward recomputes ``flash_attention_ref`` on the
+    saved inputs (its (b, hq, s, s) logits live only inside the backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, fwd):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return fwd(q, k, v, causal=causal)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = flash_attention_ref(*ins, causal=ctx.causal)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None for t in ins), None, None)
 
 
 class FlashAttention:
@@ -35,14 +63,14 @@ class FlashAttention:
                  causal: bool = True) -> torch.Tensor:
         if all(t.device.type == "cpu" for t in (q, k, v)):
             return flash_attention_ref(q, k, v, causal=causal)
-        return self._launch(q, k, v, causal)
+        return _FlashAttentionFn.apply(q, k, v, causal, self._launch)
 
     @staticmethod
     def smem_bytes(d: int) -> int:
         """Dynamic shared memory per CTA of a launch at head dimension d."""
         return _build.library().repro_flash_attention_smem_bytes(d)
 
-    def _launch(self, q, k, v, causal):
+    def _launch(self, q, k, v, *, causal):
         dev = q.device
         for t in (q, k, v):
             if t.device != dev or dev.type != "cuda":

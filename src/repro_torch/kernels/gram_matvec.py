@@ -24,6 +24,8 @@ among them).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -39,6 +41,71 @@ MAX_DIM = 128
 #: widest rowv/colv one backward launch takes (``kMaxS``); wider ones are sliced
 MAX_BWD_COLUMNS = 128
 
+#: The forward kernel's tile (``csrc/gram_matvec.cu``), whose geometry this
+#: module alone sets: 64 rows by 64 columns, v sliced at SLICE_COLS columns
+#: (16 n-tiles of 8), at half that where d > WIDE_DIM, each slice's width a
+#: multiple of 8. Its launch plan fills the card: with fewer than FILL_CTAS
+#: (two waves of 132 SMs) row blocks × slices, the column loop is cut into
+#: chunks of at least MIN_CHUNK_TILES tiles along grid.y (at most GRID_Y
+#: chunks); with one chunk of fewer than LOOP_TILES tiles, each CTA runs
+#: several row blocks, as long as FILL_CTAS remain and the second x buffer
+#: fits (d ≤ MAX_LOOP_DIM).
+TILE_ROWS = TILE_COLS = 64
+SLICE_COLS = 128
+WIDE_DIM = 64
+FILL_CTAS = 264
+MIN_CHUNK_TILES = 4
+LOOP_TILES = 16
+GRID_Y = 65535
+MAX_LOOP_DIM = 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class GramPlan:
+    """The forward kernel's launch at (n, m, d, s): ``row_blocks`` of 64 rows,
+    ``rows_per_cta`` of them in each CTA, ``chunks`` column chunks of
+    ``chunk`` columns (a multiple of 64; one chunk when ``chunks == 1``), and
+    ``slices`` column slices of v, each ``width`` columns (a multiple of 8)."""
+
+    row_blocks: int
+    rows_per_cta: int
+    chunks: int
+    chunk: int
+    slices: int
+    width: int
+
+    @property
+    def ctas(self) -> int:
+        return _cdiv(self.row_blocks, self.rows_per_cta) * self.chunks * self.slices
+
+    def workspace_floats(self, n: int, s: int) -> int:
+        """Floats of the (chunks, n, s) partial sums; 0 for one chunk."""
+        return self.chunks * n * s if self.chunks > 1 else 0
+
+
+def gram_plan(n: int, m: int, d: int, s: int) -> GramPlan:
+    """The launch plan of K̃(x, z) @ v for x (n, d), z (m, d), v (m, s): a plain
+    function of the shapes, so every run of a shape is cut the same way (and
+    its fixed-order chunk sum gives the same bits)."""
+    slice_cols = SLICE_COLS if d <= WIDE_DIM else SLICE_COLS // 2
+    row_blocks, tiles = _cdiv(n, TILE_ROWS), _cdiv(m, TILE_COLS)
+    width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)  # even slices, 8-aligned
+    slices = _cdiv(s, width)
+    base = row_blocks * slices
+    chunks, per = 1, tiles
+    if base < FILL_CTAS and tiles > MIN_CHUNK_TILES:
+        per = max(MIN_CHUNK_TILES, tiles // _cdiv(FILL_CTAS, base), _cdiv(tiles, GRID_Y))
+        chunks = _cdiv(tiles, per)
+    rows_per_cta = 1
+    if chunks == 1 and tiles < LOOP_TILES and d <= MAX_LOOP_DIM:
+        rows_per_cta = max(1, min(_cdiv(LOOP_TILES, tiles), base // FILL_CTAS))
+    return GramPlan(row_blocks=row_blocks, rows_per_cta=rows_per_cta, chunks=chunks,
+                    chunk=per * TILE_COLS, slices=slices, width=width)
+
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:
     """Device, dtype, rank and contiguity checks shared by the kernel wrappers."""
@@ -52,6 +119,17 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be 2-D, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check_chain(name, x, z, v):
+    (n, d), (m, dz), (mv, _) = x.shape, z.shape, v.shape
+    if dz != d or mv != m:
+        raise ValueError(
+            f"{name}: shapes {tuple(x.shape)}, {tuple(z.shape)} and "
+            f"{tuple(v.shape)} do not chain"
+        )
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"{name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
 
 
 def check_kind(kind: str) -> None:
@@ -112,34 +190,39 @@ class GramMatvec:
         return _GramMatvecFn.apply(x, z, v, kind, self._launch, gram_matvec_bwd)
 
     @staticmethod
-    def smem_bytes(d: int, s: int) -> int:
+    def smem_bytes(d: int, s: int, rows_per_cta: int = 1) -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        return _build.library().repro_gram_matvec_smem_bytes(d, s)
+        return _build.library().repro_gram_matvec_smem_bytes(
+            d, gram_plan(1, 1, d, s).width, rows_per_cta)
 
     def _launch(self, x, z, v, *, kind):
-        check_operands(self.name, x, z, v)
-        (n, d), (m, dz), (mv, s) = x.shape, z.shape, v.shape
-        if dz != d or mv != m:
-            raise ValueError(
-                f"{self.name}: shapes x {tuple(x.shape)}, z {tuple(z.shape)}, "
-                f"v {tuple(v.shape)} do not chain"
-            )
-        if not 1 <= d <= MAX_DIM:
-            raise ValueError(f"{self.name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
-        out = torch.empty((n, s), dtype=torch.float32, device=x.device)
-        if n == 0 or s == 0:
-            return out
-        if m == 0:
-            return out.zero_()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_gram_matvec_f32(
-                x.data_ptr(), z.data_ptr(), v.data_ptr(), out.data_ptr(),
-                n, m, d, s, CUDA_KINDS.index(kind), stream,
-            )
-        _build.check(err, self.name)
-        self.launches += 1
+        out = _launch_matvec(self.name, x, z, v, kind)
+        self.launches += 1  # one call, one or two launches
         return out
+
+
+def _launch_matvec(name, x, z, v, kind):
+    """K̃(x, z) @ v by the Gram kernel on ``gram_plan``'s launch (its column
+    chunks summed in a fixed order inside the C entry)."""
+    check_operands(name, x, z, v)
+    _check_chain(name, x, z, v)
+    (n, d), m, s = x.shape, z.shape[0], v.shape[1]
+    out = torch.empty((n, s), dtype=torch.float32, device=x.device)
+    if n == 0 or s == 0:
+        return out
+    if m == 0:
+        return out.zero_()
+    plan = gram_plan(n, m, d, s)
+    ws = torch.empty(plan.workspace_floats(n, s), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _build.library().repro_gram_matvec_f32(
+            x.data_ptr(), z.data_ptr(), v.data_ptr(), None, ws.data_ptr(), out.data_ptr(),
+            n, m, d, s, CUDA_KINDS.index(kind), n, plan.width, plan.chunk,
+            plan.rows_per_cta, stream,
+        )
+    _build.check(err, name)
+    return out
 
 
 class GramMatvecBwd:
@@ -197,22 +280,11 @@ class GramMatvecBwd:
         return out
 
 
-def _check_chain(name, xi, x, u):
-    (p, d), (n, dx), (nu, _) = xi.shape, x.shape, u.shape
-    if dx != d or nu != n:
-        raise ValueError(
-            f"{name}: shapes xi {tuple(xi.shape)}, x {tuple(x.shape)}, "
-            f"u {tuple(u.shape)} do not chain"
-        )
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"{name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
-
-
 class GramRowsMatvec:
-    """The wrapper of the row-panel matvec (``repro_gram_rows_matvec_f32``:
-    the Gram kernel over column chunks, then a fixed-order sum of the chunks).
-    ``launches`` counts the launches it made (never the plain version's
-    calls). Differentiable in xi, x and u through ``_GramMatvecFn``."""
+    """The row-panel matvec K̃(xi, x) @ u of SDD's ``rows_mv``: the Gram
+    kernel on ``gram_plan(p, n, d, s)``, as ``gram_matvec`` runs it, counted
+    apart (``launches``, never the plain version's calls). Differentiable in
+    xi, x and u through ``_GramMatvecFn``."""
 
     name = "gram_rows_matvec"
 
@@ -228,29 +300,8 @@ class GramRowsMatvec:
                                        gram_matvec_bwd_ref)
         return _GramMatvecFn.apply(xi, x, u, kind, self._launch, gram_matvec_bwd)
 
-    @staticmethod
-    def workspace_floats(p: int, n: int, s: int) -> int:
-        """Floats of the (chunks, p, s) partial-sum workspace of a launch."""
-        return _build.library().repro_gram_rows_workspace_floats(p, n, s)
-
     def _launch(self, xi, x, u, *, kind):
-        check_operands(self.name, xi, x, u)
-        _check_chain(self.name, xi, x, u)
-        (p, d), n, s = xi.shape, x.shape[0], u.shape[1]
-        out = torch.empty((p, s), dtype=torch.float32, device=x.device)
-        if p == 0 or s == 0:
-            return out
-        if n == 0:
-            return out.zero_()
-        ws = torch.empty(self.workspace_floats(p, n, s), dtype=torch.float32,
-                         device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_gram_rows_matvec_f32(
-                xi.data_ptr(), x.data_ptr(), u.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), p, n, d, s, CUDA_KINDS.index(kind), stream,
-            )
-        _build.check(err, self.name)
+        out = _launch_matvec(self.name, xi, x, u, kind)
         self.launches += 1
         return out
 
@@ -299,7 +350,7 @@ _PLAIN_PAIR_OPS = dict(pair=gram_rows_pair_ref, rows=gram_rows_matvec_ref,
 class GramRowsPair:
     """The wrapper of the fused pair step (``repro_gram_rows_pair_f32``: the
     row panel's matvec, the chunk sum minus b, then the Gram kernel on
-    (x, xi, err); three launches on one stream). ``launches`` counts the pair
+    (x, xi, err); three or four launches on one stream). ``launches`` counts the pair
     launches it made (never the plain version's calls, nor its backward's)."""
 
     name = "gram_rows_pair"
@@ -334,14 +385,16 @@ class GramRowsPair:
             keep = (torch.arange(p, device=x.device) < p_true)[:, None]
             err = torch.where(keep, -b, torch.zeros_like(b))
             return err, g.zero_()
-        ws = torch.empty(gram_rows_matvec.workspace_floats(p, n, s),
+        panel, back = gram_plan(p, n, d, s), gram_plan(n, p, d, s)
+        ws = torch.empty(max(panel.workspace_floats(p, s), back.workspace_floats(n, s)),
                          dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code = _build.library().repro_gram_rows_pair_f32(
                 xi.data_ptr(), x.data_ptr(), look.data_ptr(), b.data_ptr(),
                 ws.data_ptr(), err.data_ptr(), g.data_ptr(), p, n, d, s,
-                CUDA_KINDS.index(kind), p_true, stream,
+                CUDA_KINDS.index(kind), p_true, panel.width, panel.chunk,
+                panel.rows_per_cta, back.chunk, back.rows_per_cta, stream,
             )
         _build.check(code, self.name)
         self.launches += 1

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from repro.kernels.ops import flash_attention as jflash
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import _FlashAttentionFn
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -86,3 +87,24 @@ def test_bf16_and_pallas_raise():
         ops.flash_attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError, match="unknown backend"):
         ops.flash_attention(q, k, v, backend="chunked")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("wrt", [(0, 1, 2), (0,), (1, 2)])
+def test_function_gives_the_plain_versions_gradients(causal, wrt):
+    # the Function that wraps the kernel's launch, given the plain version as
+    # its forward: its output and the gradients its backward recomputes
+    # equal autograd's through the plain version, for whichever inputs ask
+    q, k, v = map(torch.from_numpy, _qkv(3, 2, 70, 4, 2, 32))
+    gbar = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    results = []
+    for fn in (lambda *a: _FlashAttentionFn.apply(*a, causal, flash_attention_ref),
+               lambda *a: flash_attention_ref(*a, causal=causal)):
+        ins = [t.clone().requires_grad_(i in wrt) for i, t in enumerate((q, k, v))]
+        out = fn(*ins)
+        grads = torch.autograd.grad(torch.sum(gbar * out), [ins[i] for i in wrt])
+        results.append((out.detach(), grads))
+    (out_f, grads_f), (out_p, grads_p) = results
+    torch.testing.assert_close(out_f, out_p, rtol=0, atol=0)
+    for a, b in zip(grads_f, grads_p):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -79,6 +79,13 @@ def _max_err(out, ref64):
 @pytest.mark.parametrize("n,m,d,s", [
     (1000, 1000, 9, 1), (1000, 777, 3, 17), (777, 1000, 9, 65),
     (130, 70, 128, 130), (65, 129, 1, 3),
+    # v padded to multiples of 8 and sliced at 128 columns, every d
+    (1000, 1000, 9, 8), (1000, 1000, 9, 9), (999, 1001, 1, 101), (333, 517, 128, 129),
+    (1000, 1000, 3, 65),
+    # few rows: the chunked plan and its fixed-order sum (ragged n and m)
+    (130, 20_000, 9, 17), (400, 20_001, 8, 101), (1, 5000, 3, 1), (70, 3001, 128, 9),
+    # many rows against few columns: two row blocks per CTA
+    (34_000, 512, 9, 65), (34_001, 300, 3, 1),
 ])
 def test_gram_kernel_matches_plain_on_card(card, kind, n, m, d, s):
     x = _normal(1, n, d, scale=0.6)
@@ -87,6 +94,35 @@ def test_gram_kernel_matches_plain_on_card(card, kind, n, m, d, s):
     out = gram_matvec(x, z, v, kind=kind)
     err, scale = _max_err(out, gram_matvec_ref(x.double(), z.double(), v.double(), kind=kind))
     assert err <= GRAM_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,d,s", [(1000, 9, 128), (200, 3, 65), (1000, 128, 1),
+                                   (5000, 9, 129)])
+def test_gram_kernel_self_gram_diagonal_is_exactly_one_on_card(card, kind, n, d, s):
+    # K(x, x) against one-hot columns: column c of the output is column c of
+    # K, so its entry c is k(x_c, x_c) = 1 exactly when d² is exactly 0 (the
+    # tensor cores' TF32 split keeps 1·1 exact, and the other entries meet v's
+    # zeros), on the one-chunk, the chunked (n = 200) and the sliced (s = 129)
+    # plans
+    x = _normal(1, n, d, scale=0.6)
+    v = torch.zeros((n, s), device="cuda")
+    v[torch.arange(s), torch.arange(s)] = 1.0
+    out = gram_matvec(x, x, v, kind=kind)
+    assert bool((out[torch.arange(s), torch.arange(s)] == 1.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d,s", [(45_730, 4096, 9, 65), (400, 50_000, 8, 100),
+                                     (45_730, 512, 9, 65)])
+def test_gram_kernel_gives_the_same_bits_twice_on_card(card, n, m, d, s):
+    # no float atomics: the one-chunk, chunked and row-looped plans each give
+    # the same bits on every run
+    x, z, v = _normal(1, n, d, scale=0.6), _normal(2, m, d, scale=0.6), _normal(3, m, s)
+    first = gram_matvec(x, z, v, kind="matern32")
+    assert torch.equal(first, gram_matvec(x, z, v, kind="matern32"))
+    assert bool(torch.isfinite(first).all())
 
 
 @pytest.mark.gpu
@@ -240,7 +276,8 @@ def test_optimize_on_card_matches_cpu(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("p,p_true,s", [(70, 63, 5), (512, 505, 65)])
+@pytest.mark.parametrize("p,p_true,s", [(70, 63, 5), (512, 505, 65), (128, 121, 101),
+                                         (1024, 1000, 9), (300, 300, 129)])
 def test_gram_rows_kernels_match_plain_on_card(card, kind, p, p_true, s):
     # the row-panel pair and rows matvec against their plain versions in
     # float64, at n over three column chunks, ragged p, one launch each
@@ -260,6 +297,25 @@ def test_gram_rows_kernels_match_plain_on_card(card, kind, p, p_true, s):
         e, scale = _max_err(got, want)
         assert e <= GRAM_TOL * scale
     assert bool((err[p_true:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["se", "matern32"])
+def test_gram_rows_pair_at_protein_n_matches_plain_on_card(card, kind):
+    # SGD's pair at its own shape (p = 512 of n = 45,730, s = 65): phase 0 on
+    # 35 column chunks, phase 2 with two row blocks per CTA
+    n, p, s = 45_730, 512, 65
+    x = _normal(1, n, 9, scale=0.6)
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, n, size=p)).cuda()
+    xi, look, b = x[idx].contiguous(), _normal(3, n, s), _normal(4, p, s)
+    err, g = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p - 7)
+    want_e, want_g = gram_rows_pair_ref(xi.double(), x.double(), look.double(), b.double(),
+                                        kind=kind, p_true=p - 7)
+    for got, want in ((err, want_e), (g, want_g)):
+        e, scale = _max_err(got, want)
+        assert e <= GRAM_TOL * scale
+    again = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p - 7)
+    assert torch.equal(again[0], err) and torch.equal(again[1], g)
 
 
 @pytest.mark.gpu
@@ -514,3 +570,36 @@ def test_generate_on_card_matches_plain_route(card):
     plain, _ = generate(cfg, model, tokens, 216, 16, backend="plain")
     assert out.shape == (3, 16) and torch.equal(out, plain)
     assert timings["prefill_s"] > 0 and timings["decode_s"] > 0
+
+
+@pytest.mark.gpu
+def test_forward_train_gradients_on_card_match_plain_route(card):
+    """``torch.autograd.grad`` of a loss through ``forward_train`` of a reduced
+    llama3-8b (2 layers, d 256, 4 → 2 heads of 64) on the card: the kernel
+    route launches the flash kernel once a layer and gives the plain route's
+    gradients for every weight, each to 1e-4 of its largest entry."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    tokens = token_batch(0, 0, 2, 130, cfg.vocab_size)["tokens"]
+    grads = {}
+    for backend in ("cuda", "plain"):
+        before = flash_attention.launches
+        logits = model_lib.forward_train(cfg, model, {"tokens": tokens}, backend=backend)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        grads[backend] = torch.autograd.grad(loss, params)
+        launched = flash_attention.launches - before
+        assert launched == (cfg.num_layers if backend == "cuda" else 0)
+    mixer = {id(p) for blk in model.modules() if isinstance(blk, model_lib.Block)
+             for p in blk.mixer.values()}
+    for p, a, b in zip(params, grads["cuda"], grads["plain"]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+        if id(p) in mixer:  # the attention weights' gradients are not dropped
+            assert a.abs().max().item() > 0

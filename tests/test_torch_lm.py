@@ -30,6 +30,8 @@ from repro_torch.configs.base import get_config, list_configs
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
 from repro_torch.data.pipeline import token_batch
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import _FlashAttentionFn
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.launch import serve
 from repro_torch.models import attention, layers
 from repro_torch.models import model as tmodel
@@ -141,6 +143,91 @@ def test_gqa_apply_matches_in_every_mode():
     _close(out, ref)
     for k in ("k", "v"):
         _close(tcache[k], jcache[k])
+
+
+@pytest.fixture
+def flash_function_on_cpu(monkeypatch):
+    """``ops.flash_attention``'s kernel route on CPU tensors through
+    ``_FlashAttentionFn``, the plain version as its forward: the autograd
+    chain the card takes, its backward's recomputation included. Yields the
+    list of the Function's forward calls."""
+    calls = []
+
+    def fwd(q, k, v, *, causal):
+        calls.append(q.shape)
+        return flash_attention_ref(q, k, v, causal=causal)
+
+    monkeypatch.setattr(ops, "_flash_kernel", lambda q, k, v, *, causal: _FlashAttentionFn.apply(
+        q, k, v, causal, fwd))
+    ops.reset_attention_trace_counts()
+    yield calls
+
+
+def _close_grads(grads, ref_grads, tol=TOL):
+    """Each gradient within ``tol`` of its own largest reference entry."""
+    for (name, g), r in zip(grads.items(), ref_grads):
+        r = np.asarray(r)
+        err = float(np.abs(np.asarray(g) - r).max())
+        scale = float(np.abs(r).max())
+        assert scale > 0 and err <= tol * scale, f"{name}: max|Δ| {err} > {tol} × {scale}"
+
+
+def test_gqa_apply_train_gradients_match_the_reference(flash_function_on_cpu):
+    # ∂/∂(h, wq, wk, wv, wo) of ⟨ḡ, gqa_apply(…, "train")⟩, through the
+    # flash Function here and jax.grad of the reference's _sdpa there
+    cfg = get_config("llama3-8b").reduced()
+    jcfg = jget_config("llama3-8b").reduced()
+    b, s = 2, 70  # past one 64-row query tile
+    d, hd = cfg.d_model, cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    p = {"wq": _normal(20, d, hd, scale=d ** -0.5), "wk": _normal(21, d, kvd, scale=d ** -0.5),
+         "wv": _normal(22, d, kvd, scale=d ** -0.5), "wo": _normal(23, hd, d, scale=hd ** -0.5)}
+    h, gbar = _normal(24, b, s, d), _normal(25, b, s, d)
+    pos = np.broadcast_to(np.arange(s), (b, s)).copy()
+
+    def jloss(jp, jh):
+        out, _ = jattn.gqa_apply(jp, jcfg, jh, jnp.asarray(pos), "train")
+        return jnp.sum(jnp.asarray(gbar) * out)
+
+    ref_p, ref_h = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(h))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    th = torch.from_numpy(h).requires_grad_()
+    out, _ = attention.gqa_apply(tp, cfg, th, torch.from_numpy(pos), "train", backend="cuda")
+    grads = torch.autograd.grad(torch.sum(torch.from_numpy(gbar) * out), [th, *tp.values()])
+    assert ops.ATTENTION_TRACE_COUNTS == {"cuda": 1, "plain": 0}
+    assert len(flash_function_on_cpu) == 1
+    _close_grads(dict(zip(["h", *tp], grads)), [ref_h, *(ref_p[k] for k in tp)])
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "olmo-1b"])
+def test_forward_train_gradients_match_the_reference(arch, flash_function_on_cpu):
+    """∂/∂params of ⟨ḡ, logits⟩ through the port's forward_train (every
+    layer's attention through the flash Function) against jax.grad of the
+    reference's forward_train on the same params and tokens."""
+    jcfg, params, cfg, model = _jax_model(arch, num_layers=2)
+    b, s = 2, 24
+    tokens = np.random.default_rng(26).integers(0, cfg.vocab_size, (b, s))
+    gbar = _normal(27, b, s, cfg.vocab_size)
+
+    def jloss(jp):
+        logits = jmodel.forward_train(jcfg, jp, {"tokens": jnp.asarray(tokens, jnp.int32)})
+        return jnp.sum(jnp.asarray(gbar) * logits)
+
+    ref = jax.tree.map(np.asarray, jax.grad(jloss)(params))
+    for prm in model.parameters():
+        prm.requires_grad_(True)
+    logits = tmodel.forward_train(cfg, model, {"tokens": torch.from_numpy(tokens)},
+                                  backend="cuda")
+    torch.sum(torch.from_numpy(gbar) * logits).backward()
+    assert ops.ATTENTION_TRACE_COUNTS == {"cuda": cfg.num_layers, "plain": 0}
+    assert len(flash_function_on_cpu) == cfg.num_layers
+    for prm in model.parameters():  # the gradients in the reference's layout
+        prm.data = prm.grad
+    got = lm_params_to_numpy(model)
+    names = [".".join(path) for path, _ in leaves(got)]
+    assert names == [".".join(path) for path, _ in leaves(ref)]
+    _close_grads(dict(zip(names, (g for _, g in leaves(got)))), [r for _, r in leaves(ref)])
 
 
 # ------------------------------------------------------------------- model ----
