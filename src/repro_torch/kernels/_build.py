@@ -44,18 +44,21 @@ SIGNATURES = {
     # rows_per_cta, stream
     "repro_gram_matvec_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P),
-    # x, z, rowv, colv, out, n, m, d, s, kind, stream
-    "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, omega, w, out, n, m, d, s, stream
-    "repro_rff_matvec_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, z, rowv, colv, workspace, out, n, m, d, s, kind, width, chunk,
+    # stage2_tc, stream
+    "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
+    # x, omega, w, workspace, out, n, m, d, s, width, freq_chunk, stream
+    "repro_rff_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xi, x, look, b, workspace, err, g, p, n, d, s, kind, p_true, width,
     # chunk0, rows_per_cta0, chunk2, rows_per_cta2, stream
     "repro_gram_rows_pair_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _P),
-    # x, omega, u, workspace, t, n, m, d, s, m_true, stream
-    "repro_rff_t_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, omega, u, workspace, t, out, n, m, d, s, m_true, stream
-    "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, omega, u, workspace, t, n, m, d, s, m_true, width, row_chunk, stream
+    "repro_rff_t_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, omega, u, workspace, t, out, n, m, d, s, m_true, width, row_chunk,
+    # freq_chunk, stream
+    "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, stream
     "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # q, k, v, out, b, s, hq, hkv, d, causal, scale, stream
@@ -64,18 +67,17 @@ SIGNATURES = {
     "repro_flash_attention_smem_bytes": (_I,),
     # d, width, rows_per_cta -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I, _I),
-    # d, s -> dynamic shared memory per CTA in bytes
-    "repro_gram_matvec_bwd_smem_bytes": (_I, _I),
+    # d, width, stage2_tc -> dynamic shared memory per CTA in bytes
+    "repro_gram_matvec_bwd_smem_bytes": (_I, _I, _I),
+    # d, width -> dynamic shared memory per CTA in bytes
     "repro_rff_matvec_smem_bytes": (_I, _I),
-    "repro_rff_t_matvec_smem_bytes": (_I, _I),
+    # d, s -> dynamic shared memory per CTA in bytes
     "repro_rff_bwd_smem_bytes": (_I, _I),
-    # (n, m, s) and (rows, cols, d) -> floats of the partial-sum workspace
-    "repro_rff_t_workspace_floats": (_I, _I, _I),
+    # (rows, cols, d) -> floats of the partial-sum workspace
     "repro_rff_bwd_workspace_floats": (_I, _I, _I),
 }
 #: return types other than ``int``
 RESTYPES = {
-    "repro_rff_t_workspace_floats": ctypes.c_longlong,
     "repro_rff_bwd_workspace_floats": ctypes.c_longlong,
 }
 
@@ -113,11 +115,12 @@ def _nvcc() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``_ZN…18gram_matvec_kernelILi2ELi72EEEv…`` → ``gram_matvec_kernel<2,72>``."""
-    m = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    """``_ZN…18gram_matvec_kernelILi2ELi72EEEv…`` → ``gram_matvec_kernel<2,72>``
+    (a ``bool`` argument, ``Lb1E``, as 1)."""
+    m = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
 
 
 def parse_ptxas(log: str) -> tuple:

@@ -24,11 +24,12 @@
 //   Each of the 256 threads computes a 4 x 4 micro-tile of d^2 (rows 4ty..,
 //   columns tx + 16j), so every x value it loads from shared memory (one
 //   float4 broadcast per k) serves 4 entries and every z value 4 entries.
-//   Each entry keeps common.cuh's arithmetic: sq_norm's and dot's fmaf chains
-//   in k order from 0, then fmaf(-2, dot, xn + zn), so a point paired with
-//   itself gives d^2 exactly 0 and agrees bit for bit with the backward
-//   (gram_matvec_bwd.cu). The norms are those same chains, built by each
-//   thread from the loads of its own micro-tile, so no phase waits on them.
+//   Each entry keeps common.cuh's arithmetic: sq_norm's fmaf chain in k
+//   order from 0 for the norms and the dot, then fmaf(-2, dot, xn + zn), so
+//   a point paired with itself gives d^2 exactly 0 and agrees bit for bit
+//   with the backward (gram_matvec_bwd.cu). The norms are those same chains,
+//   built by each thread from the loads of its own micro-tile, so no phase
+//   waits on them.
 //   Clamp and cov_map follow in registers.
 // * Stage 2, P V on the tensor cores at fp32 accuracy: mma.sync m16n8k8 with
 //   TF32 operands and fp32 accumulation, each operand split a = a_hi + a_lo
@@ -103,12 +104,6 @@ __host__ inline int tile_bucket(int nt) {
   return 0;
 }
 
-// Row stride of a v tile: 8 mod 16 floats, so the B-fragment reads
-// (row t, column g) of a warp hit 32 distinct banks.
-__host__ __device__ constexpr int v_stride(int sw) {
-  return sw + ((sw & 8) ? 16 : 8);
-}
-
 // Dynamic shared memory of one CTA: xbufs transposed x blocks (d, 64), the P
 // tile, v's staging tile and its TF32 high and low parts, and two z tiles
 // with an odd row stride.
@@ -137,14 +132,6 @@ __device__ __forceinline__ float cov_map(float d2) {
       return (1.0f + t + t * t / 3.0f) * expf(-t);
     }
   }
-}
-
-// The TF32 split of one operand: hi = a rounded to TF32 (to nearest, ties
-// away from 0: +half an ulp of TF32, then the low 13 bits cleared) and
-// lo = a - hi, exact in fp32, then cleared to TF32 too (truncated).
-__device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
-  hi = __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
-  lo = __uint_as_float(__float_as_uint(a - hi) & 0xffffe000u);
 }
 
 // One CTA: row blocks blockIdx.x * rpc + [0, rpc) of 64 rows, column slice

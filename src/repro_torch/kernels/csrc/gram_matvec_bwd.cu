@@ -12,33 +12,59 @@
 // Replaces: src/repro/kernels/gram_matvec.py, gram_matvec_bwd_pallas
 // (_gram_matvec_bwd_kernel), reached through the VJP of gram_matvec_fused.
 //
-// What bounds it on an H100: operations. Each of the n*m pairs costs 2d
-// flops for the distance, 2s for rowv . colv and 2d for W z, plus a
-// transcendental or two for k', against 4(2nd + md + ns + ms) bytes: at the
-// protein shape (n = m = 45,730, d = 9, s = 8) that is ~1.1e11 flops for
-// 0.006 GB, so the fp32 FMA rate and the SFU set the pace. No tensor cores:
-// the distance identity needs IEEE fp32 (as in the forward), and the W z
-// contraction is only d wide.
+// What bounds it on an H100: operations, on three pipes. Per pair (i, j):
+// (1) the FMA pipe carries the distance (d FMAs), k' and the mask; (2) the
+// SFU its exp and, for Matern, its sqrt; (3) G = rowv . colv (2s flops) and
+// the contraction [sum_j W | W z] = W [1 | z] (2(d + 1) flops), on the
+// tensor cores or the FMA pipe. At training's 45,730^2, d = 9, s = 8 that is
+// ~1.1e11 flops for 6 MB; at the Thompson ascent's 400 x 50,000, d = 8,
+// s = 100, the G products dominate.
 //
-// What the design does about it: W never reaches device memory. One CTA owns
-// BM rows and loops over all columns (the sequential column axis of the Pallas
-// grid), with the z and colv tiles staged in shared memory and read as
-// broadcasts; each thread builds d2 with the forward kernel's FMA order
-// (common.cuh), so the diagonal of K(x, x) is exactly 0 and its mask exact,
-// then k', the mask and rowv . colv, and accumulates sum_j W (one float) and
-// W z (DC floats, d rounded up to a bucket, zero-filled past d) in registers.
-// The KSPLIT partials of a row are added through shared memory at the end; no
-// atomics. Ragged n and m edges are zero-filled tiles: a zero colv row makes
-// its pair's weight 0.
+// What the design does about it. W never reaches device memory.
+//
+// * Few rows fill the card: the column loop is cut into chunks along grid.y
+//   (the plan's, gram_bwd_plan in kernels/gram_matvec.py: at 400 rows, 7 row
+//   blocks become 280 CTAs) and rowv/colv's columns into slices along
+//   grid.z. Each (chunk, slice) writes [W z | sum_j W] of its rows to a
+//   (parts, n, d + 1) workspace, and a second kernel adds them in a fixed
+//   order (no float atomicAdd: every run gives the same bits) and applies
+//   dx = 2 (x sum_j W - W z). With one part the CTA applies it itself.
+// * Stage 1 on the CUDA cores, in registers: each thread owns a 4 x 4
+//   micro-tile of (row, column) pairs laid out as the C fragments of
+//   mma.m16n8k8 (rows g + 8h of two m-tiles, columns 2t + e of two n-tiles;
+//   g = lane / 4, t = lane % 4). d2 keeps common.cuh's FMA chains bit for
+//   bit: the norms and the dot in k order from 0, then fmaf(-2, dot, xn + zn),
+//   so a point paired with itself gives raw d2 exactly 0, as in the forward,
+//   and the mask's 1/2 and Matern-1/2's drop see it.
+// * G = rowv . colv^T: for slices up to 16 columns, FMA chains in the same
+//   micro-tile; wider, on the tensor cores in the three-way TF32 split
+//   (gram_tile.cuh), the rowv tile split once per CTA and the colv tile once
+//   as it lands, the products landing in the micro-tile's C layout.
+// * W = k'(max(d2, 0)) mask G stays in registers. Stage 2, [W z | sum W]:
+//   - on the tensor cores (S2TC): a thread's W entries of one n-tile are, in
+//     order (h0 e0, h1 e0, h0 e1, h1 e1), an A fragment of m16n8k8 whose k
+//     index runs over the columns 2t, 2t + 1 as t, t + 4; the B fragment
+//     reads rows 2t and 2t + 1 of the split [z | 1] tile. So W is split in
+//     registers and never staged;
+//   - on the CUDA cores (the other variant): acc[row][k] += W z_k and
+//     acc[row][d] += W in registers, the rows' partials added across the
+//     four lanes by shuffles at the end.
+//   The plan picks the variant (both are built; PERF.md has both times).
+// * Copies: the next tile's z (and, for narrow slices, colv) by 4-byte
+//   cp.async into the second of two buffers; for wide slices, colv's next
+//   tile into a staging tile, 16 bytes at a time where its rows are one
+//   contiguous run, as soon as the current one is split.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "gram_tile.cuh"
 
 namespace repro_torch {
 namespace {
 
-// Widest rowv/colv one launch takes; the wrapper slices wider ones.
-constexpr int kMaxS = 128;
+constexpr int kB = 64;          // rows of a CTA, and columns of a tile
+constexpr int kThreads = 256;   // 8 warps: 2 row groups x 4 column groups
+constexpr int kNarrowG = 16;    // slices this wide or less: G on the FMA pipe
 
 // dk/d(d2) of gram_matvec.py:_dcov_map, with the same r = sqrt(d2 + 1e-36).
 template <int KIND>
@@ -68,128 +94,456 @@ __device__ __forceinline__ float pair_mask(float raw) {
   }
 }
 
-// Instantiated widths of the W z accumulator (multiples of 4: z rows are read
-// as float4).
-__host__ inline int pick_dc(int d) {
-  const int widths[] = {4, 8, 12, 16, 32, 64, kMaxDim};
-  for (int w : widths)
-    if (d <= w) return w;
-  return kMaxDim;
+// Row stride of the rowv and colv tiles: K padded to k-steps plus 4 (an odd
+// multiple of 4: the fragment reads (row g, column t) hit 32 banks) where G
+// runs on the tensor cores, odd where it runs on the FMA pipe.
+__host__ __device__ inline int rc_stride(int width) {
+  return width > kNarrowG ? ((width + 7) & ~7) + 4 : (width | 1);
 }
 
-// Dynamic shared memory of one CTA: the z (BN, dc), colv (BN, s), x (BM, d|1)
-// and rowv (BM, s|1) tiles and both norm vectors. The reduction buffer
-// (BM, (dc+1)|1) reuses the z, colv and z-norm tiles, which always hold it.
-__host__ inline size_t bwd_smem_bytes(int dc, int d, int s) {
-  return sizeof(float) *
-         (size_t)(BN * dc + BN * s + BN + BM * (d | 1) + BM + BM * (s | 1));
+// Row stride of the split [z | 1] tile of n2 n-tiles, an odd multiple of 4
+// when halved: the permuted B reads (rows 2t, 2t + 1, column g) hit 32 banks.
+__host__ __device__ constexpr int zaug_stride(int n2) { return 8 * n2 + 4; }
+
+// Dynamic shared memory of one CTA in floats: x (64, d|1), two z tiles,
+// rowv (its TF32 parts where G runs on the tensor cores), colv (two buffers,
+// or a staging tile and its parts), and the split [z | 1] tile for S2TC.
+__host__ __device__ inline size_t bwd_smem_floats(int d, int width, int n2) {
+  const size_t dp = d | 1, rs = rc_stride(width);
+  const bool gtc = width > kNarrowG;
+  return 3 * kB * dp + (gtc ? 4 : 3) * kB * rs + (gtc ? kB * width : 0) +
+         2 * kB * (n2 > 0 ? zaug_stride(n2) : 0);
 }
 
-template <int KIND, int DC>
-__global__ void __launch_bounds__(NTHREADS)
-gram_matvec_bwd_kernel(const float* __restrict__ x,
-                       const float* __restrict__ z,
-                       const float* __restrict__ rowv,
-                       const float* __restrict__ colv,
-                       float* __restrict__ out, int n, int m, int d, int s) {
+// One CTA: rows blockIdx.x * 64 + [0, 64), column chunk blockIdx.y of `chunk`
+// columns (a multiple of 64), rowv/colv columns blockIdx.z * width + [0,
+// width). GTC: G on the tensor cores. S2TC: stage 2 on the tensor cores with
+// DW n-tiles of [z | 1]; otherwise on the FMA pipe with DW >= d accumulators.
+template <int KIND, bool GTC, bool S2TC, int DW>
+__global__ void __launch_bounds__(kThreads, GTC ? 1 : 2)
+gram_bwd_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                const float* __restrict__ rowv, const float* __restrict__ colv,
+                float* __restrict__ out, int n, int m, int d, int s, int width,
+                int chunk) {
+  constexpr int N2 = S2TC ? 8 * DW : 0;
+  constexpr int ZS = zaug_stride(DW);
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  static_assert(DC % 4 == 0, "z rows are read as float4");
-  const int dp = d | 1;  // odd strides: each lane reads its own row
-  const int sp = s | 1;
-  float* zs = smem;            // (BN, DC), first: 16-byte aligned rows
-  float* cs = zs + BN * DC;    // (BN, s), read as broadcasts
-  float* zn = cs + BN * s;     // (BN,)
-  float* xs = zn + BN;         // (BM, dp)
-  float* xn = xs + BM * dp;    // (BM,)
-  float* rs = xn + BM;         // (BM, sp)
+  const int dp = d | 1;
+  const int rs = rc_stride(width);
+  float* xs = reinterpret_cast<float*>(smem4);  // (64, dp)
+  float* zs = xs + kB * dp;                     // 2 x (64, dp)
+  float* rhi = zs + 2 * kB * dp;                // (64, rs): rowv, or its hi part
+  float* rlo = rhi + kB * rs;                   // GTC: rowv's lo part
+  float* chi = rlo + (GTC ? kB * rs : 0);       // colv's hi part, or buffer 0
+  float* clo = chi + kB * rs;                   // colv's lo part, or buffer 1
+  float* cst = clo + kB * rs;                   // GTC: colv staging (64, live)
+  float* zhi = cst + (GTC ? kB * width : 0);    // S2TC: (64, ZS)
+  float* zlo = zhi + kB * ZS;
 
-  const int r = threadIdx.x % BM;
-  const int g = threadIdx.x / BM;
-  const int row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rg = (warp >> 2) * 32;  // rows rg + 16 (a >> 1) + g + 8 (a & 1)
+  const int cb = (warp & 3) * 16;   // columns cb + 8 (b >> 1) + 2 t4 + (b & 1)
+  int R[4], C[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    R[a] = rg + 16 * (a >> 1) + g + 8 * (a & 1);
+    C[a] = cb + 8 * (a >> 1) + 2 * t4 + (a & 1);
+  }
+  const int row0 = blockIdx.x * kB;
+  const int c0 = blockIdx.z * width;
+  const int live = min(width, s - c0);
+  const int kp = (live + 7) & ~7;
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const int tiles = (j_end - j_begin + kB - 1) / kB;
+  // elements e = tid + kThreads i of a (rows, w) tile sit at (e / w, e % w):
+  // the per-tile loops below walk them by these steps, without a division
+  const int zq = kThreads / d, zr = kThreads - zq * d;
+  const int cq = kThreads / live, cr = kThreads - cq * live;
+  const int kq = kThreads / kp, kr = kThreads - kq * kp;
 
-  // columns d..DC of the z tile stay 0 for the whole loop: they pad the
-  // unrolled W z update
-  for (int i = threadIdx.x; i < BN * DC; i += NTHREADS) zs[i] = 0.0f;
-  load_rows(xs, x, row0, BM, n, d, dp);
-  load_rows(rs, rowv, row0, BM, n, s, sp);
+  // Stationary: the x rows and the rowv slice (for GTC staged in chi and
+  // split below), zero past n.
+  for (int i = tid; i < kB * d; i += kThreads) {
+    const int r = i / d, k = i - r * d;
+    const bool ok = row0 + r < n;
+    cp_async_f32(xs + r * dp + k, ok ? x + (size_t)(row0 + r) * d + k : x, ok);
+  }
+  float* rdst = GTC ? chi : rhi;
+  for (int i = tid; i < kB * live; i += kThreads) {
+    const int r = i / live, c = i - r * live;
+    const bool ok = row0 + r < n;
+    cp_async_f32(rdst + r * rs + c, ok ? rowv + (size_t)(row0 + r) * s + c0 + c : rowv, ok);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  if (threadIdx.x < BM) xn[r] = sq_norm(xs + r * dp, d);
-
-  float acc[DC + 1];  // W z, then sum_j W
+  if constexpr (GTC) {
+    for (int i = tid; i < kB * kp; i += kThreads) {
+      const int r = i / kp, c = i - r * kp;
+      float hi = 0.0f, lo = 0.0f;
+      if (c < live) split_tf32(chi[r * rs + c], hi, lo);
+      rhi[r * rs + c] = hi;
+      rlo[r * rs + c] = lo;
+    }
+  }
+  float xn[4];
 #pragma unroll
-  for (int c = 0; c <= DC; ++c) acc[c] = 0.0f;
+  for (int a = 0; a < 4; ++a) xn[a] = sq_norm(xs + R[a] * dp, d);
 
-  const float* xr = xs + r * dp;
-  const float* rr = rs + r * sp;
-  for (int j0 = 0; j0 < m; j0 += BN) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows(zs, z, j0, BN, m, d, DC);
-    load_rows(cs, colv, j0, BN, m, s, s);
-    __syncthreads();
-    if (threadIdx.x < BN) zn[threadIdx.x] = sq_norm(zs + threadIdx.x * DC, d);
-    __syncthreads();
-    const float xr_n = xn[r];
-    for (int jj = g; jj < BN; jj += KSPLIT) {
-      const float* zr = zs + jj * DC;
-      const float raw = raw_sqdist(xr, xr_n, zr, zn[jj], d);
-      const float* cr = cs + jj * s;
-      float gv = 0.0f;
-      for (int c = 0; c < s; ++c) gv = fmaf(rr[c], cr[c], gv);
-      const float w =
-          dcov_map<KIND>(fmaxf(raw, 0.0f)) * pair_mask<KIND>(raw) * gv;
-      acc[DC] += w;
+  // Tile t's z rows (and, for narrow slices, its colv rows) into buffer buf,
+  // zero past the chunk.
+  auto prefetch = [&](int t, int buf) {
+    const int j0 = j_begin + t * kB;
+    float* zd = zs + buf * kB * dp;
+    for (int j = tid / d, k = tid % d; j < kB;) {
+      const bool ok = j0 + j < j_end;
+      cp_async_f32(zd + j * dp + k, ok ? z + (size_t)(j0 + j) * d + k : z, ok);
+      j += zq;
+      k += zr;
+      if (k >= d) {
+        k -= d;
+        ++j;
+      }
+    }
+    if constexpr (!GTC) {
+      float* cd = buf ? clo : chi;
+      for (int j = tid / live, c = tid % live; j < kB;) {
+        const bool ok = j0 + j < j_end;
+        cp_async_f32(cd + j * rs + c, ok ? colv + (size_t)(j0 + j) * s + c0 + c : colv, ok);
+        j += cq;
+        c += cr;
+        if (c >= live) {
+          c -= live;
+          ++j;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // GTC: tile t's colv rows into the staging tile, dense (rows, live).
+  auto prefetch_colv = [&](int t) {
+    const int j0 = j_begin + t * kB;
+    const int total = min(kB, j_end - j0) * live;
+    const float* src = colv + (size_t)j0 * s + c0;
+    if (live == s && (reinterpret_cast<size_t>(src) & 15) == 0) {
+      for (int e = 4 * tid; e < total; e += 4 * kThreads)
+        cp_async_16(cst + e, src + e, 4 * min(4, total - e));
+    } else {
+      for (int e = tid; e < total; e += kThreads) {
+        const int j = e / live, c = e - j * live;
+        cp_async_f32(cst + e, src + (size_t)j * s + c, true);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // stage 2's sums: S2TC, C fragments of rows rg + 16 mt + .. and [z | 1]
+  // columns 8 n2 + ..; otherwise acc[a][k] of row R[a], k < d, and acc[a][DW]
+  // = sum_j W
+  constexpr int AN = S2TC ? 2 * DW * 4 : 4 * (DW + 1);
+  float acc[AN];
 #pragma unroll
-      for (int k = 0; k < DC; k += 4) {
-        const float4 z4 = *reinterpret_cast<const float4*>(zr + k);
-        acc[k] = fmaf(w, z4.x, acc[k]);
-        acc[k + 1] = fmaf(w, z4.y, acc[k + 1]);
-        acc[k + 2] = fmaf(w, z4.z, acc[k + 2]);
-        acc[k + 3] = fmaf(w, z4.w, acc[k + 3]);
+  for (int i = 0; i < AN; ++i) acc[i] = 0.0f;
+
+  prefetch(0, 0);
+  if constexpr (GTC) prefetch_colv(0);
+  for (int t = 0; t < tiles; ++t) {
+    const int rows = min(kB, j_end - (j_begin + t * kB));
+    const float* zt = zs + (t & 1) * kB * dp;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; the previous one is consumed
+    if (t + 1 < tiles) prefetch(t + 1, (t + 1) & 1);
+    if constexpr (GTC) {  // colv's split; columns past the chunk are 0
+      for (int j = tid / kp, c = tid % kp; j < kB;) {
+        float hi = 0.0f, lo = 0.0f;
+        if (j < rows && c < live) split_tf32(cst[j * live + c], hi, lo);
+        chi[j * rs + c] = hi;
+        clo[j * rs + c] = lo;
+        j += kq;
+        c += kr;
+        if (c >= kp) {
+          c -= kp;
+          ++j;
+        }
+      }
+    }
+    if constexpr (S2TC) {  // [z | 1 | 0..], split
+      for (int i = tid; i < kB * N2; i += kThreads) {
+        const int j = i / N2, k = i - j * N2;
+        const float v = k < d ? zt[j * dp + k] : (k == d ? 1.0f : 0.0f);
+        split_tf32(v, zhi[j * ZS + k], zlo[j * ZS + k]);
+      }
+    }
+    __syncthreads();  // the split tiles are written; the staging tile is free
+    if constexpr (GTC) {
+      if (t + 1 < tiles) prefetch_colv(t + 1);
+    }
+
+    // G in the C layout: w[mt][nt][e], row rg + 16 mt + g + 8 (e >> 1),
+    // column cb + 8 nt + 2 t4 + (e & 1)
+    float w[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[mt][nt][e] = 0.0f;
+    if constexpr (GTC) {
+      for (int k0 = 0; k0 < kp; k0 += 8) {
+        float ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int o = (rg + 16 * mt + g) * rs + k0 + t4;
+          const int oo[4] = {o, o + 8 * rs, o + 4, o + 8 * rs + 4};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ahi[mt][e] = rhi[oo[e]];
+            alo[mt][e] = rlo[oo[e]];
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int o = (cb + 8 * nt + g) * rs + k0 + t4;
+          bhi[nt][0] = chi[o];
+          bhi[nt][1] = chi[o + 4];
+          blo[nt][0] = clo[o];
+          blo[nt][1] = clo[o + 4];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            mma_split_add(w[mt][nt], ahi[mt], alo[mt], bhi[nt], blo[nt]);
+      }
+    } else {
+      const float* cv = (t & 1) ? clo : chi;
+      for (int c = 0; c < live; ++c) {
+        float rv[4], qv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          rv[a] = rhi[R[a] * rs + c];
+          qv[a] = cv[C[a] * rs + c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            float& wv = w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)];
+            wv = fmaf(rv[a], qv[b], wv);
+          }
+      }
+    }
+
+    // Stage 1: raw d2 of the micro-tile, common.cuh's chains, then W.
+    {
+      float dot[4][4], zn[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        zn[b] = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) dot[a][b] = 0.0f;
+      }
+      for (int k = 0; k < d; ++k) {
+        float xv[4], zv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          xv[a] = xs[R[a] * dp + k];
+          zv[a] = zt[C[a] * dp + k];
+          zn[a] = fmaf(zv[a], zv[a], zn[a]);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) dot[a][b] = fmaf(xv[a], zv[b], dot[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          // columns past the chunk: zero colv rows, so G = 0 and W = 0
+          const float raw = fmaf(-2.0f, dot[a][b], xn[a] + zn[b]);
+          float& wv = w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)];
+          wv = dcov_map<KIND>(fmaxf(raw, 0.0f)) * pair_mask<KIND>(raw) * wv;
+        }
+    }
+
+    // Stage 2: [W z | sum_j W] of this tile's 16 columns of the warp.
+    if constexpr (S2TC) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          // k index t <-> column 2 t4, t + 4 <-> column 2 t4 + 1
+          const float a[4] = {w[mt][nt][0], w[mt][nt][2], w[mt][nt][1], w[mt][nt][3]};
+          float ahi[4], alo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
+          const int jb = (cb + 8 * nt + 2 * t4) * ZS + g;
+#pragma unroll
+          for (int n2 = 0; n2 < DW; ++n2) {
+            const int o = jb + 8 * n2;
+            const float bh[2] = {zhi[o], zhi[o + ZS]};
+            const float bl[2] = {zlo[o], zlo[o + ZS]};
+            float* ap = acc + (mt * DW + n2) * 4;  // compile-time offsets
+            float c[4] = {ap[0], ap[1], ap[2], ap[3]};
+            mma_split_add(c, ahi, alo, bh, bl);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ap[e] = c[e];
+          }
+        }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          acc[a * (DW + 1) + DW] += w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)];
+#pragma unroll
+      for (int k = 0; k < DW; ++k) {
+        if (k < d) {
+          float zv[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) zv[b] = zt[C[b] * dp + k];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[a * (DW + 1) + k] =
+                  fmaf(w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)], zv[b], acc[a * (DW + 1) + k]);
+        }
       }
     }
   }
-  __syncthreads();  // every tile read: the reduction may reuse the buffer
-  reduce_rows<DC + 1>(acc, smem);
-  if (threadIdx.x < BM && row0 + r < n) {
-    // x from shared memory: the reduction buffer ends before the x tile
-    float* o = out + (size_t)(row0 + r) * d;
+
+  // The four column groups' sums of each row, added in order through shared
+  // memory (the z tiles, free once every tile is consumed): red (64, d + 1),
+  // column d = sum_j W.
+  const int rw = d + 1;
+  float* red = zs;
+  if constexpr (!S2TC) {  // first the four lanes t4 of each row
 #pragma unroll
-    for (int k = 0; k < DC; ++k)
-      if (k < d) o[k] = 2.0f * (xr[k] * acc[DC] - acc[k]);
+    for (int i = 0; i < AN; ++i) {
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+    }
+  }
+  for (int grp = 0; grp < 4; ++grp) {
+    __syncthreads();
+    if ((warp & 3) != grp) continue;
+    if constexpr (S2TC) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int n2 = 0; n2 < DW; ++n2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = rg + 16 * mt + g + 8 * (e >> 1);
+            const int k = 8 * n2 + 2 * t4 + (e & 1);
+            if (k < rw) {
+              const float v = acc[(mt * DW + n2) * 4 + e];
+              red[r * rw + k] = grp == 0 ? v : red[r * rw + k] + v;
+            }
+          }
+    } else if (t4 == 0) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k <= DW; ++k) {
+          const int kk = k == DW ? d : k;
+          if (k == DW || k < d) {
+            const float v = acc[a * (DW + 1) + k];
+            red[R[a] * rw + kk] = grp == 0 ? v : red[R[a] * rw + kk] + v;
+          }
+        }
+    }
+  }
+  __syncthreads();
+  if (gridDim.y * gridDim.z == 1) {  // one part: dx here
+    for (int i = tid; i < kB * d; i += kThreads) {
+      const int r = i / d, k = i - r * d;
+      if (row0 + r < n)
+        out[(size_t)(row0 + r) * d + k] =
+            2.0f * (xs[r * dp + k] * red[r * rw + d] - red[r * rw + k]);
+    }
+  } else {
+    float* part = out + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * n * rw;
+    for (int i = tid; i < kB * rw; i += kThreads) {
+      const int r = i / rw;
+      if (row0 + r < n) part[(size_t)row0 * rw + i] = red[i];
+    }
   }
 }
 
-template <int KIND, int DC>
-cudaError_t launch(const float* x, const float* z, const float* rowv,
-                   const float* colv, float* out, int n, int m, int d, int s,
-                   cudaStream_t stream) {
-  const size_t bytes = bwd_smem_bytes(DC, d, s);
-  auto kernel = gram_matvec_bwd_kernel<KIND, DC>;
+// A launch's operands and shape.
+struct BwdArgs {
+  const float *x, *z, *rowv, *colv;
+  float* out;
+  int n, m, d, s, width, chunk;
+};
+
+template <int KIND, bool GTC, bool S2TC, int DW>
+cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * bwd_smem_floats(a.d, a.width, S2TC ? DW : 0);
+  auto kernel = gram_bwd_kernel<KIND, GTC, S2TC, DW>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((n + BM - 1) / BM);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(x, z, rowv, colv, out, n, m, d, s);
+  const dim3 grid((a.n + kB - 1) / kB, (a.m + a.chunk - 1) / a.chunk,
+                  (a.s + a.width - 1) / a.width);
+  kernel<<<grid, kThreads, bytes, stream>>>(a.x, a.z, a.rowv, a.colv, a.out, a.n, a.m,
+                                            a.d, a.s, a.width, a.chunk);
   return cudaGetLastError();
 }
 
-template <int KIND>
-cudaError_t dispatch_dim(const float* x, const float* z, const float* rowv,
-                         const float* colv, float* out, int n, int m, int d,
-                         int s, cudaStream_t st) {
-  switch (pick_dc(d)) {
-    case 4: return launch<KIND, 4>(x, z, rowv, colv, out, n, m, d, s, st);
-    case 8: return launch<KIND, 8>(x, z, rowv, colv, out, n, m, d, s, st);
-    case 12: return launch<KIND, 12>(x, z, rowv, colv, out, n, m, d, s, st);
-    case 16: return launch<KIND, 16>(x, z, rowv, colv, out, n, m, d, s, st);
-    case 32: return launch<KIND, 32>(x, z, rowv, colv, out, n, m, d, s, st);
-    case 64: return launch<KIND, 64>(x, z, rowv, colv, out, n, m, d, s, st);
-    default:
-      return launch<KIND, kMaxDim>(x, z, rowv, colv, out, n, m, d, s, st);
+// The [z | 1] n-tiles (S2TC) or accumulator width (FMA) of an instance.
+__host__ inline int stage2_width(int d, bool s2tc) {
+  if (s2tc) {
+    const int n2 = (d + 1 + 7) / 8;
+    return n2 <= 2 ? 2 : (n2 <= 5 ? 5 : 17);
   }
+  return d <= 8 ? 8 : (d <= 12 ? 12 : (d <= 16 ? 16 : 0));
+}
+
+template <int KIND, bool GTC>
+cudaError_t dispatch_stage2(bool s2tc, const BwdArgs& a, cudaStream_t st) {
+  switch (s2tc ? -stage2_width(a.d, true) : stage2_width(a.d, false)) {
+    case -2: return launch<KIND, GTC, true, 2>(a, st);
+    case -5: return launch<KIND, GTC, true, 5>(a, st);
+    case -17: return launch<KIND, GTC, true, 17>(a, st);
+    case 8: return launch<KIND, GTC, false, 8>(a, st);
+    case 12: return launch<KIND, GTC, false, 12>(a, st);
+    case 16: return launch<KIND, GTC, false, 16>(a, st);
+    default: return cudaErrorInvalidValue;  // the FMA variant takes d <= 16
+  }
+}
+
+template <int KIND>
+cudaError_t dispatch_g(bool s2tc, const BwdArgs& a, cudaStream_t st) {
+  if (a.width > kNarrowG) return dispatch_stage2<KIND, true>(s2tc, a, st);
+  return dispatch_stage2<KIND, false>(s2tc, a, st);
+}
+
+constexpr int kSumThreads = 256;
+
+// dx[i, k] = 2 (x[i, k] S - T_k), S and T the (parts, n, d + 1) partials'
+// sums over the parts, in order.
+__global__ void __launch_bounds__(kSumThreads)
+bwd_sum_kernel(const float* __restrict__ partial, const float* __restrict__ x,
+               float* __restrict__ out, int parts, int n, int d) {
+  const size_t i = (size_t)blockIdx.x * kSumThreads + threadIdx.x;
+  if (i >= (size_t)n * d) return;
+  const size_t row = i / d, k = i - row * d, rw = d + 1;
+  float sw = 0.0f, wz = 0.0f;
+  for (int p = 0; p < parts; ++p) {
+    const float* pr = partial + ((size_t)p * n + row) * rw;
+    sw += pr[d];
+    wz += pr[k];
+  }
+  out[i] = 2.0f * (x[i] * sw - wz);
 }
 
 }  // namespace
@@ -197,30 +551,48 @@ cudaError_t dispatch_dim(const float* x, const float* z, const float* rowv,
 
 // x (n, d), z (m, d), rowv (n, s), colv (m, s) -> out (n, d); all float32,
 // row-major, contiguous, on the current device. kind: 0 se, 1 matern12,
-// 2 matern32, 3 matern52. Requires n, m >= 1, 1 <= s <= 128 and
-// 1 <= d <= 128. Returns the CUDA error of the launch (0 on success).
+// 2 matern32, 3 matern52. The plan, from gram_bwd_plan: rowv/colv in slices
+// of `width` columns (a multiple of 8), columns in chunks of `chunk` (a
+// multiple of 64), stage 2 on the tensor cores (stage2_tc = 1) or the FMA
+// pipe (0, d <= 16). With more than one (chunk, slice) part, workspace holds
+// their (parts, n, d + 1) partial sums and a second launch adds them.
+// Requires n, m, s >= 1 and 1 <= d <= 128. Returns the first CUDA error (0
+// on success).
 extern "C" int repro_gram_matvec_bwd_f32(const float* x, const float* z,
                                          const float* rowv, const float* colv,
-                                         float* out, int n, int m, int d, int s,
-                                         int kind, void* stream) {
+                                         float* workspace, float* out, int n,
+                                         int m, int d, int s, int kind,
+                                         int width, int chunk, int stage2_tc,
+                                         void* stream) {
   using namespace repro_torch;
-  if (n < 1 || m < 1 || s < 1 || s > kMaxS || d < 1 || d > kMaxDim)
+  if (n < 1 || m < 1 || s < 1 || d < 1 || d > kMaxDim || width < 8 ||
+      width % 8 != 0 || chunk < kB || chunk % kB != 0 ||
+      (m + chunk - 1) / chunk > 65535 || (s + width - 1) / width > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int parts = ((m + chunk - 1) / chunk) * ((s + width - 1) / width);
+  const BwdArgs a{x, z, rowv, colv, parts == 1 ? out : workspace, n, m, d, s, width, chunk};
+  const bool tc = stage2_tc != 0;
+  cudaError_t err;
   switch (kind) {
-    case kSE:
-      return (int)dispatch_dim<kSE>(x, z, rowv, colv, out, n, m, d, s, st);
-    case kMatern12:
-      return (int)dispatch_dim<kMatern12>(x, z, rowv, colv, out, n, m, d, s, st);
-    case kMatern32:
-      return (int)dispatch_dim<kMatern32>(x, z, rowv, colv, out, n, m, d, s, st);
-    case kMatern52:
-      return (int)dispatch_dim<kMatern52>(x, z, rowv, colv, out, n, m, d, s, st);
+    case kSE: err = dispatch_g<kSE>(tc, a, st); break;
+    case kMatern12: err = dispatch_g<kMatern12>(tc, a, st); break;
+    case kMatern32: err = dispatch_g<kMatern32>(tc, a, st); break;
+    case kMatern52: err = dispatch_g<kMatern52>(tc, a, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess || parts == 1) return (int)err;
+  const size_t total = (size_t)n * d;
+  bwd_sum_kernel<<<(unsigned)((total + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
+                   st>>>(workspace, x, out, parts, n, d);
+  return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory per CTA of a launch with these d and s, in bytes.
-extern "C" int repro_gram_matvec_bwd_smem_bytes(int d, int s) {
-  return (int)repro_torch::bwd_smem_bytes(repro_torch::pick_dc(d), d, s);
+// Dynamic shared memory per CTA of a launch with these d, slice width and
+// stage 2, in bytes (0 where the FMA variant does not take d).
+extern "C" int repro_gram_matvec_bwd_smem_bytes(int d, int width, int stage2_tc) {
+  using namespace repro_torch;
+  if (!stage2_tc && stage2_width(d, false) == 0) return 0;
+  return (int)(sizeof(float) *
+               bwd_smem_floats(d, width, stage2_tc ? stage2_width(d, true) : 0));
 }

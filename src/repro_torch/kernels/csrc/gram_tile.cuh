@@ -1,6 +1,7 @@
-// The PTX primitives of the Gram matvec's tile (gram_matvec.cu): 4- and
-// 16-byte cp.async with zero fill, and the m16n8k8 TF32 tensor-core product
-// with fp32 accumulation.
+// The tile primitives of the tensor-core kernels (gram_matvec.cu,
+// gram_matvec_bwd.cu, rff_matvec.cu): 4- and 16-byte cp.async with zero
+// fill, the m16n8k8 TF32 tensor-core product with fp32 accumulation, and the
+// three-way TF32 split of its operands.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +49,37 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4],
       : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
         "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
         "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+}
+
+// The TF32 split of one operand: hi = a rounded to TF32 (to nearest, ties
+// away from 0: +half an ulp of TF32, then the low 13 bits cleared) and
+// lo = a - hi, exact in fp32, then cleared to TF32 too (truncated). A product
+// a b is then a_lo b_hi + a_hi b_lo + a_hi b_hi, three MMAs, which drops
+// a_lo b_lo and a_lo's truncation, ~2^-21 of the product.
+__device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
+  lo = __uint_as_float(__float_as_uint(a - hi) & 0xffffe000u);
+}
+
+// c += a b in the three-way split: the three products summed in f by the
+// tensor cores, then added to c by FADD, rounding to nearest (the tensor
+// cores' own accumulation does not, and its bias grows with the terms).
+__device__ __forceinline__ void mma_split_add(float (&c)[4], const float (&ahi)[4],
+                                              const float (&alo)[4],
+                                              const float (&bhi)[2],
+                                              const float (&blo)[2]) {
+  float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(f, alo, bhi);
+  mma_tf32(f, ahi, blo);
+  mma_tf32(f, ahi, bhi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += f[e];
+}
+
+// Row stride of a (K, 8 NT) B tile read as b[0] = B[t][g]: 8 mod 16 floats,
+// so the B-fragment reads (row t, column g) of a warp hit 32 distinct banks.
+__host__ __device__ constexpr int v_stride(int sw) {
+  return sw + ((sw & 8) ? 16 : 8);
 }
 
 }  // namespace repro_torch

@@ -5,7 +5,7 @@
 //   W_ij = cos(R_i . C_j) (P1_i . Q1_j) - sin(R_i . C_j) (P2_i . Q2_j),
 //
 // with R (rows, d), C (cols, d), P1, P2 (rows, s) and Q1, Q2 (cols, s). The
-// factor roles give every VJP of rff_matvec.cu and rff_t_matvec.cu: dx of
+// factor roles give every VJP of rff_matvec.cu's three entries: dx of
 // Phi~ w is (R, C, P1, P2, Q1, Q2) = (x, omega, g, g, w_sin, w_cos), domega
 // is (omega, x, w_sin, w_cos, g, g), and the pair's are the same on its
 // rank-2s factors.

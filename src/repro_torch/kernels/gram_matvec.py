@@ -8,8 +8,8 @@ jitter-free covariance core of already lengthscale-scaled inputs, the twin of
 σ_f², 1/ℓ and the jitter are applied by the caller (``kernels/ops.py``),
 outside the core, as in the reference. Its backward is the reference's fused
 VJP: dv = K̃(z, x) @ ḡ by the forward kernel with swapped operands, and dx and
-dz by ``gram_matvec_bwd`` (the twin of ``gram_matvec_bwd_pallas``), each only
-where autograd asks for it.
+dz by ``gram_matvec_bwd`` (the twin of ``gram_matvec_bwd_pallas``, on
+``gram_bwd_plan``'s launch), each only where autograd asks for it.
 
 ``gram_rows_matvec(xi, x, u)`` is the row panel K̃(xi, x) @ u of a few hundred
 gathered rows (SDD's ``rows_mv``), and ``gram_rows_pair(xi, x, look, b)`` the
@@ -25,6 +25,7 @@ among them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -105,6 +106,97 @@ def gram_plan(n: int, m: int, d: int, s: int) -> GramPlan:
         rows_per_cta = max(1, min(_cdiv(LOOP_TILES, tiles), base // FILL_CTAS))
     return GramPlan(row_blocks=row_blocks, rows_per_cta=rows_per_cta, chunks=chunks,
                     chunk=per * TILE_COLS, slices=slices, width=width)
+
+
+#: The backward kernel's tile (``csrc/gram_matvec_bwd.cu``): 64 rows by 64
+#: columns, rowv/colv sliced at BWD_SLICE_COLS columns (half that past d = 32,
+#: a quarter past d = 64: the x and z tiles and [z | 1] take the shared
+#: memory), G = rowv·colvᵀ on the FMA pipe for slices of at most NARROW_G
+#: columns (two CTAs resident on an SM) and on the tensor cores above (one).
+#: Its stage 2, [Σⱼ W | W z], runs on the FMA pipe for d ≤ FMA_STAGE2_DIM
+#: (faster than the tensor-core variant at both path shapes on the H100,
+#: PERF.md §6) and on the tensor cores above, or where ``stage2="tc"`` is
+#: asked. Few rows are cut into column chunks by ``round_chunks``.
+BWD_SLICE_COLS = MAX_BWD_COLUMNS
+NARROW_G = 16
+FMA_STAGE2_DIM = 16
+BWD_STAGE2 = ("tc", "fma")
+#: SMs of the card, and the chunk counts ``round_chunks`` weighs, up to
+#: CHUNK_ROUNDS rounds of resident CTAs
+SMS = 132
+CHUNK_ROUNDS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def round_chunks(tiles: int, base: int, resident: int, min_per: int) -> int:
+    """Tiles per chunk when a K loop of ``tiles`` tiles is cut into chunks
+    along grid.y under ``base`` CTAs each (rows × slices), with ``resident``
+    CTAs on an SM: the cut whose CTAs finish first, counted as rounds of
+    resident CTAs × tiles per CTA (the card runs ⌈CTAs / (SMS · resident)⌉
+    rounds, so 280 CTAs take three rounds of 132 where 264 take two). Ties
+    take fewer chunks; chunks hold at least ``min_per`` tiles (or all), at
+    most GRID_Y chunks. A plain function, so every run of a shape is cut the
+    same way; memoised, since every launch asks for its plan."""
+    slots = SMS * resident
+    if base >= slots or tiles <= min_per:
+        return max(tiles, 1)
+    best_per, best = tiles, _cdiv(base, slots) * tiles
+    for chunks in range(2, min(tiles, _cdiv(CHUNK_ROUNDS * slots, base)) + 1):
+        per = max(min_per, _cdiv(tiles, chunks), _cdiv(tiles, GRID_Y))
+        steps = _cdiv(base * _cdiv(tiles, per), slots) * per
+        if steps < best:
+            best_per, best = per, steps
+    return best_per
+
+
+@dataclasses.dataclass(frozen=True)
+class GramBwdPlan:
+    """The backward kernel's launch at (n, m, d, s): ``row_blocks`` of 64 rows,
+    ``chunks`` column chunks of ``chunk`` columns (a multiple of 64),
+    ``slices`` slices of rowv/colv, each ``width`` columns (a multiple of 8),
+    and stage 2 on the tensor cores (``"tc"``) or the FMA pipe (``"fma"``).
+    Each (chunk, slice) is a part; more than one part writes (parts, n, d + 1)
+    partial sums that a second launch adds in a fixed order."""
+
+    row_blocks: int
+    chunks: int
+    chunk: int
+    slices: int
+    width: int
+    stage2: str
+
+    @property
+    def ctas(self) -> int:
+        return self.row_blocks * self.chunks * self.slices
+
+    @property
+    def parts(self) -> int:
+        return self.chunks * self.slices
+
+    def workspace_floats(self, n: int, d: int) -> int:
+        """Floats of the (parts, n, d + 1) partial sums; 0 for one part."""
+        return self.parts * n * (d + 1) if self.parts > 1 else 0
+
+
+def gram_bwd_plan(n: int, m: int, d: int, s: int, stage2=None) -> GramBwdPlan:
+    """The launch plan of the Gram backward for x (n, d), z (m, d), rowv (n, s),
+    colv (m, s), s ≤ MAX_BWD_COLUMNS (the wrapper slices wider ones): a plain
+    function of the shapes, so every run of a shape is cut the same way. Few
+    row blocks × slices cut the column loop into ``round_chunks``' chunks (at
+    least MIN_CHUNK_TILES tiles each). ``stage2`` (``"tc"`` or ``"fma"``)
+    overrides the variant, to time both."""
+    if stage2 is None:
+        stage2 = "fma" if d <= FMA_STAGE2_DIM else "tc"
+    if stage2 not in BWD_STAGE2 or (stage2 == "fma" and d > FMA_STAGE2_DIM):
+        raise ValueError(f"stage 2 {stage2!r} does not take d = {d}")
+    slice_cols = BWD_SLICE_COLS >> (0 if d <= 32 else 1 if d <= 64 else 2)
+    row_blocks, tiles = _cdiv(n, TILE_ROWS), _cdiv(m, TILE_COLS)
+    width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
+    slices = _cdiv(s, width)
+    per = round_chunks(tiles, row_blocks * slices, 1 if width > NARROW_G else 2,
+                       MIN_CHUNK_TILES)
+    return GramBwdPlan(row_blocks=row_blocks, chunks=_cdiv(tiles, per), chunk=per * TILE_COLS,
+                       slices=slices, width=width, stage2=stage2)
 
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -244,11 +336,15 @@ class GramMatvecBwd:
         return self._launch(x, z, rowv, colv, kind)
 
     @staticmethod
-    def smem_bytes(d: int, s: int) -> int:
+    def smem_bytes(d: int, s: int, stage2=None) -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        return _build.library().repro_gram_matvec_bwd_smem_bytes(d, s)
+        plan = gram_bwd_plan(1, 1, d, s, stage2)
+        return _build.library().repro_gram_matvec_bwd_smem_bytes(
+            d, plan.width, int(plan.stage2 == "tc"))
 
-    def _launch(self, x, z, rowv, colv, kind):
+    def _launch(self, x, z, rowv, colv, kind, stage2=None):
+        """The launch on ``gram_bwd_plan``'s geometry; ``stage2`` overrides
+        its stage-2 variant (to time both)."""
         check_operands(self.name, x, z, rowv, colv)
         (n, d), (m, dz), (nr, s), (mc, sc) = x.shape, z.shape, rowv.shape, colv.shape
         if dz != d or nr != n or mc != m or sc != s:
@@ -261,7 +357,7 @@ class GramMatvecBwd:
         if s > MAX_BWD_COLUMNS:  # dx is linear in the rank-s product rowv colvᵀ
             return sum(
                 self._launch(x, z, rowv[:, c:c + MAX_BWD_COLUMNS].contiguous(),
-                             colv[:, c:c + MAX_BWD_COLUMNS].contiguous(), kind)
+                             colv[:, c:c + MAX_BWD_COLUMNS].contiguous(), kind, stage2)
                 for c in range(0, s, MAX_BWD_COLUMNS)
             )
         out = torch.empty((n, d), dtype=torch.float32, device=x.device)
@@ -269,11 +365,14 @@ class GramMatvecBwd:
             return out
         if m == 0 or s == 0:
             return out.zero_()
+        plan = gram_bwd_plan(n, m, d, s, stage2)
+        ws = torch.empty(plan.workspace_floats(n, d), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _build.library().repro_gram_matvec_bwd_f32(
-                x.data_ptr(), z.data_ptr(), rowv.data_ptr(), colv.data_ptr(),
-                out.data_ptr(), n, m, d, s, CUDA_KINDS.index(kind), stream,
+                x.data_ptr(), z.data_ptr(), rowv.data_ptr(), colv.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), n, m, d, s, CUDA_KINDS.index(kind), plan.width, plan.chunk,
+                int(plan.stage2 == "tc"), stream,
             )
         _build.check(err, self.name)
         self.launches += 1

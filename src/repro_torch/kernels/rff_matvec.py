@@ -1,5 +1,6 @@
 """Fused random-Fourier-feature matvecs and their backward — the CUDA kernels
-``csrc/rff_matvec.cu``, ``csrc/rff_t_matvec.cu`` and ``csrc/rff_bwd.cu`` and
+``csrc/rff_matvec.cu`` (Φ̃W, Φ̃ᵀu and the pair, one tensor-core kernel in two
+orientations) and ``csrc/rff_bwd.cu``, their launch plan ``rff_plan`` and
 their wrappers.
 
 ``rff_matvec(x, omega, w)`` computes √(1/m)·[sin(xΩᵀ) | cos(xΩᵀ)] @ w with w's
@@ -31,14 +32,93 @@ yardstick of the kernels' gradients on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .gram_matvec import MAX_BWD_COLUMNS, MAX_DIM, check_operands
+from .gram_matvec import (
+    MAX_BWD_COLUMNS, MAX_DIM, SLICE_COLS, WIDE_DIM, _cdiv, check_operands, round_chunks,
+)
 from .ref import rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
+
+#: The kernel's tile (``csrc/rff_matvec.cu``): Φ̃W runs 64 data rows a CTA over
+#: feature tiles of FREQ_TILE frequencies; Φ̃ᵀu runs FREQ_TILE frequencies a
+#: CTA over tiles of ROW_TILE data rows. Frequencies are computed in groups of
+#: FREQ_GROUP (one k-step or m-tile of the tensor-core product); s is sliced
+#: as the Gram kernel slices v. Few output blocks cut the K loop into
+#: ``round_chunks``' chunks, at least MIN_ROW_TILES row tiles a chunk of Φ̃ᵀu.
+ROW_TILE = 64
+FREQ_TILE = 32
+FREQ_GROUP = 8
+MIN_ROW_TILES = 4
+
+
+def rff_resident(d: int, width: int) -> int:
+    """CTAs of the kernel resident on an SM (its launch bounds, and its shared
+    memory past d = WIDE_DIM): three up to 16 columns a slice, two up to 72,
+    one above."""
+    if d > WIDE_DIM or width > 72:
+        return 1
+    return 3 if width <= 16 else 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RFFPlan:
+    """The kernel's launches at (n, m, d, s), both orientations: v, w or u in
+    ``slices`` column slices of ``width`` columns (a multiple of 8); Φ̃ᵀu on
+    ``freq_blocks`` blocks of FREQ_TILE frequencies × ``row_chunks`` chunks of
+    ``row_chunk`` rows (a multiple of 64); Φ̃W on ``row_blocks`` blocks of 64
+    rows × ``freq_chunks`` chunks of ``freq_chunk`` frequencies (a multiple of
+    32). ``padded_freqs`` is the frequencies computed, m rounded up to a group
+    of FREQ_GROUP."""
+
+    slices: int
+    width: int
+    freq_blocks: int
+    row_chunks: int
+    row_chunk: int
+    row_blocks: int
+    freq_chunks: int
+    freq_chunk: int
+    padded_freqs: int
+
+    @property
+    def t_ctas(self) -> int:
+        return self.freq_blocks * self.row_chunks * self.slices
+
+    @property
+    def mv_ctas(self) -> int:
+        return self.row_blocks * self.freq_chunks * self.slices
+
+    def t_workspace_floats(self, m: int, s: int) -> int:
+        """Floats of Φ̃ᵀu's (row_chunks, 2m, s) partial sums."""
+        return self.row_chunks * 2 * m * s
+
+    def mv_workspace_floats(self, n: int, s: int) -> int:
+        """Floats of Φ̃W's (freq_chunks, n, s) partial sums; 0 for one chunk."""
+        return self.freq_chunks * n * s if self.freq_chunks > 1 else 0
+
+
+def rff_plan(n: int, m: int, d: int, s: int) -> RFFPlan:
+    """The launch plan of Φ̃W and Φ̃ᵀu for x (n, d), ω (m, d) and a (2m, s) or
+    (n, s) operand: a plain function of the shapes, so every run of a shape
+    is cut the same way (and its fixed-order chunk sum gives the same bits)."""
+    slice_cols = SLICE_COLS if d <= WIDE_DIM else SLICE_COLS // 2
+    width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
+    slices = _cdiv(s, width)
+    freq_blocks, row_tiles = _cdiv(m, FREQ_TILE), _cdiv(n, ROW_TILE)
+    row_blocks, freq_tiles = _cdiv(n, ROW_TILE), _cdiv(m, FREQ_TILE)
+    resident = rff_resident(d, width)
+    per = round_chunks(row_tiles, freq_blocks * slices, resident, MIN_ROW_TILES)
+    fper = round_chunks(freq_tiles, row_blocks * slices, resident, 1)
+    return RFFPlan(slices=slices, width=width, freq_blocks=freq_blocks,
+                   row_chunks=_cdiv(row_tiles, per), row_chunk=per * ROW_TILE,
+                   row_blocks=row_blocks, freq_chunks=_cdiv(freq_tiles, fper),
+                   freq_chunk=fper * FREQ_TILE,
+                   padded_freqs=FREQ_GROUP * _cdiv(m, FREQ_GROUP))
 
 
 def _projection_grads(ctx, x, omega, p, q):
@@ -198,8 +278,9 @@ class RFFMatvec:
 
     @staticmethod
     def smem_bytes(d: int, s: int) -> int:
-        """Dynamic shared memory per CTA of a launch at these d and s."""
-        return _build.library().repro_rff_matvec_smem_bytes(d, s)
+        """Dynamic shared memory per CTA of a launch at these d and s (either
+        orientation)."""
+        return _build.library().repro_rff_matvec_smem_bytes(d, rff_plan(1, 1, d, s).width)
 
     def _launch(self, x, omega, w):
         check_operands(self.name, x, omega, w)
@@ -217,11 +298,13 @@ class RFFMatvec:
         out = torch.empty((n, s), dtype=torch.float32, device=x.device)
         if n == 0 or s == 0:
             return out
+        plan = rff_plan(n, m, d, s)
+        ws = torch.empty(plan.mv_workspace_floats(n, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _build.library().repro_rff_matvec_f32(
-                x.data_ptr(), omega.data_ptr(), w.data_ptr(), out.data_ptr(),
-                n, m, d, s, stream,
+                x.data_ptr(), omega.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                n, m, d, s, plan.width, plan.freq_chunk, stream,
             )
         _build.check(err, self.name)
         self.launches += 1
@@ -230,9 +313,9 @@ class RFFMatvec:
 
 class RFFTMatvec:
     """The wrapper of the transposed RFF kernel (``repro_rff_t_matvec_f32``:
-    row chunks into a partial-sum workspace, then a fixed-order sum).
-    ``launches`` counts the launches it made (never the plain version's
-    calls)."""
+    ``rff_plan``'s row chunks into a partial-sum workspace, then a
+    fixed-order sum). ``launches`` counts the launches it made (never the
+    plain version's calls)."""
 
     name = "rff_t_matvec"
 
@@ -248,16 +331,6 @@ class RFFTMatvec:
             return _RFFTMatvecFn.apply(x, omega, u, m_true, _PLAIN_OPS)
         return _RFFTMatvecFn.apply(x, omega, u, m_true, _KERNEL_OPS)
 
-    @staticmethod
-    def smem_bytes(d: int, s: int) -> int:
-        """Dynamic shared memory per CTA of the partial kernel at these d, s."""
-        return _build.library().repro_rff_t_matvec_smem_bytes(d, s)
-
-    @staticmethod
-    def workspace_floats(n: int, m: int, s: int) -> int:
-        """Floats of the (chunks, 2m, s) partial-sum workspace of a launch."""
-        return _build.library().repro_rff_t_workspace_floats(n, m, s)
-
     def _launch(self, x, omega, u, m_true):
         check_operands(self.name, x, omega, u)
         _check_rff(self.name, x, omega, u)
@@ -267,13 +340,13 @@ class RFFTMatvec:
             return out
         if n == 0:
             return out.zero_()
-        ws = torch.empty(self.workspace_floats(n, m, s), dtype=torch.float32,
-                         device=x.device)
+        plan = rff_plan(n, m, d, s)
+        ws = torch.empty(plan.t_workspace_floats(m, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _build.library().repro_rff_t_matvec_f32(
                 x.data_ptr(), omega.data_ptr(), u.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), n, m, d, s, m_true, stream,
+                out.data_ptr(), n, m, d, s, m_true, plan.width, plan.row_chunk, stream,
             )
         _build.check(err, self.name)
         self.launches += 1
@@ -282,9 +355,11 @@ class RFFTMatvec:
 
 class RFFPair:
     """The wrapper of the fused regulariser pair (``repro_rff_pair_f32``: the
-    transposed kernel into a (2m, s) buffer, masked to ``m_true``, then the
-    RFF matvec kernel on it; three launches on one stream). ``launches``
-    counts the pair launches it made (never the plain version's calls)."""
+    kernel's Φ̃ᵀu orientation and its fixed-order sum into a (2m, s) buffer,
+    masked to ``m_true``, then its Φ̃W orientation on it; three or four
+    launches on one stream, on ``rff_plan``'s geometry, with one allocation
+    for t and the workspace). ``launches`` counts the pair launches it made
+    (never the plain version's calls)."""
 
     name = "rff_pair"
 
@@ -306,14 +381,16 @@ class RFFPair:
         out = torch.empty((n, s), dtype=torch.float32, device=x.device)
         if n == 0 or s == 0:
             return out
-        ws = torch.empty(rff_t_matvec.workspace_floats(n, m, s), dtype=torch.float32,
-                         device=x.device)
-        t = torch.empty((2 * m, s), dtype=torch.float32, device=x.device)
+        plan = rff_plan(n, m, d, s)
+        ws_floats = max(plan.t_workspace_floats(m, s), plan.mv_workspace_floats(n, s))
+        buf = torch.empty(2 * m * s + ws_floats, dtype=torch.float32, device=x.device)
+        t, ws = buf[:2 * m * s], buf[2 * m * s:]  # t first: 16-byte aligned
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _build.library().repro_rff_pair_f32(
                 x.data_ptr(), omega.data_ptr(), u.data_ptr(), ws.data_ptr(),
-                t.data_ptr(), out.data_ptr(), n, m, d, s, m_true, stream,
+                t.data_ptr(), out.data_ptr(), n, m, d, s, m_true, plan.width,
+                plan.row_chunk, plan.freq_chunk, stream,
             )
         _build.check(err, self.name)
         self.launches += 1

@@ -347,6 +347,97 @@ def test_rff_t_and_pair_kernels_match_plain_on_card(card, m, m_true, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d,s,m_true", [
+    (45_730, 100, 9, 65, 100), (45_730, 100, 9, 65, 93),  # SGD's pair, and padded
+    (1001, 77, 5, 33, 70), (4097, 100, 9, 130, 100),  # ragged; two slices
+    (400, 512, 8, 100, 512), (63, 1, 3, 1, 1), (3000, 40, 128, 9, 40),
+])
+def test_rff_kernel_orientations_match_plain_on_card(card, n, m, d, s, m_true):
+    # Φ̃W, Φ̃ᵀu and the pair, one kernel in two orientations, against the
+    # plain versions in float64: one chunk and several (few rows: frequency
+    # chunks of Φ̃W), ragged m (skipped k-steps and m-tiles), ragged s
+    x, u, w = _normal(1, n, d, scale=1.5 / d ** 0.5), _normal(2, n, s), _normal(4, 2 * m, s)
+    omega = _normal(3, m, d, scale=0.8)
+    omega[m_true:] = 0.0
+    x64, om64 = x.double(), omega.double()
+    for got, want in ((rff_matvec(x, omega, w), rff_matvec_ref(x64, om64, w.double())),
+                      (rff_t_matvec(x, omega, u, m_true=m_true),
+                       rff_t_matvec_ref(x64, om64, u.double(), m_true=m_true)),
+                      (rff_pair(x, omega, u, m_true=m_true),
+                       rff_pair_ref(x64, om64, u.double(), m_true=m_true))):
+        e, scale = _max_err(got, want)
+        assert e <= RFF_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d,s", [(45_730, 100, 9, 65), (400, 512, 8, 100)])
+def test_rff_kernels_give_the_same_bits_twice_on_card(card, n, m, d, s):
+    # no float atomics: the row chunks of Φ̃ᵀu and the frequency chunks of
+    # Φ̃W are summed in a fixed order
+    x, u, w = _normal(1, n, d), _normal(2, n, s), _normal(4, 2 * m, s)
+    omega = _normal(3, m, d, scale=0.8)
+    for fn in (lambda: rff_matvec(x, omega, w), lambda: rff_t_matvec(x, omega, u),
+               lambda: rff_pair(x, omega, u)):
+        first = fn()
+        assert torch.equal(first, fn()) and bool(torch.isfinite(first).all())
+
+
+def _thompson_bwd_operands(kind_seed=0):
+    # the Thompson ascent's backward: 400 query rows in [0, 1)^8 against
+    # 50,000 observations, ℓ = 0.3, s = 100
+    rng = np.random.default_rng(kind_seed)
+    xq = torch.from_numpy((rng.random((400, 8)) / 0.3).astype(np.float32)).cuda()
+    xs = torch.from_numpy((rng.random((50_000, 8)) / 0.3).astype(np.float32)).cuda()
+    return xq, xs, _normal(5, 400, 100), _normal(6, 50_000, 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage2", ["tc", "fma"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_bwd_kernel_at_the_thompson_shape_on_card(card, kind, stage2):
+    # 7 row blocks cut into gram_bwd_plan's 40 column chunks (280 CTAs),
+    # G = rowv·colvᵀ on the tensor cores, both stage-2 variants
+    xq, xs, g, v = _thompson_bwd_operands()
+    out = gram_matvec_bwd._launch(xq, xs, g, v, kind, stage2)
+    ref = gram_matvec_bwd_ref(xq.double(), xs.double(), g.double(), v.double(), kind=kind)
+    err, scale = _max_err(out, ref)
+    assert err <= GRAD_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage2", ["tc", "fma"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m,d,s", [
+    (1000, 1000, 9, 8), (777, 1000, 8, 100), (130, 20_001, 9, 17), (70, 3001, 16, 1),
+    (65, 129, 3, 20), (2000, 2000, 12, 128),
+])
+def test_gram_bwd_stage2_variants_match_plain_on_card(card, kind, stage2, n, m, d, s):
+    # square shapes pass x as z, so the self-pairs' raw d² is exactly 0 (the
+    # mask's ½, Matérn-1/2's drop); one part and several (chunks), G on the
+    # FMA pipe (s ≤ 16) and on the tensor cores
+    x = _normal(1, n, d, scale=1.8 / d ** 0.5)
+    z = x if n == m else _normal(2, m, d, scale=1.8 / d ** 0.5)
+    rowv, colv = _normal(3, n, s), _normal(4, m, s)
+    out = gram_matvec_bwd._launch(x, z, rowv, colv, kind, stage2)
+    ref = gram_matvec_bwd_ref(*(t.double() for t in (x, z, rowv, colv)), kind=kind)
+    err, scale = _max_err(out, ref)
+    assert err <= GRAD_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage2", ["tc", "fma"])
+def test_gram_bwd_kernel_gives_the_same_bits_twice_on_card(card, stage2):
+    # no float atomics: one part at training's n, 40 parts at the Thompson
+    # shape, each summed in a fixed order
+    x = _normal(1, 45_730, 9, scale=0.6)
+    g, v = _normal(2, 45_730, 8), _normal(3, 45_730, 8)
+    for args in ((x, x, g, v), _thompson_bwd_operands()):
+        first = gram_matvec_bwd._launch(*args, "matern32", stage2)
+        again = gram_matvec_bwd._launch(*args, "matern32", stage2)
+        assert torch.equal(first, again) and bool(torch.isfinite(first).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["se", "matern32"])
 def test_gram_rows_pair_grads_match_plain_on_card(card, kind):
     # the pair's VJP through the kernels (rows matvec, Gram forward, Gram
