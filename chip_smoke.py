@@ -747,38 +747,74 @@ def _rff_bwd_bound_ms(rows, cols, d, s, ws_floats, operands):
     return 1e3 * max(flops / PEAK_FP32_FLOPS, 4 * floats / PEAK_BYTES), flops, 4 * floats
 
 
+def _rff_bwd_floors(plan, cols, d) -> dict:
+    """The RFF backward's own floors over the pairs its plan computes (row
+    blocks of 64 × column tiles of 64, once per slice): ``sfu_floor_ms``, a
+    sin and a cos a pair at 16 SFU operations per clock per SM, and
+    ``tc_split_bound_ms``, the larger of the FMA pipe's share (2d flops a pair
+    for the projection, and 4·width for the factor products where those run
+    there) and the tensor cores' (the three-way split's 3 × 2 flops a product
+    per padded factor column of the two products where those run there, and
+    per C column of W C's n-tiles)."""
+    pairs = 64 * plan.row_blocks * 64 * -(-cols // 64) * plan.slices
+    kp = plan.width  # a multiple of 8: the padded k-steps of a slice
+    fma, tc = pairs * 2 * d, 0
+    if plan.products == "tc":
+        tc += pairs * 3 * 2 * 2 * kp
+    else:
+        fma += pairs * 2 * 2 * kp
+    tc += pairs * 3 * 2 * 8 * (2 if d <= 16 else 16)
+    return dict(sfu_floor_ms=1e3 * pairs * SFU_OPS_RFF / SFU_OPS_PER_S,
+                tc_split_bound_ms=1e3 * max(fma / PEAK_FP32_FLOPS, tc / PEAK_TF32_FLOPS))
+
+
 def _rff_bwd_case(torch, rec, label, r, c, p1, p2, q1, q2, scale, check_rows=CHECK_ROWS):
-    """One RFF backward launch against its plain version in float64 (on the
-    first ``check_rows`` output rows), timed beside the fp32 plain version."""
-    from repro_torch.kernels.gram_matvec import MAX_BWD_COLUMNS
+    """One RFF backward call against its plain version in float64 (on the
+    first ``check_rows`` output rows), timed beside the fp32 plain version;
+    both variants of its factor products (``variant_ms``, the plan's own
+    giving ``ms``) checked and timed, by CUDA events over 20 calls."""
     from repro_torch.kernels.ref import rff_bwd_ref
-    from repro_torch.kernels.rff_matvec import rff_bwd
+    from repro_torch.kernels.rff_matvec import rff_bwd, rff_bwd_plan
 
     (rows, d), cols, s = r.shape, c.shape[0], p1.shape[1]
-    out = rff_bwd(r, c, p1, p2, q1, q2, scale=scale)
+    plan = rff_bwd_plan(rows, cols, d, s)
     k = min(rows, check_rows)
     ref64 = rff_bwd_ref(r[:k].double(), c.double(), p1[:k].double(), p2[:k].double(),
                         q1.double(), q2.double(), scale=scale)
+    tol = GRAD_TOL * max(1.0, ref64.abs().max().item())
+    before = rff_bwd.launches
+    out = rff_bwd(r, c, p1, p2, q1, q2, scale=scale)
+    launches = rff_bwd.launches - before
     torch.cuda.synchronize()
     err = (out[:k].double() - ref64).abs().max().item()
-    tol = GRAD_TOL * max(1.0, ref64.abs().max().item())
-    slices = -(-s // MAX_BWD_COLUMNS)
-    ws = slices * rff_bwd.workspace_floats(rows, cols, d)
-    chunks = max(1, ws // (slices * rows * d))
+    finite = bool(torch.isfinite(out).all())
+    variants, errs = {}, {}
+    for prod in ("tc", "fma"):
+        vout = rff_bwd._launch(r, c, p1, p2, q1, q2, scale, prod)
+        torch.cuda.synchronize()
+        errs[prod] = (vout[:k].double() - ref64).abs().max().item()
+        finite = finite and bool(torch.isfinite(vout).all())
+        variants[prod] = _events_ms(torch, lambda: rff_bwd._launch(
+            r, c, p1, p2, q1, q2, scale, prod), 20)
+    del ref64
+    ws = plan.workspace_floats(rows, d)
     bound, flops, nbytes = _rff_bwd_bound_ms(rows, cols, d, s, ws, (r, c, p1, p2, q1, q2))
     line = dict(kernel="rff_bwd", case=label, rows=rows, cols=cols, d=d, s=s,
-                launches_per_call=slices, chunks=chunks, ctas=-(-rows // 64) * chunks,
-                checked_rows=k, max_abs_err=err, tol=tol,
-                finite=bool(torch.isfinite(out).all()),
-                smem_bytes=rff_bwd.smem_bytes(d, min(s, MAX_BWD_COLUMNS)),
+                launches_per_call=launches, chunks=plan.chunks, slices=plan.slices,
+                width=plan.width, ctas=plan.ctas, products=plan.products,
+                checked_rows=k, max_abs_err=err, tol=tol, variant_err=errs, finite=finite,
+                smem_bytes=rff_bwd.smem_bytes(d, s),
                 ms=_events_ms(torch, lambda: rff_bwd(r, c, p1, p2, q1, q2, scale=scale), 20),
+                variant_ms=variants,
                 plain_ms=_events_ms(torch, lambda: rff_bwd_ref(r, c, p1, p2, q1, q2,
                                                                scale=scale), 3),
-                bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes)
+                bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes,
+                **_rff_bwd_floors(plan, cols, d))
     emit("kernels", **line)
-    check(line["finite"], f"rff_bwd {label}: finite")
-    check(err <= tol, f"rff_bwd {label}: {err} > {tol}")
-    rec["rff_bwd"]["max_abs_err"] = max(rec["rff_bwd"]["max_abs_err"], err)
+    check(finite, f"rff_bwd {label}: finite")
+    check(launches == 1, f"rff_bwd {label}: one launch a call, got {launches}")
+    check(max(err, *errs.values()) <= tol, f"rff_bwd {label}: {err}, {errs} > {tol}")
+    rec["rff_bwd"]["max_abs_err"] = max(rec["rff_bwd"]["max_abs_err"], err, *errs.values())
     return line
 
 
@@ -786,7 +822,7 @@ def rff_bwd_cases(torch, x, rff_omega, gen, rec) -> None:
     """The RFF backward kernel against its plain version in float64 on the
     card, in both orientations, at protein's forward-VJP shape (n = 45,730
     points, m = 1,024 frequencies, s = 65) and at the SGD pair VJP's (m = 100,
-    2s = 130, sliced at 128); then the three RFF autograd Functions' ∂x, ∂ω
+    2s = 130, in two slices); then the three RFF autograd Functions' ∂x, ∂ω
     and ∂w/∂u through the kernels against the plain Functions in float64, at
     SGD's m = 100 and s = 65 with a padded Ω (m_true = 93) for the transpose
     and the pair."""
@@ -916,16 +952,34 @@ def _flash_bound_ms(b, s, hq, hkv, d, causal):
     return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
 
 
+def _flash_floors(b, s, hq, d, causal) -> dict:
+    """The flash kernel's own floors over the (row, key) pairs it computes:
+    64 × 64 a visited key tile (causal: tiles 0 to the CTA's own), an exp a
+    pair on the SFU (``sfu_floor_ms``), and 2 × 2d flops a pair in the
+    three-way TF32 split, 3 × that, at 495 TFLOP/s (``tc_split_bound_ms``),
+    where a diagonal tile's warp skips the n-tiles past its rows (2,560 of
+    its 4,096 pairs computed)."""
+    from repro_torch.kernels.flash_attention import BLOCK
+
+    nq = -(-s // BLOCK)
+    tiles = nq * (nq + 1) // 2 if causal else nq * nq
+    pairs = b * hq * tiles * BLOCK ** 2
+    mma_pairs = pairs - (b * hq * nq * (BLOCK ** 2 - 2560) if causal else 0)
+    return dict(sfu_floor_ms=1e3 * pairs / SFU_OPS_PER_S,
+                tc_split_bound_ms=1e3 * mma_pairs * 3 * 4 * d / PEAK_TF32_FLOPS)
+
+
 def flash_cases(torch, gen, rec, paths) -> None:
     """The flash-attention kernel against its plain version in float64 on the
     card (FLASH_CASES): the serving path's shape, s = 1,000 causal and not
     (the ragged last block masked by bounds) and d = 64. Times: the kernel
     over 20 warm launches, the fp32 plain version over 3 calls, and SDPA
     (``scaled_dot_product_attention`` with ``enable_gqa``, on (b, h, s, d)
-    copies made beforehand) over 20, by CUDA events."""
+    copies made beforehand) over 20, by CUDA events. Both calls of the
+    kernel give the same bits."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import BLOCK, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
     dev = torch.device("cuda")
@@ -934,6 +988,7 @@ def flash_cases(torch, gen, rec, paths) -> None:
         k = torch.randn((b, s, hkv, d), generator=gen, device=dev)
         v = torch.randn((b, s, hkv, d), generator=gen, device=dev)
         out = flash_attention(q, k, v, causal=causal)
+        again = flash_attention(q, k, v, causal=causal)
         ref64 = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
         torch.cuda.synchronize()
         err = (out.double() - ref64).abs().max().item()
@@ -943,15 +998,18 @@ def flash_cases(torch, gen, rec, paths) -> None:
         bound, flops, nbytes = _flash_bound_ms(b, s, hq, hkv, d, causal)
         line = dict(
             kernel="flash_attention", case=label, b=b, s=s, hq=hq, hkv=hkv, d=d,
-            causal=causal, ctas=b * hq * -(-s // 64), max_abs_err=err, rel_err=err / scale,
+            causal=causal, ctas=b * hq * -(-s // BLOCK), max_abs_err=err, rel_err=err / scale,
+            same_bits=bool(torch.equal(out, again)),
             tol=FLASH_TOL * scale, smem_bytes=flash_attention.smem_bytes(d),
             ms=_events_ms(torch, lambda: flash_attention(q, k, v, causal=causal), 20),
             plain_ms=_events_ms(torch, lambda: flash_attention_ref(q, k, v, causal=causal), 3),
             library_ms=_events_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 20),
-            bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes)
+            bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops, bytes=nbytes,
+            **_flash_floors(b, s, hq, d, causal))
         emit("kernels", **line)
         check(err <= FLASH_TOL * scale, f"flash_attention {label}: {err} > {FLASH_TOL * scale}")
+        check(line["same_bits"], f"flash_attention {label}: the same bits on two launches")
         rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
         if label == "lm_serve":
             paths["lm_serve"]["flash_attention"] = line

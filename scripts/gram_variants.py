@@ -101,7 +101,7 @@ def build_variants(names, out_dir: Path) -> dict:
         lib = ctypes.CDLL(str(so))
         for entry, argtypes in _build.SIGNATURES.items():
             getattr(lib, entry).argtypes = list(argtypes)
-            getattr(lib, entry).restype = _build.RESTYPES.get(entry, ctypes.c_int)
+            getattr(lib, entry).restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         rc, log, secs = done[(name, "gram_matvec")]

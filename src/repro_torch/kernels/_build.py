@@ -37,8 +37,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C entry points: name -> argument types. The launchers return the launch's
-#: ``cudaError_t`` as an int.
+#: C entry points: name -> argument types. Each returns an int: a launcher
+#: its launch's ``cudaError_t``, a query a size in bytes.
 SIGNATURES = {
     # x, z, v, b, workspace, out, n, m, d, s, kind, rows_true, width, chunk,
     # rows_per_cta, stream
@@ -59,8 +59,10 @@ SIGNATURES = {
     # x, omega, u, workspace, t, out, n, m, d, s, m_true, width, row_chunk,
     # freq_chunk, stream
     "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, stream
-    "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, width,
+    # chunk, products_tc, stream
+    "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                          _P),
     # q, k, v, out, b, s, hq, hkv, d, causal, scale, stream
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # d -> dynamic shared memory per CTA in bytes
@@ -71,14 +73,8 @@ SIGNATURES = {
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I, _I),
     # d, width -> dynamic shared memory per CTA in bytes
     "repro_rff_matvec_smem_bytes": (_I, _I),
-    # d, s -> dynamic shared memory per CTA in bytes
-    "repro_rff_bwd_smem_bytes": (_I, _I),
-    # (rows, cols, d) -> floats of the partial-sum workspace
-    "repro_rff_bwd_workspace_floats": (_I, _I, _I),
-}
-#: return types other than ``int``
-RESTYPES = {
-    "repro_rff_bwd_workspace_floats": ctypes.c_longlong,
+    # d, width, products_tc -> dynamic shared memory per CTA in bytes
+    "repro_rff_bwd_smem_bytes": (_I, _I, _I),
 }
 
 
@@ -227,7 +223,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
+            fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -50,6 +50,9 @@
 //     acc[row][d] += W in registers, the rows' partials added across the
 //     four lanes by shuffles at the end.
 //   The plan picks the variant (both are built; PERF.md has both times).
+//   The micro-tile's G products and the tensor-core stage 2 are the tile
+//   code this kernel shares with the RFF backward (rff_bwd.cu), in
+//   gram_tile.cuh.
 // * Copies: the next tile's z (and, for narrow slices, colv) by 4-byte
 //   cp.async into the second of two buffers; for wide slices, colv's next
 //   tile into a staging tile, 16 bytes at a time where its rows are one
@@ -63,7 +66,7 @@ namespace repro_torch {
 namespace {
 
 constexpr int kB = 64;          // rows of a CTA, and columns of a tile
-constexpr int kThreads = 256;   // 8 warps: 2 row groups x 4 column groups
+constexpr int kThreads = kPairThreads;  // 8 warps: 2 row groups x 4 column groups
 constexpr int kNarrowG = 16;    // slices this wide or less: G on the FMA pipe
 
 // dk/d(d2) of gram_matvec.py:_dcov_map, with the same r = sqrt(d2 + 1e-36).
@@ -101,10 +104,6 @@ __host__ __device__ inline int rc_stride(int width) {
   return width > kNarrowG ? ((width + 7) & ~7) + 4 : (width | 1);
 }
 
-// Row stride of the split [z | 1] tile of n2 n-tiles, an odd multiple of 4
-// when halved: the permuted B reads (rows 2t, 2t + 1, column g) hit 32 banks.
-__host__ __device__ constexpr int zaug_stride(int n2) { return 8 * n2 + 4; }
-
 // Dynamic shared memory of one CTA in floats: x (64, d|1), two z tiles,
 // rowv (its TF32 parts where G runs on the tensor cores), colv (two buffers,
 // or a staging tile and its parts), and the split [z | 1] tile for S2TC.
@@ -112,7 +111,7 @@ __host__ __device__ inline size_t bwd_smem_floats(int d, int width, int n2) {
   const size_t dp = d | 1, rs = rc_stride(width);
   const bool gtc = width > kNarrowG;
   return 3 * kB * dp + (gtc ? 4 : 3) * kB * rs + (gtc ? kB * width : 0) +
-         2 * kB * (n2 > 0 ? zaug_stride(n2) : 0);
+         2 * kB * (n2 > 0 ? contract_stride(n2) : 0);
 }
 
 // One CTA: rows blockIdx.x * 64 + [0, 64), column chunk blockIdx.y of `chunk`
@@ -126,7 +125,7 @@ gram_bwd_kernel(const float* __restrict__ x, const float* __restrict__ z,
                 float* __restrict__ out, int n, int m, int d, int s, int width,
                 int chunk) {
   constexpr int N2 = S2TC ? 8 * DW : 0;
-  constexpr int ZS = zaug_stride(DW);
+  constexpr int ZS = contract_stride(DW);
   extern __shared__ float4 smem4[];
   const int dp = d | 1;
   const int rs = rc_stride(width);
@@ -292,49 +291,9 @@ gram_bwd_kernel(const float* __restrict__ x, const float* __restrict__ z,
 #pragma unroll
         for (int e = 0; e < 4; ++e) w[mt][nt][e] = 0.0f;
     if constexpr (GTC) {
-      for (int k0 = 0; k0 < kp; k0 += 8) {
-        float ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int o = (rg + 16 * mt + g) * rs + k0 + t4;
-          const int oo[4] = {o, o + 8 * rs, o + 4, o + 8 * rs + 4};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            ahi[mt][e] = rhi[oo[e]];
-            alo[mt][e] = rlo[oo[e]];
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int o = (cb + 8 * nt + g) * rs + k0 + t4;
-          bhi[nt][0] = chi[o];
-          bhi[nt][1] = chi[o + 4];
-          blo[nt][0] = clo[o];
-          blo[nt][1] = clo[o + 4];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            mma_split_add(w[mt][nt], ahi[mt], alo[mt], bhi[nt], blo[nt]);
-      }
+      pair_product_tc(w, rhi, rlo, chi, clo, rs, kp, rg, cb, g, t4);
     } else {
-      const float* cv = (t & 1) ? clo : chi;
-      for (int c = 0; c < live; ++c) {
-        float rv[4], qv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          rv[a] = rhi[R[a] * rs + c];
-          qv[a] = cv[C[a] * rs + c];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            float& wv = w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)];
-            wv = fmaf(rv[a], qv[b], wv);
-          }
-      }
+      pair_product_fma(w, rhi, (t & 1) ? clo : chi, rs, live, R, C);
     }
 
     // Stage 1: raw d2 of the micro-tile, common.cuh's chains, then W.
@@ -372,28 +331,7 @@ gram_bwd_kernel(const float* __restrict__ x, const float* __restrict__ z,
 
     // Stage 2: [W z | sum_j W] of this tile's 16 columns of the warp.
     if constexpr (S2TC) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          // k index t <-> column 2 t4, t + 4 <-> column 2 t4 + 1
-          const float a[4] = {w[mt][nt][0], w[mt][nt][2], w[mt][nt][1], w[mt][nt][3]};
-          float ahi[4], alo[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
-          const int jb = (cb + 8 * nt + 2 * t4) * ZS + g;
-#pragma unroll
-          for (int n2 = 0; n2 < DW; ++n2) {
-            const int o = jb + 8 * n2;
-            const float bh[2] = {zhi[o], zhi[o + ZS]};
-            const float bl[2] = {zlo[o], zlo[o + ZS]};
-            float* ap = acc + (mt * DW + n2) * 4;  // compile-time offsets
-            float c[4] = {ap[0], ap[1], ap[2], ap[3]};
-            mma_split_add(c, ahi, alo, bh, bl);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) ap[e] = c[e];
-          }
-        }
+      pair_contract_tc<DW>(acc, w, zhi, zlo, ZS, cb, g, t4);
     } else {
 #pragma unroll
       for (int a = 0; a < 4; ++a)

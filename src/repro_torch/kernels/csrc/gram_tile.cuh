@@ -1,7 +1,11 @@
 // The tile primitives of the tensor-core kernels (gram_matvec.cu,
-// gram_matvec_bwd.cu, rff_matvec.cu): 4- and 16-byte cp.async with zero
-// fill, the m16n8k8 TF32 tensor-core product with fp32 accumulation, and the
-// three-way TF32 split of its operands.
+// gram_matvec_bwd.cu, rff_matvec.cu, rff_bwd.cu, flash_attention.cu): 4- and
+// 16-byte cp.async with zero fill, the m16n8k8 TF32 tensor-core product with
+// fp32 accumulation, and the three-way TF32 split of its operands; and the
+// pair-weight tiles that the two backward kernels (gram_matvec_bwd.cu,
+// rff_bwd.cu) share: a factor product rowv . colv^T over a slice, into a
+// micro-tile in the MMA C-fragment layout, and the weights contracted with a
+// split column tile on the tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +37,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until every cp.async this thread issued has landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until all but the N most recently committed groups have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // c += a b for a 16x8 A, an 8x8 B and a 16x8 fp32 C, in the fragment layouts
@@ -81,5 +91,121 @@ __device__ __forceinline__ void mma_split_add(float (&c)[4], const float (&ahi)[
 __host__ __device__ constexpr int v_stride(int sw) {
   return sw + ((sw & 8) ? 16 : 8);
 }
+
+// The backward kernels' CTA: 8 warps, 2 row groups x 4 column groups, over 64
+// rows and a tile of 64 columns. Thread (g, t4) of a warp at rows rg and
+// columns cb owns the micro-tile w[mt][nt][e] of row rg + 16 mt + g +
+// 8 (e >> 1) and column cb + 8 nt + 2 t4 + (e & 1): the C fragments of two
+// m-tiles by two n-tiles; R[a] = rg + 16 (a >> 1) + g + 8 (a & 1) and
+// C[b] = cb + 8 (b >> 1) + 2 t4 + (b & 1) list its rows and columns, so w's
+// entry (a, b) is w[a >> 1][b >> 1][2 (a & 1) + (b & 1)].
+constexpr int kPairThreads = 256;
+
+// w += rows . cols^T over kp columns (a multiple of 8) of a row tile split
+// into TF32 parts and a column tile, split too (chi, clo) or, with RAW_B, raw
+// in chi and split as it is read (clo unused), both at row stride `stride`:
+// three-way split products on the tensor cores, in the C layout.
+template <bool RAW_B = false>
+__device__ __forceinline__ void pair_product_tc(float (&w)[2][2][4],
+                                                const float* __restrict__ rhi,
+                                                const float* __restrict__ rlo,
+                                                const float* __restrict__ chi,
+                                                const float* __restrict__ clo,
+                                                int stride, int kp, int rg, int cb,
+                                                int g, int t4) {
+  for (int k0 = 0; k0 < kp; k0 += 8) {
+    float ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int o = (rg + 16 * mt + g) * stride + k0 + t4;
+      const int oo[4] = {o, o + 8 * stride, o + 4, o + 8 * stride + 4};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ahi[mt][e] = rhi[oo[e]];
+        alo[mt][e] = rlo[oo[e]];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int o = (cb + 8 * nt + g) * stride + k0 + t4;
+      if constexpr (RAW_B) {
+        split_tf32(chi[o], bhi[nt][0], blo[nt][0]);
+        split_tf32(chi[o + 4], bhi[nt][1], blo[nt][1]);
+      } else {
+        bhi[nt][0] = chi[o];
+        bhi[nt][1] = chi[o + 4];
+        blo[nt][0] = clo[o];
+        blo[nt][1] = clo[o + 4];
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        mma_split_add(w[mt][nt], ahi[mt], alo[mt], bhi[nt], blo[nt]);
+  }
+}
+
+// w += rows . cols^T over `live` columns of raw tiles at row stride `stride`
+// (odd: the lanes' rows hit distinct banks), FMA chains in column order.
+__device__ __forceinline__ void pair_product_fma(float (&w)[2][2][4],
+                                                 const float* __restrict__ rt,
+                                                 const float* __restrict__ ct,
+                                                 int stride, int live,
+                                                 const int (&R)[4], const int (&C)[4]) {
+  for (int c = 0; c < live; ++c) {
+    float rv[4], qv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      rv[a] = rt[R[a] * stride + c];
+      qv[a] = ct[C[a] * stride + c];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float& wv = w[a >> 1][b >> 1][2 * (a & 1) + (b & 1)];
+        wv = fmaf(rv[a], qv[b], wv);
+      }
+  }
+}
+
+// acc[(mt N + n) 4 + e] += W B over the warp's 16 columns of the tile, W in
+// the micro-tile w and B a split (64, 8 N) tile at row stride bs (an odd
+// multiple of 4 when halved: the reads of rows 2 t4, 2 t4 + 1 hit 32 banks):
+// a thread's W entries of one n-tile are, in the order (h0 e0, h1 e0, h0 e1,
+// h1 e1), an A fragment whose k index t4, t4 + 4 stands for the columns
+// 2 t4, 2 t4 + 1, so W is split in registers and never staged.
+template <int N>
+__device__ __forceinline__ void pair_contract_tc(float (&acc)[2 * N * 4],
+                                                 const float (&w)[2][2][4],
+                                                 const float* __restrict__ bhi,
+                                                 const float* __restrict__ blo, int bs,
+                                                 int cb, int g, int t4) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float a[4] = {w[mt][nt][0], w[mt][nt][2], w[mt][nt][1], w[mt][nt][3]};
+      float ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
+      const int jb = (cb + 8 * nt + 2 * t4) * bs + g;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int o = jb + 8 * n;
+        const float bh[2] = {bhi[o], bhi[o + bs]};
+        const float bl[2] = {blo[o], blo[o + bs]};
+        float* ap = acc + (mt * N + n) * 4;  // compile-time offsets
+        float c[4] = {ap[0], ap[1], ap[2], ap[3]};
+        mma_split_add(c, ahi, alo, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ap[e] = c[e];
+      }
+    }
+}
+
+// Row stride of a split (64, 8 n) B tile of pair_contract_tc.
+__host__ __device__ constexpr int contract_stride(int n) { return 8 * n + 4; }
 
 }  // namespace repro_torch

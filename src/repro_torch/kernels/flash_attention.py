@@ -24,6 +24,9 @@ from .ref import flash_attention_ref
 
 #: head dimensions the kernel is instantiated for (the reduced configs', llama3-8b's)
 HEAD_DIMS = (64, 128)
+#: query rows of a CTA, and keys of a tile (``kBlock``); a CTA per (batch ×
+#: query head, block), the blocks along grid.y
+BLOCK = 64
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -88,8 +91,8 @@ class FlashAttention:
             )
         if d not in HEAD_DIMS:
             raise ValueError(f"{self.name}: head dimension {d} not in {HEAD_DIMS}")
-        if b * hq > 65535:
-            raise ValueError(f"{self.name}: b·hq = {b * hq} CTAs exceed grid.y's 65,535")
+        if -(-s // BLOCK) > 65535:
+            raise ValueError(f"{self.name}: {-(-s // BLOCK)} query blocks exceed grid.y's 65,535")
         out = torch.empty_like(q)
         if b == 0 or s == 0:
             return out

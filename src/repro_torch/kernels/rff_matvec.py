@@ -15,7 +15,8 @@ by the caller (``kernels/ops.py``), outside the kernel, as in the reference.
 padded frequencies (a zero frequency's cos is 1), with √(1/m) of the padded m.
 
 ``rff_bwd(r, c, p1, p2, q1, q2, scale=...)`` is the input cotangent of the
-projection RCᵀ (``rff_bwd_pallas``), scale·(cos(RCᵀ)⊙P₁Q₁ᵀ − sin(RCᵀ)⊙P₂Q₂ᵀ)·C.
+projection RCᵀ (``rff_bwd_pallas``), scale·(cos(RCᵀ)⊙P₁Q₁ᵀ − sin(RCᵀ)⊙P₂Q₂ᵀ)·C,
+on ``rff_bwd_plan``'s launch.
 
 All three matvecs are differentiable in x, ω and their operand, with the
 reference's fused VJPs (``rff_matvec.py:299-338,342-377,491-537`` there):
@@ -33,6 +34,7 @@ yardstick of the kernels' gradients on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -40,7 +42,8 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .gram_matvec import (
-    MAX_BWD_COLUMNS, MAX_DIM, SLICE_COLS, WIDE_DIM, _cdiv, check_operands, round_chunks,
+    GRID_Y, MAX_DIM, NARROW_G, SLICE_COLS, TILE_COLS, TILE_ROWS, WIDE_DIM, _cdiv,
+    check_operands, round_chunks,
 )
 from .ref import rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 
@@ -119,6 +122,68 @@ def rff_plan(n: int, m: int, d: int, s: int) -> RFFPlan:
                    row_blocks=row_blocks, freq_chunks=_cdiv(freq_tiles, fper),
                    freq_chunk=fper * FREQ_TILE,
                    padded_freqs=FREQ_GROUP * _cdiv(m, FREQ_GROUP))
+
+
+#: The backward kernel's tile (``csrc/rff_bwd.cu``), the Gram backward's: 64
+#: rows by 64 columns. P and Q are sliced at RFF_BWD_SLICE_COLS[d] columns
+#: (s = 65 in one slice; fewer past d = 16 and d = 64: the R and C tiles take
+#: the shared memory), each slice's width a multiple of 8. The
+#: factor products run on the FMA pipe for slices of at most NARROW_G columns
+#: (two CTAs resident on an SM) and on the tensor cores above (one); W C on
+#: the tensor cores. Few row blocks cut the column loop into ``round_chunks``'
+#: chunks, down to one tile.
+RFF_BWD_SLICE_COLS = {16: 72, 64: 32, MAX_DIM: 16}  # by the largest d they take
+
+
+@dataclasses.dataclass(frozen=True)
+class RFFBwdPlan:
+    """The backward kernel's launch at (rows, cols, d, s): ``row_blocks`` of 64
+    rows along grid.x, ``chunks`` column chunks of ``chunk`` columns (a
+    multiple of 64) along grid.y, ``slices`` slices of P and Q, each
+    ``width`` columns (a multiple of 8), along grid.z; the factor products
+    (``products``) on the tensor cores (``"tc"``) or the FMA pipe
+    (``"fma"``). Each (chunk, slice) is a part;
+    more than one part writes (parts, rows, d) partial sums that a second
+    launch adds in a fixed order."""
+
+    row_blocks: int
+    chunks: int
+    chunk: int
+    slices: int
+    width: int
+    products: str
+
+    @property
+    def ctas(self) -> int:
+        return self.row_blocks * self.chunks * self.slices
+
+    @property
+    def parts(self) -> int:
+        return self.chunks * self.slices
+
+    def workspace_floats(self, rows: int, d: int) -> int:
+        """Floats of the (parts, rows, d) partial sums; 0 for one part."""
+        return self.parts * rows * d if self.parts > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def rff_bwd_plan(rows: int, cols: int, d: int, s: int, products=None) -> RFFBwdPlan:
+    """The launch plan of the RFF backward for R (rows, d), C (cols, d), P
+    (rows, s), Q (cols, s), any s: a plain function of the shapes, so every
+    run of a shape is cut the same way (and its fixed-order sum gives the same
+    bits); memoised, since every launch asks for it. ``products`` (``"tc"``
+    or ``"fma"``) overrides the plan's variant, to time both."""
+    slice_cols = next(w for dmax, w in RFF_BWD_SLICE_COLS.items() if d <= dmax)
+    width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
+    slices = _cdiv(s, width)
+    if products is None:
+        products = "fma" if width <= NARROW_G else "tc"
+    if products not in ("tc", "fma"):
+        raise ValueError(f"no factor-product variant {products!r}")
+    row_blocks, tiles = _cdiv(rows, TILE_ROWS), _cdiv(cols, TILE_COLS)
+    per = round_chunks(tiles, row_blocks * slices, 1 if products == "tc" else 2, 1)
+    return RFFBwdPlan(row_blocks=row_blocks, chunks=_cdiv(tiles, per), chunk=per * TILE_COLS,
+                      slices=slices, width=width, products=products)
 
 
 def _projection_grads(ctx, x, omega, p, q):
@@ -398,10 +463,11 @@ class RFFPair:
 
 
 class RFFBwd:
-    """The wrapper of the RFF backward kernel (``repro_rff_bwd_f32``: column
-    chunks into a partial-sum workspace, then a fixed-order sum, when the
-    output rows alone would not fill the card). ``launches`` counts the
-    launches it made (never the plain version's calls)."""
+    """The wrapper of the RFF backward kernel (``repro_rff_bwd_f32`` on
+    ``rff_bwd_plan``'s geometry: with more than one (chunk, slice) part, a
+    partial-sum workspace, then a fixed-order sum). ``launches`` counts the
+    calls of the C entry it made, one a call at every s (never the plain
+    version's calls)."""
 
     name = "rff_bwd"
 
@@ -418,17 +484,15 @@ class RFFBwd:
         return self._launch(r, c, p1, p2, q1, q2, float(scale))
 
     @staticmethod
-    def smem_bytes(d: int, s: int) -> int:
+    def smem_bytes(d: int, s: int, products=None) -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        return _build.library().repro_rff_bwd_smem_bytes(d, s)
+        plan = rff_bwd_plan(1, 1, d, s, products)
+        return _build.library().repro_rff_bwd_smem_bytes(d, plan.width,
+                                                         int(plan.products == "tc"))
 
-    @staticmethod
-    def workspace_floats(rows: int, cols: int, d: int) -> int:
-        """Floats of the (chunks, rows, d) partial-sum workspace of a launch
-        (0 when one chunk covers the columns)."""
-        return _build.library().repro_rff_bwd_workspace_floats(rows, cols, d)
-
-    def _launch(self, r, c, p1, p2, q1, q2, scale):
+    def _launch(self, r, c, p1, p2, q1, q2, scale, products=None):
+        """The launch on ``rff_bwd_plan``'s geometry; ``products`` overrides
+        its factor-product variant (to time both)."""
         check_operands(self.name, r, c, p1, p2, q1, q2)
         (rows, d), (cols, dc), s = r.shape, c.shape, p1.shape[1]
         if (dc != d or tuple(p2.shape) != (rows, s)
@@ -441,25 +505,22 @@ class RFFBwd:
             )
         if not 1 <= d <= MAX_DIM:
             raise ValueError(f"{self.name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
-        if s > MAX_BWD_COLUMNS:  # dR is linear in each rank-s product
-            return sum(
-                self._launch(r, c, *(f[:, k:k + MAX_BWD_COLUMNS].contiguous()
-                                     for f in (p1, p2, q1, q2)), scale)
-                for k in range(0, s, MAX_BWD_COLUMNS)
-            )
         out = torch.empty((rows, d), dtype=torch.float32, device=r.device)
         if rows == 0:
             return out
         if cols == 0 or s == 0:
             return out.zero_()
-        ws = torch.empty(self.workspace_floats(rows, cols, d), dtype=torch.float32,
-                         device=r.device)
+        plan = rff_bwd_plan(rows, cols, d, s, products)
+        if plan.slices > GRID_Y:
+            raise ValueError(f"{self.name}: {plan.slices} slices exceed grid.z's {GRID_Y}")
+        ws = torch.empty(plan.workspace_floats(rows, d), dtype=torch.float32, device=r.device)
         with torch.cuda.device(r.device):
             stream = torch.cuda.current_stream(r.device).cuda_stream
             err = _build.library().repro_rff_bwd_f32(
                 r.data_ptr(), c.data_ptr(), p1.data_ptr(), p2.data_ptr(),
                 q1.data_ptr(), q2.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                rows, cols, d, s, scale, stream,
+                rows, cols, d, s, scale, plan.width, plan.chunk,
+                int(plan.products == "tc"), stream,
             )
         _build.check(err, self.name)
         self.launches += 1

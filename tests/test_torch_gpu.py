@@ -515,7 +515,8 @@ def test_stochastic_solvers_on_card_match_cpu(card, name):
 def test_rff_bwd_kernel_matches_plain_on_card(card, rows, cols, d, s):
     # both orientations: rows of points against frequencies (dx, with
     # P1 = P2), rows of frequencies against points (dω, with Q1 = Q2), and
-    # four distinct factors; s above 128 is sliced; one and several chunks
+    # four distinct factors; s in slices, one and several chunks: one launch
+    # of the C entry a call at every s
     r, c = _normal(1, rows, d), _normal(2, cols, d, scale=2.0)
     p1, q1, q2 = _normal(3, rows, s), _normal(4, cols, s), _normal(5, cols, s)
     scale = (1.0 / min(rows, cols)) ** 0.5
@@ -523,9 +524,49 @@ def test_rff_bwd_kernel_matches_plain_on_card(card, rows, cols, d, s):
                  (r, c, p1, _normal(6, rows, s), q1, q2)):
         before = rff_bwd.launches
         out = rff_bwd(*args, scale=scale)
-        assert rff_bwd.launches == before + -(-s // 128)
+        assert rff_bwd.launches == before + 1
         err, sc = _max_err(out, rff_bwd_ref(*(t.double() for t in args), scale=scale))
         assert err <= GRAD_TOL * sc
+
+
+#: the RFF backward's cases of chip_smoke.py's kernels phase (rows, cols, d,
+#: s): the Thompson ascent's dx, protein's dx and dω of the forward VJP and of
+#: the SGD pair's VJP
+RFF_BWD_CASES = [(400, 512, 8, 100), (45_730, 1024, 9, 65), (1024, 45_730, 9, 65),
+                 (45_730, 100, 9, 130), (100, 45_730, 9, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,d,s", RFF_BWD_CASES)
+@pytest.mark.parametrize("products", [None, "fma", "tc"])
+def test_rff_bwd_kernel_at_the_path_shapes_on_card(card, rows, cols, d, s, products):
+    # four distinct factors (P1 != P2, Q1 != Q2), the plan's variant of the
+    # factor products and both forced, against the plain version in float64
+    # on the first 4,096 output rows; one launch a call
+    r, c = _normal(1, rows, d), _normal(2, cols, d, scale=2.0)
+    p1, p2 = _normal(3, rows, s), _normal(4, rows, s)
+    q1, q2 = _normal(5, cols, s), _normal(6, cols, s)
+    scale = (1.0 / min(rows, cols)) ** 0.5
+    before = rff_bwd.launches
+    out = rff_bwd._launch(r, c, p1, p2, q1, q2, scale, products)
+    assert rff_bwd.launches == before + 1
+    k = min(rows, 4096)
+    want = rff_bwd_ref(r[:k].double(), c.double(), p1[:k].double(), p2[:k].double(),
+                       q1.double(), q2.double(), scale=scale)
+    err, sc = _max_err(out[:k], want)
+    assert err <= GRAD_TOL * sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,d,s", [(400, 512, 8, 100), (100, 45_730, 9, 130)])
+def test_rff_bwd_kernel_gives_the_same_bits_twice_on_card(card, rows, cols, d, s):
+    # several parts (chunks x slices), summed in a fixed order: no atomics
+    r, c = _normal(1, rows, d), _normal(2, cols, d, scale=2.0)
+    args = (r, c, _normal(3, rows, s), _normal(4, rows, s), _normal(5, cols, s),
+            _normal(6, cols, s))
+    a = rff_bwd(*args, scale=0.1)
+    b = rff_bwd(*args, scale=0.1)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -613,6 +654,28 @@ def test_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d):
     err, scale = _max_err(out, flash_attention_ref(q.double(), k.double(), v.double(),
                                                    causal=causal))
     assert err <= FLASH_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 17, 64, 65])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (32, 32, 64)])
+def test_flash_kernel_short_sequences_on_card(card, causal, s, hq, hkv, d):
+    # b·hq = 128 CTAs a query block: one key tile or two, ragged or whole;
+    # within 1e-5 of scale of float64
+    q, k, v = _normal(1, 4, s, hq, d), _normal(2, 4, s, hkv, d), _normal(3, 4, s, hkv, d)
+    out = flash_attention(q, k, v, causal=causal)
+    err, scale = _max_err(out, flash_attention_ref(q.double(), k.double(), v.double(),
+                                                   causal=causal))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_gives_the_same_bits_twice_on_card(card, causal):
+    q, k, v = _normal(1, 2, 300, 8, 128), _normal(2, 2, 300, 2, 128), _normal(3, 2, 300, 2, 128)
+    assert torch.equal(flash_attention(q, k, v, causal=causal),
+                       flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.gpu

@@ -1,11 +1,12 @@
-"""The random-feature kernel's launch plan (``kernels.rff_matvec.rff_plan``) on
-the CPU: how the paths' shapes are cut into frequency blocks, row chunks,
-row blocks, frequency chunks and column slices, in both orientations of the
-kernel (Φ̃ᵀu, Φ̃W) and the pair that chains them. The kernel itself runs only
-on the card (``tests/test_torch_gpu.py``); the plan is plain Python, so its
-numbers are held here, and the chunked routes' arithmetic (partial products
-over the plan's chunks, summed in order) is held against the whole product
-through the plain versions in float64."""
+"""The random-feature kernels' launch plans on the CPU: ``rff_plan``, how the
+paths' shapes are cut into frequency blocks, row chunks, row blocks,
+frequency chunks and column slices, in both orientations of the kernel (Φ̃ᵀu,
+Φ̃W) and the pair that chains them; and ``rff_bwd_plan``, the backward's row
+blocks, column chunks and slices of the factors. The kernels themselves run
+only on the card (``tests/test_torch_gpu.py``); the plans are plain Python,
+so their numbers are held here, and the chunked routes' arithmetic (partial
+products over the plan's chunks, summed in order) is held against the whole
+product through the plain versions in float64."""
 import math
 
 import numpy as np
@@ -14,9 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gram_matvec import GRID_Y, SMS, round_chunks
-from repro_torch.kernels.ref import rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
+from repro_torch.kernels.ref import rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 from repro_torch.kernels.rff_matvec import (
-    FREQ_GROUP, FREQ_TILE, MIN_ROW_TILES, ROW_TILE, RFFPlan, rff_plan, rff_resident,
+    FREQ_GROUP, FREQ_TILE, MIN_ROW_TILES, ROW_TILE, RFF_BWD_SLICE_COLS, RFFBwdPlan, RFFPlan,
+    rff_bwd_plan, rff_plan, rff_resident,
 )
 
 #: (n, m, d, s) of the paths: SGD's feature pair, f_X and Φ(X*)W at serving
@@ -141,3 +143,105 @@ def test_pair_chains_the_two_orientations():
     want = rff_pair_ref(x, omega, u, m_true=m_true)
     assert float((rff_matvec_ref(x, omega, t) - want).abs().max()) <= 1e-12 * float(
         want.abs().max())
+
+
+#: (rows, cols, d, s) of the backward's cases: the Thompson ascent's dx at
+#: 400 query rows against 512 frequencies, and protein's dx and dω of the
+#: forward VJP (1,024 frequencies, s = 65) and of the SGD pair's VJP (100
+#: frequencies, 2s = 130)
+THOMPSON_BWD = (400, 512, 8, 100)
+BWD_CASES = {
+    THOMPSON_BWD: RFFBwdPlan(row_blocks=7, chunks=8, chunk=64, slices=2, width=56,
+                             products="tc"),
+    (45_730, 1024, 9, 65): RFFBwdPlan(row_blocks=715, chunks=1, chunk=1024, slices=1,
+                                      width=72, products="tc"),
+    (1024, 45_730, 9, 65): RFFBwdPlan(row_blocks=16, chunks=33, chunk=1408, slices=1,
+                                      width=72, products="tc"),
+    (45_730, 100, 9, 130): RFFBwdPlan(row_blocks=715, chunks=1, chunk=128, slices=2,
+                                      width=72, products="tc"),
+    (100, 45_730, 9, 130): RFFBwdPlan(row_blocks=2, chunks=33, chunk=1408, slices=2,
+                                      width=72, products="tc"),
+}
+
+
+@pytest.mark.parametrize("shape", list(BWD_CASES))
+def test_rff_bwd_plans_at_the_kernels_phase_shapes(shape):
+    rows, cols, d, s = shape
+    plan = rff_bwd_plan(*shape)
+    assert plan == BWD_CASES[shape]
+    # s = 65 in one slice (a projection and sincos a pair, not two); the
+    # column loop cut by round_chunks, down to one tile, with one CTA an SM
+    assert plan.width == 8 * math.ceil(s / plan.slices / 8) <= RFF_BWD_SLICE_COLS[16]
+    tiles = -(-cols // 64)
+    assert plan.chunk == 64 * round_chunks(tiles, plan.row_blocks * plan.slices, 1, 1)
+    assert plan.workspace_floats(rows, d) == (plan.parts * rows * d if plan.parts > 1 else 0)
+    # the dω orientation's few output rows fill at least one round of CTAs
+    assert plan.ctas >= min(SMS, plan.row_blocks * tiles * plan.slices)
+
+
+def test_thompson_bwd_runs_one_tile_a_cta_in_one_round():
+    # a rule of two waves of CTAs in whole 64-column tiles gives 7 row blocks
+    # x 8 chunks = 56 CTAs; the plan cuts the 512 columns into their 8 tiles,
+    # each slice of s = 100 apart: 112 CTAs, every one resident at once with
+    # one tile, the shortest the K loop can be cut. A full round of 132 would
+    # need three slices, each repeating the projection and sincos of every
+    # pair (168 CTAs, no faster on the H100: PERF.md §6).
+    plan = rff_bwd_plan(*THOMPSON_BWD)
+    assert plan.chunk == 64 and plan.chunks == 8 == -(-512 // 64)
+    assert plan.ctas == 112 == 2 * 56 and plan.ctas <= SMS
+    assert plan.parts == 16
+
+
+def test_rff_bwd_plan_variants():
+    # the factor products on the FMA pipe for slices of at most 16 columns,
+    # on the tensor cores above; either can be asked for, to time both
+    assert rff_bwd_plan(400, 512, 8, 16).products == "fma"
+    assert rff_bwd_plan(400, 512, 8, 17).products == "tc"
+    assert rff_bwd_plan(*THOMPSON_BWD, products="fma").products == "fma"
+    assert rff_bwd_plan(*THOMPSON_BWD, products="fma").width == rff_bwd_plan(
+        *THOMPSON_BWD).width
+    with pytest.raises(ValueError, match="no factor-product variant 'wgmma'"):
+        rff_bwd_plan(400, 512, 8, 100, products="wgmma")
+    # narrower slices past d = 16 and d = 64, where the R and C tiles grow
+    assert rff_bwd_plan(1000, 1000, 64, 65).width <= RFF_BWD_SLICE_COLS[64]
+    assert rff_bwd_plan(1000, 1000, 128, 65).width <= RFF_BWD_SLICE_COLS[128]
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (1, 2_000_000), (2_000_000, 1), (63, 65),
+                                       (100, 5_000_000), (5_000_000, 100)])
+@pytest.mark.parametrize("d,s", [(9, 1), (8, 100), (9, 130), (64, 65), (128, 300)])
+def test_rff_bwd_plans_stay_inside_the_grid_limits(rows, cols, d, s):
+    plan = rff_bwd_plan(rows, cols, d, s)
+    assert 1 <= plan.chunks <= GRID_Y and 1 <= plan.slices <= GRID_Y
+    assert plan.chunk % 64 == 0 and plan.width % 8 == 0
+    assert (plan.chunks - 1) * plan.chunk < cols <= plan.chunks * plan.chunk
+    assert (plan.slices - 1) * plan.width < s <= plan.slices * plan.width
+    assert plan.row_blocks == -(-rows // 64)
+
+
+@pytest.mark.parametrize("rows,cols,d,s", [(100, 3000, 8, 100), (3000, 100, 9, 130),
+                                           (70, 5000, 3, 150)])
+def test_rff_bwd_parts_sum_to_the_cotangent(rows, cols, d, s):
+    # each (chunk, slice) part through the plain version in float64, summed in
+    # the kernel's order (part = slice x chunks + chunk), then scaled: the
+    # whole cotangent, with P1 != P2 and Q1 != Q2
+    rng = np.random.default_rng(3)
+    r, c = _normal(rng, rows, d), _normal(rng, cols, d, scale=2.0)
+    p1, p2 = _normal(rng, rows, s), _normal(rng, rows, s)
+    q1, q2 = _normal(rng, cols, s), _normal(rng, cols, s)
+    scale = (1.0 / min(rows, cols)) ** 0.5
+    plan = rff_bwd_plan(rows, cols, d, s)
+    assert plan.parts > 1
+    parts = []
+    for k in range(0, s, plan.width):
+        sl = slice(k, k + plan.width)
+        for j in range(0, cols, plan.chunk):
+            cj = slice(j, j + plan.chunk)
+            parts.append(rff_bwd_ref(r, c[cj], p1[:, sl], p2[:, sl], q1[cj, sl], q2[cj, sl],
+                                     scale=1.0))
+    assert len(parts) == plan.parts
+    total = torch.zeros(rows, d, dtype=torch.float64)
+    for part in parts:
+        total = total + part
+    want = rff_bwd_ref(r, c, p1, p2, q1, q2, scale=scale)
+    assert float((scale * total - want).abs().max()) <= 1e-12 * max(1.0, float(want.abs().max()))
