@@ -12,6 +12,12 @@ on the protein-shaped problem at full n through those kernels:
 * training, ``IterativeGP(...).fit(x, y).optimize(...).predict(x_test)``, whose
   MLL gradients run through the Gram backward kernel, with the exact MLL from
   a float64 Cholesky before and after;
+* preconditioned CG, ``IterativeGP(spec=CG(precond=P)).fit(x, y).predict``
+  for P in Jacobi, Nyström, pivoted Cholesky and random features, against the
+  same oracle; an ``RFFGram`` solve through the RFF kernel in both
+  orientations; ``optimize`` on Nyström CG;
+* the escalation ladder, ``solve_robust``, on the robust bench's happy,
+  near-singular and NaN right-hand-side problems;
 * the stochastic solvers, ``IterativeGP(spec=SGD | SDD | AP).fit(x, y)
   .predict(x_test)``, through the row-panel pair, the rows matvec and the
   feature pair kernels, each held against the same Cholesky oracle, and each
@@ -135,6 +141,17 @@ FLASH_CASES = (("lm_serve", 4, 1024, 32, 8, 128, True), ("ragged", 4, 1000, 32, 
 FLASH_TOL, LM_LOGIT_TOL, CONSIST_RTOL, CONSIST_ATOL, LM_MARGIN = 2e-3, 1e-3, 5e-2, 5e-3, 10.0
 #: decode steps of the profiled decode window
 PROFILE_DECODE_STEPS = 8
+#: The precond phase: the preconditioners' ranks (the specs' defaults), the
+#: RFFGram operator's feature count (the serving path's prior)
+PRECOND_RANK, RFF_RANK, RFFGRAM_FEATURES = 100, 256, 2048
+#: preconditioners measured, not held to convergence: at the serving θ (σ² = 0.01,
+#: ℓ = 1.5 in 9-D) the 128-frequency surrogate ΦΦᵀ + σ²I is a worse
+#: preconditioner than none, in the reference as in the port
+#: (tests/test_torch_precond.py::test_rff_precond_at_small_noise_slows_cg)
+UNCONVERGED_PRECONDS = ("rff",)
+#: The robust phase: benchmarks/bench_robust.py:31-33's happy-path problem
+#: and spec, and the interleaved repetitions of its overhead timing
+ROBUST = dict(n=512, d=3, s=16, spec=dict(max_iters=120, tol=1e-4), reps=20)
 #: the kernels' records on the last lines, in order
 RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
            "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
@@ -227,7 +244,9 @@ def main() -> int:
     kernels = kernels_phase(torch)
     oracle = main_path_phase(torch, kernels)
     grad_phase(torch)
-    train_phase(torch, kernels)
+    trained = train_phase(torch, kernels)
+    precond_phase(torch, kernels, oracle, trained)
+    robust_phase(torch, kernels)
     stochastic_phase(torch, kernels, oracle)
     route_parity_phase(torch)
     thompson_phase(torch, kernels)
@@ -1084,7 +1103,8 @@ def main_path_phase(torch, kernels: dict) -> dict:
     del ep
     torch.cuda.empty_cache()
     cg_rmse, cg_nll = _test_metrics(torch, mean, var, y_test)
-    return dict(exact_mean=exact_mean, cg=dict(rmse=cg_rmse, nll=cg_nll, rel_mean_err=rel))
+    return dict(exact_mean=exact_mean, cg=dict(rmse=cg_rmse, nll=cg_nll, rel_mean_err=rel,
+                                               iterations=info.iterations, wall_s=wall))
 
 
 def _test_metrics(torch, mean, var, y_test) -> tuple:
@@ -1244,6 +1264,212 @@ def train_phase(torch, kernels: dict) -> None:
     check(math.isfinite(mll1) and mll1 > mll0,
           f"the exact MLL per n rises: {mll0} -> {mll1}")
     _record_path(kernels, "train", launches)
+    return dict(total_solver_iters=gp.last_optim.total_solver_iters, optimize_s=t1 - t0,
+                exact_mll_before=mll0)
+
+
+def _precond_specs():
+    """The preconditioners of the precond phase, by name."""
+    from repro_torch.core import RFF, Jacobi, Nystrom, PivotedCholesky
+
+    return dict(jacobi=Jacobi(), nystrom=Nystrom(rank=PRECOND_RANK),
+                pivoted_cholesky=PivotedCholesky(rank=PRECOND_RANK), rff=RFF(rank=RFF_RANK))
+
+
+def precond_phase(torch, kernels: dict, oracle: dict, trained: dict) -> None:
+    """Preconditioned CG on the main path: ``IterativeGP(spec=CG(precond=P))
+    .fit → predict`` at full protein n and the serving path's θ for each
+    preconditioner, each held against the Cholesky oracle and to the
+    serving path's launch identities, the factor build timed apart; one
+    ``RFFGram`` solve with its own feature matrix as the preconditioner; and
+    ``fit → optimize`` as the training path runs it, with Nyström CG."""
+    from repro_torch.core import (
+        CG, RFF, Gram, IterativeGP, Nystrom, RFFGram, exact_mll, make_fourier_features,
+        make_params, map_params, solve,
+    )
+    from repro_torch.data.pipeline import regression_dataset
+
+    data = regression_dataset("protein", seed=SEED)
+    d, dev = data["d"], torch.device("cuda")
+    hypers = dict(lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1, seed=SEED)
+    exact_mean = oracle["exact_mean"]
+    for name, pc in _precond_specs().items():
+        gp = IterativeGP("matern32", spec=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL, precond=pc),
+                         **hypers)
+        gp.fit(data["x"], data["y"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc.build(Gram(x=gp.x, params=gp.params), generator=torch.Generator(device=dev))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        mean, var = gp.predict(data["x_test"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, matvec_counts, feature_counts = _read_counts()
+        info = gp.posterior(64).solve_info  # cached: no further launches
+        rel = ((mean - exact_mean).norm() / exact_mean.norm()).item()
+        emit("precond", precond=name, n=int(data["n"]), rank=getattr(pc, "rank", None),
+             build_s=build_s, iterations=info.iterations, matvecs=info.matvecs,
+             unpreconditioned_iterations=oracle["cg"]["iterations"], wall_s=wall,
+             unpreconditioned_wall_s=oracle["cg"]["wall_s"], converged=info.converged,
+             max_rel_residual=info.rel_residual.max().item(),
+             flags=sorted(set(info.flags.tolist())), rel_mean_err=rel, tol=1e-2,
+             launches=launches, matvec_counts=matvec_counts, feature_counts=feature_counts)
+        check(info.healthy, f"{name}: the solve carries no nonfinite/breakdown flag")
+        if name not in UNCONVERGED_PRECONDS:
+            check(info.converged, f"{name}: CG converged to {MAIN_TOL}")
+            check(rel <= 1e-2, f"{name}: mean within 1e-2 of the Cholesky mean, got {rel}")
+        check(launches["gram_matvec"] == info.iterations + 2,
+              f"{name}: Gram launches {launches['gram_matvec']} == iterations + 2")
+        check(launches["rff_matvec"] == 2, f"{name}: RFF launches {launches['rff_matvec']} == 2")
+        check(matvec_counts["chunked"] == matvec_counts["dense"] == 0,
+              f"{name}: no plain Gram matvec")
+        check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "finite outputs")
+        _record_path(kernels, f"precond_{name}", launches)
+        del gp, mean, var
+        torch.cuda.empty_cache()
+
+    # RFFGram: Φ(Φᵀv) + σ²v on 2,048 features, through the RFF kernel in both
+    # orientations; RFF() there is the operator's own Φ, an exact inverse
+    params = make_params("matern32", d=d, device=dev,
+                         **{k: v for k, v in hypers.items() if k != "seed"})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.as_tensor(data["x"], device=dev)
+    y = torch.as_tensor(data["y"], device=dev)
+    ff = make_fourier_features(params, RFFGRAM_FEATURES, d, generator=gen)
+    op = RFFGram(x=x, ff=ff, sigma2=params.noise)
+    runs = {}
+    for label, spec in (("plain", CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL)),
+                        ("rff", CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL, precond=RFF()))):
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        res = solve(op, y, spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, matvec_counts, feature_counts = _read_counts()
+        runs[label] = res
+        emit("rff_gram", precond=label, n=int(data["n"]), num_features=RFFGRAM_FEATURES,
+             iterations=res.iterations, matvecs=res.matvecs, converged=res.converged,
+             rel_residual=res.rel_residual.max().item(), wall_s=wall, launches=launches,
+             feature_counts=feature_counts)
+        check(res.converged and res.healthy, f"RFFGram {label}: converged, healthy")
+        check(launches["rff_t_matvec"] == launches["rff_matvec"] == res.matvecs,
+              f"RFFGram {label}: Φ̃ᵀu and Φ̃W launches {launches['rff_t_matvec']}, "
+              f"{launches['rff_matvec']} == matvecs {res.matvecs}")
+        check(launches["gram_matvec"] == 0 and matvec_counts["chunked"] == 0,
+              f"RFFGram {label}: no Gram matvec")
+        _record_path(kernels, f"rff_gram_{label}", launches)
+    pre, plain = runs["rff"], runs["plain"]
+    diff = ((pre.solution - plain.solution).norm() / plain.solution.norm()).item()
+    emit("rff_gram_check", rel_solution_diff=diff, tol=1e-2)
+    check(pre.iterations <= 3 < plain.iterations,
+          f"RFF() inverts RFFGram exactly: {pre.iterations} iterations, plain {plain.iterations}")
+    check(diff <= 1e-2, f"the preconditioned RFFGram solution within 1e-2 of plain CG's: {diff}")
+    del op, ff, runs, pre, plain
+    torch.cuda.empty_cache()
+
+    # fit → optimize as the training path runs it, on Nyström CG
+    spec = CG(max_iters=TRAIN_MAX_ITERS, tol=MAIN_TOL, precond=Nystrom(rank=PRECOND_RANK))
+    gp = IterativeGP("matern32", spec=spec, seed=SEED, **TRAIN_HYPERS)
+    steps = []
+    gp.fit(data["x"], data["y"])
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    gp.optimize(num_steps=TRAIN_STEPS, lr=TRAIN_LR, num_probes=TRAIN_PROBES,
+                callback=lambda t, st: steps.append(st.last_solve))
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    launches, matvec_counts, _ = _read_counts()
+    x64 = torch.as_tensor(data["x"], device=dev, dtype=torch.float64)
+    y64 = torch.as_tensor(data["y"], device=dev, dtype=torch.float64)
+    mll1 = exact_mll(map_params(torch.Tensor.double, gp.params), x64, y64).item() / int(data["n"])
+    mll0 = trained["exact_mll_before"]
+    del x64, y64
+    torch.cuda.empty_cache()
+    step_matvecs = sum(st.matvecs for st in steps)
+    emit("precond_train", precond="nystrom", rank=PRECOND_RANK, steps=len(steps),
+         iterations=[st.iterations for st in steps],
+         total_solver_iters=gp.last_optim.total_solver_iters,
+         unpreconditioned_total_solver_iters=trained["total_solver_iters"],
+         optimize_s=optimize_s, unpreconditioned_optimize_s=trained["optimize_s"],
+         exact_mll_per_n=dict(before=mll0, after=mll1), launches=launches,
+         matvec_counts=matvec_counts)
+    check(len(steps) == TRAIN_STEPS and all(st.healthy for st in steps),
+          "every preconditioned step's solve is healthy")
+    check(launches["gram_matvec"] == step_matvecs + 2 * TRAIN_STEPS,
+          f"Gram launches {launches['gram_matvec']} == Σ step matvecs + 2 × steps")
+    check(launches["gram_matvec_bwd"] == 4 * TRAIN_STEPS, "4 backward launches a step")
+    check(launches["rff_matvec"] == TRAIN_STEPS, "one prior RFF launch a step")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
+    check(math.isfinite(mll1) and mll1 > mll0, f"the exact MLL per n rises: {mll0} -> {mll1}")
+    _record_path(kernels, "precond_train", launches)
+
+
+def robust_phase(torch, kernels: dict) -> None:
+    """``solve_robust`` on benchmarks/bench_robust.py's three problems, built
+    from the port's generator on the card: the happy path (matvecs equal to a
+    plain solve), the near-singular problem (recovered by the ladder, beside
+    results/BENCH_bench_robust.json's rows), and a NaN right-hand side (one
+    failed column, the healthy columns bit-identical)."""
+    from repro_torch.core import Gram, make_params, solve, solve_robust
+    from repro_torch.testing import nan_columns, near_singular_problem
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((ROBUST["n"], ROBUST["d"]), generator=gen, device=dev)
+    b = torch.randn((ROBUST["n"], ROBUST["s"]), generator=gen, device=dev)
+    op = Gram(x=x, params=make_params("matern32", lengthscale=0.5, signal=1.0, noise=0.1,
+                                      d=ROBUST["d"], device=dev))
+    kw = ROBUST["spec"]
+    _reset_counts(torch)
+    plain = solve(op, b, "cg", **kw)
+    robust = solve_robust(op, b, "cg", **kw)
+    launches, _, _ = _read_counts()
+    walls = {"plain": [], "robust": []}
+    for r in range(ROBUST["reps"]):
+        order = ("plain", "robust") if r % 2 == 0 else ("robust", "plain")
+        for label in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "plain":
+                solve(op, b, "cg", **kw).solution.sum().item()
+            else:
+                solve_robust(op, b, "cg", **kw).result.solution.sum().item()
+            walls[label].append(time.perf_counter() - t0)
+    best = {k: min(v) for k, v in walls.items()}
+    emit("robust_overhead", n=ROBUST["n"], s=ROBUST["s"], matvecs=plain.matvecs,
+         robust_matvecs=robust.result.matvecs, escalated=robust.escalated,
+         wall_s=best, overhead_pct=100.0 * (best["robust"] - best["plain"]) / best["plain"],
+         launches=launches)
+    check(not robust.escalated and robust.result.matvecs == plain.matvecs,
+          "the happy path takes no rung and spends the plain solve's matvecs")
+    check(launches["gram_matvec"] == 2 * plain.matvecs, "one Gram launch a matvec")
+    _record_path(kernels, "robust_overhead", launches)
+
+    ns_op, ns_b, _, _ = near_singular_problem(96, 3, generator=gen, device=dev)
+    _reset_counts(torch)
+    rep = solve_robust(ns_op, ns_b, "cg", max_iters=200, tol=1e-6, stall_window=30)
+    launches, matvec_counts, _ = _read_counts()
+    emit("robust_recovery", recovered=rep.recovered, rungs=len(rep.rungs),
+         ladder=" > ".join(rep.ladder), matvecs=rep.result.matvecs,
+         committed=dict(ladder="jitter:1e-06 > jitter:0.001", rungs=2, matvecs=559),
+         failed_columns=list(rep.failed_columns), launches=launches)
+    check(rep.escalated and rep.recovered, "the near-singular problem is recovered")
+    check(torch.isfinite(rep.result.solution).all().item(), "finite rescued solutions")
+    check(launches["gram_matvec"] == rep.result.matvecs,
+          f"Gram launches {launches['gram_matvec']} == the ladder's matvecs")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
+    _record_path(kernels, "robust_recovery", launches)
+
+    bad = solve_robust(op, nan_columns(b, (1,)), "cg", **kw)
+    intact = all(torch.equal(bad.result.solution[:, c], plain.solution[:, c])
+                 for c in range(ROBUST["s"]) if c != 1)
+    emit("robust_failure", escalated=bad.escalated, failed_columns=list(bad.failed_columns),
+         ladder=" > ".join(bad.ladder), healthy_columns_intact=intact)
+    check(bad.escalated and bad.failed_columns == (1,), "the NaN column fails, alone")
+    check(intact, "the healthy columns keep the plain solve's payload bit for bit")
 
 
 def _stochastic_spec(name: str, num_steps: int, **kw):
@@ -1741,8 +1967,9 @@ def _device_ms_by_kernel(prof) -> dict:
 
 def profile_phase(torch) -> None:
     """The serving and training paths, each stochastic solver's
-    fit → predict at PROFILE_STOCH_STEPS steps, and one Thompson acquisition
-    step, once more under ``torch.profiler``: device time by kernel and the
+    fit → predict at PROFILE_STOCH_STEPS steps, one Thompson acquisition
+    step, and the serving path on Nyström CG, once more under
+    ``torch.profiler``: device time by kernel and the
     card's idle share of the wall time. Run after the counted passes so
     that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
@@ -1792,9 +2019,20 @@ def profile_phase(torch) -> None:
                                              "num_top", "ascent_steps")})
         return cfg["ascent_steps"]
 
+    def precond(pc):
+        def run():
+            gp = IterativeGP("matern32", spec=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL,
+                                                 precond=pc),
+                             lengthscale=math.sqrt(data["d"]) * 0.5, signal=1.0, noise=0.1,
+                             seed=SEED)
+            gp.fit(data["x"], data["y"]).predict(data["x_test"])
+            return gp.posterior(64).solve_info.iterations  # cached: no launch
+        return run
+
     for path, run in (("fit_predict", fit_predict), ("train", train),
                       *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS),
-                      ("thompson", thompson)):
+                      ("thompson", thompson),
+                      ("precond_nystrom", precond(_precond_specs()["nystrom"]))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

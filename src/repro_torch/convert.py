@@ -12,6 +12,7 @@ import torch
 
 from .core.kernels_fn import KernelParams
 from .core.pathwise import PosteriorFunctions
+from .core.precond import PrecondDraws
 from .core.rff import FourierFeatures, PriorSamples
 from .core.solvers import RowDraws, SGDDraws
 from .core.thompson import ThompsonDraws, ThompsonState
@@ -79,6 +80,20 @@ def row_draws_from_numpy(idx, *, device: DeviceLike = None) -> RowDraws:
     """An SDD or AP solve's per-step coordinate blocks ``idx`` (num_steps, batch)."""
     dev = resolve_device(device)
     return RowDraws(idx=torch.as_tensor(np.asarray(idx, dtype=np.int64), device=dev))
+
+
+def precond_draws_from_numpy(idx=None, normals=None, gammas=None, *,
+                             device: DeviceLike = None) -> PrecondDraws:
+    """A preconditioner build's draws: the Nyström subset ``idx`` (rank,),
+    or the RFF preconditioner's spectral base draws ``normals``
+    (rank/2, d) and, for Matérn, ``gammas`` (rank/2, 1) — e.g. the
+    reference's ``jax.random.choice`` subset and ``spectral_sample`` draws."""
+    dev = resolve_device(device)
+    return PrecondDraws(
+        idx=None if idx is None else torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                                     device=dev),
+        normals=None if normals is None else _t(normals, dev),
+        gammas=None if gammas is None else _t(gammas, dev))
 
 
 def thompson_draws_from_numpy(omega, w, eps, uniform, pick, perturb, obs, *,

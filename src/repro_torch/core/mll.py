@@ -18,7 +18,10 @@ ascending the MLL.
 
 Random draws come from a ``torch.Generator`` or are injected as
 :class:`MLLDraws`: the θ-free base draws, rescaled by the current θ at every
-step, so that the parity tests can hand the port the reference's own.
+step, so that the parity tests can hand the port the reference's own. A
+preconditioned CG spec flows through: its factor is rebuilt at every step's
+θ from the step's preconditioner draws (``MLLDraws.precond``; held fixed with
+the others under a warm start, as the reference reuses its key).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from ..kernels.ops import gram_mv
 from .kernels_fn import KernelParams, map_params, spectral_gammas, spectral_sample
 from .operators import Gram
+from .precond import PrecondDraws, draw_precond
 from .rff import sample_prior
 from .solvers.base import SolveResult
 from .solvers.spec import SpecLike, as_spec, solve
@@ -51,29 +55,44 @@ class MLLDraws:
     ``noise`` (n, s) holds standard normals: ε/σ for the pathwise estimator,
     the probes themselves for Hutchinson's. The pathwise estimator's prior
     also needs the spectral base draws ``normals`` (m, d) and, for Matérn,
-    ``gammas`` (m, 1), and the prior weights ``w`` (2m, s).
+    ``gammas`` (m, 1), and the prior weights ``w`` (2m, s). ``precond``
+    holds a preconditioned CG's draws (the Nyström subset, the RFF
+    preconditioner's base frequencies).
     """
 
     noise: torch.Tensor
     normals: Optional[torch.Tensor] = None
     gammas: Optional[torch.Tensor] = None
     w: Optional[torch.Tensor] = None
+    precond: Optional[PrecondDraws] = None
+
+
+def _precond_draws(spec, kind: str, n: int, d: int, generator, device):
+    pc = getattr(spec, "precond", None)
+    method = getattr(pc, "method", None)
+    if method is None:  # none, Jacobi, or a prebuilt apply: nothing to draw
+        return None
+    return draw_precond(method, pc.rank, n, d, kind, generator=generator, device=device)
 
 
 def draw_mll(kind: str, n: int, d: int, *, num_probes: int = 8,
              num_features: int = 1024, estimator: str = "pathwise",
              generator: Optional[torch.Generator] = None,
-             device=None) -> MLLDraws:
-    """Fresh :class:`MLLDraws` for a problem of n points in d dimensions."""
+             device=None, spec: Optional[SpecLike] = None) -> MLLDraws:
+    """Fresh :class:`MLLDraws` for a problem of n points in d dimensions,
+    with the draws of ``spec``'s preconditioner if it has one."""
+    pdraws = None
+    if spec is not None:
+        pdraws = _precond_draws(as_spec(spec), kind, n, d, generator, device)
     if estimator == "hutchinson":
         return MLLDraws(noise=torch.randn((n, num_probes), generator=generator,
-                                          device=device))
+                                          device=device), precond=pdraws)
     m = num_features // 2
     normals = torch.randn((m, d), generator=generator, device=device)
     gammas = spectral_gammas(kind, m, generator=generator, device=device)
     w = torch.randn((num_features, num_probes), generator=generator, device=device)
     noise = torch.randn((n, num_probes), generator=generator, device=device)
-    return MLLDraws(noise=noise, normals=normals, gammas=gammas, w=w)
+    return MLLDraws(noise=noise, normals=normals, gammas=gammas, w=w, precond=pdraws)
 
 
 class MLLGradEstimate(NamedTuple):
@@ -112,7 +131,7 @@ def mll_grad(
     if draws is None:
         draws = draw_mll(params.kind, n, d, num_probes=num_probes,
                          num_features=num_features, estimator=estimator,
-                         generator=generator, device=x.device)
+                         generator=generator, device=x.device, spec=s)
     theta = map_params(torch.Tensor.detach, params)
     with torch.no_grad():  # the solutions carry no gradient (stop_gradient)
         if estimator == "pathwise":
@@ -124,7 +143,7 @@ def mll_grad(
             probes = draws.noise
         rhs = torch.cat([y[:, None], probes], dim=1)
         res = solve(Gram(x=x, params=theta, backend=backend), rhs, s, x0=x0,
-                    generator=generator)
+                    generator=generator, draws=draws.precond)
     v_y, alpha = res.solution[:, 0], res.solution[:, 1:]
 
     p = map_params(lambda t: t.detach().requires_grad_(), params)
@@ -198,7 +217,8 @@ def optimize_mll(
     s = as_spec("cg" if spec is None else spec, **spec_overrides)
     if warm_start and draws is None:
         draws = draw_mll(params.kind, *x.shape, num_probes=num_probes,
-                         estimator=estimator, generator=generator, device=x.device)
+                         estimator=estimator, generator=generator, device=x.device,
+                         spec=s)
     zeros = map_params(torch.zeros_like, params)
     st = MLLOptimState(params, zeros, zeros, None, 0, 0)
     for t in range(num_steps):

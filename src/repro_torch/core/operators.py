@@ -8,8 +8,10 @@ positive-definite matrix touched only through matvecs. The protocol (see
 declared by defining the method, and ``require_capabilities`` refuses a
 consumer that needs one the operator lacks. :class:`Gram` offers the row-block
 capabilities the stochastic solvers consume (``rows_mv``, ``rows_t_mv``,
-``rows_pair_mv``, ``block_at``); ``precond_factor`` and the other operators
-are not ported yet (ROADMAP queue 1 items 4 and 5).
+``rows_pair_mv``, ``block_at``) and the ``precond_factor`` that the
+preconditioner specs build from (core/precond.py). :class:`RFFGram` is the
+random-feature surrogate ΦΦᵀ + σ²I, touched through two feature matvecs. The
+other operators are not ported yet (ROADMAP queue 1 item 11).
 
 Pathwise conditioning writes every posterior sample as f(·) + K(·, X) w with the
 prior f a feature expansion Φ(·) w; :class:`FeatureOperator` is its protocol,
@@ -18,6 +20,7 @@ implemented by ``FourierFeatures`` / ``PriorSamples`` (core/rff.py).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -207,7 +210,81 @@ class Gram(LinearOperator):
         fused ``rows_mv``/``rows_t_mv``/``block_at`` instead."""
         return gram(self.params, self.x[idx], self.x)
 
+    def precond_factor(self, rank: int, *, generator: Optional[torch.Generator] = None,
+                       draws=None, method: str = "nystrom") -> torch.Tensor:
+        """(n, rank) factor L with K ≈ L Lᵀ for Woodbury preconditioning; the
+        random draws from ``generator`` or injected ``draws``
+        (``PrecondDraws``)."""
+        from .precond import low_rank_factor  # deferred: precond imports operators
+
+        return low_rank_factor(self.params, self.x, rank, generator=generator, draws=draws,
+                               method=method)
+
     def dense(self) -> torch.Tensor:
         """Materialised K + σ²I (tests / small-n reference only)."""
         eye = torch.eye(self.n, dtype=self.x.dtype, device=self.x.device)
         return gram(self.params, self.x) + self.noise * eye
+
+
+@dataclasses.dataclass(frozen=True)
+class RFFGram(LinearOperator):
+    """The operator A = Φ(X) Φ(X)ᵀ + σ² I — the random-feature surrogate of
+    the Gram operator, touched only through two feature matvecs per ``mv``
+    (on the card, the RFF kernel in its Φ̃ᵀu and Φ̃W orientations). Its
+    ``precond_factor`` is the materialised Φ, an exact factor, so the ``RFF``
+    preconditioner inverts it exactly.
+    """
+
+    x: torch.Tensor  # (n, d) training inputs
+    ff: "FeatureOperator"  # the feature map (a FourierFeatures)
+    sigma2: torch.Tensor  # () noise variance σ²
+    # feature-matvec backend/precision overrides; None inherits the ff's own.
+    # A spec's ``backend``/``precision`` fields pin them through solve().
+    backend: Optional[str] = None
+    precision: Optional[str] = None
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return (self.n, self.n)
+
+    @property
+    def noise(self) -> torch.Tensor:
+        return self.sigma2
+
+    def mv(self, v: torch.Tensor) -> torch.Tensor:
+        """(ΦΦᵀ + σ²I) @ v = Φ(Φᵀv) + σ²v — two feature matvecs."""
+        bk, pr = self.backend, self.precision
+        t = self.ff.phi_t_mv(self.x, v, backend=bk, precision=pr)
+        return self.ff.phi_mv(self.x, t, backend=bk, precision=pr) + self.sigma2 * v
+
+    def diag_part(self) -> torch.Tensor:
+        """diag(ΦΦᵀ) + σ². Paired sin/cos features (the port's only map)
+        satisfy Σ_j Φ_ij² = σ_f² exactly."""
+        return torch.broadcast_to(self.ff.signal, (self.n,)) + self.sigma2
+
+    def precond_factor(self, rank: int, *, generator: Optional[torch.Generator] = None,
+                       draws=None, method: str = "rff") -> torch.Tensor:
+        """The materialised feature matrix Φ — an *exact* factor. Only
+        ``method="rff"`` is meaningful: a Nyström or pivoted-Cholesky request
+        would silently get a factor of the operator's full feature count, so
+        it raises. ``rank``, ``generator`` and ``draws`` are accepted for
+        interface parity and ignored."""
+        if method != "rff":
+            raise ValueError(
+                f"RFFGram's only factor is its own feature matrix (method "
+                f"'rff', {self.ff.num_features} columns); a {method!r} factor "
+                f"of rank {rank} is not available — use CG(precond=RFF()) or "
+                f"Jacobi() on this operator"
+            )
+        require_capabilities(self.ff, ("features",), consumer="RFFGram.precond_factor")
+        return self.ff.features(self.x)
+
+    def dense(self) -> torch.Tensor:
+        """Materialised ΦΦᵀ + σ²I (tests / small-n reference only)."""
+        phi = self.ff.features(self.x)
+        eye = torch.eye(self.n, dtype=self.x.dtype, device=self.x.device)
+        return phi @ phi.T + self.sigma2 * eye

@@ -1,4 +1,5 @@
-"""Conjugate gradients (§2.2.4, Eq. 2.78) — twin of ``repro/core/solvers/cg.py``.
+"""Conjugate gradients with optional preconditioning (§2.2.4, Eq. 2.78) —
+twin of ``repro/core/solvers/cg.py``.
 
 Operator-agnostic: consumes any ``LinearOperator`` through ``mv`` alone.
 Batched over right-hand sides (each column runs its own CG recursion; they
@@ -15,7 +16,7 @@ and the recursion's residual is handed to ``finalize``, so a solve spends
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -47,11 +48,14 @@ def solve_cg(
     *,
     max_iters: int = 1000,
     tol: float = 1e-2,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     stall_window: int = 100,
 ) -> SolveResult:
     """Solve (K+σ²I) V = B. b: (n,) or (n,s). ``tol`` is on the *relative*
-    residual. Per-column freezing: converged and flagged columns take
-    ``alpha = 0`` and stop moving, while the others iterate on."""
+    residual. ``precond`` is an r ↦ M⁻¹r apply (``WoodburyPrecond``,
+    ``JacobiPrecond`` or any callable); without it z = r. Per-column
+    freezing: converged and flagged columns take ``alpha = 0`` and stop
+    moving, while the others iterate on."""
     b2, squeeze = as_matrix_rhs(b)
     if x0 is None:
         v = torch.zeros_like(b2)
@@ -61,7 +65,7 @@ def solve_cg(
         v = x0[:, None] if x0.ndim == 1 else x0
         r = b2 - op.mv(v)
         init_mv = 1
-    z = r
+    z = r if precond is None else precond(r)
     bn = torch.clamp(torch.linalg.norm(b2, dim=0), min=1e-30)
     rn = torch.linalg.norm(r, dim=0)
     rz = torch.sum(r * z, dim=0)
@@ -89,7 +93,7 @@ def solve_cg(
         alpha = torch.where(live, alpha, torch.zeros_like(alpha))
         v = v + alpha[None, :] * p
         r = r - alpha[None, :] * ap
-        z = r
+        z = r if precond is None else precond(r)
         rz_new = torch.sum(r * z, dim=0)
         rn_new = torch.linalg.norm(r, dim=0)
         # the update itself can overflow (Inf in ap with a finite pᵀAp)

@@ -274,7 +274,8 @@ def test_gram_row_capabilities_match_composition(toy_regression):
     t = toy_regression
     op = Gram(x=_t(t["x"]), params=_port_params(t["params"]))
     assert supports(op, "rows_mv", "rows_t_mv", "rows_pair_mv", "block_at")
-    assert capabilities(op) == ("rows_mv", "rows_t_mv", "rows_pair_mv", "block_at")
+    assert capabilities(op) == ("rows_mv", "rows_t_mv", "rows_pair_mv", "block_at",
+                                "precond_factor")
     idx = torch.arange(16)
     look, b = torch.ones((op.n, 2)), torch.zeros((16, 2))
     err, g = op.rows_pair_mv(idx, look, b)

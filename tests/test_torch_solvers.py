@@ -163,7 +163,7 @@ def test_solve_spec_dispatch_and_refusals(toy_regression):
         assert out.solution.shape == b.shape and out.iterations == 5
         with pytest.raises(ValueError, match="stochastic"):
             solve(op, b, name, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+    with pytest.raises(TypeError, match="preconditioner spec"):
         solve(op, b, CG(precond=object()))
     with pytest.raises(ValueError, match="unknown solver"):
         as_spec("lbfgs")
