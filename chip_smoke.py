@@ -152,6 +152,26 @@ UNCONVERGED_PRECONDS = ("rff",)
 #: The robust phase: benchmarks/bench_robust.py:31-33's happy-path problem
 #: and spec, and the interleaved repetitions of its overhead timing
 ROBUST = dict(n=512, d=3, s=16, spec=dict(max_iters=120, tol=1e-4), reps=20)
+#: The serving engine (the engine phase): IterativeGP(...).fit(x, y).engine()
+#: on the main path's cell (its θ and CG spec) with num_samples 16 and 2,048
+#: features, the scheduler's caps at launch/serve_gp.py's defaults; the traffic
+#: is serve_gp's defaults (40 requests at depth 8, mix predict 2 : sample 2 :
+#: thompson_step 1, 16 query rows from the test points, 4 sample columns, a
+#: quarter replayed, Thompson's 128 candidates and 5 ascent steps), driven
+#: closed-loop by its drive(), with one write of WRITE_ROWS rows held out of
+#: the training set after WRITE_AFTER completions (policy auto); the predict
+#: means are held to the Cholesky oracle, a payload served in a full batch
+#: and alone to ENGINE_DET_TOL of its scale; the fault path runs at the
+#: robust phase's n = 512
+ENGINE = dict(num_samples=16, num_features=2048, max_rhs_columns=64, max_batch_requests=16,
+              requests=40, depth=8, mix=dict(predict=2, sample=2, thompson_step=1),
+              num_rows=16, req_samples=4, repeat=0.25, ascent_steps=5)
+WRITE_ROWS, WRITE_AFTER = 4, 20
+ENGINE_MEAN_TOL, ENGINE_DET_TOL = 1e-2, 1e-3
+#: the Gram kernel's widths in the engine's solve batches (bucketed RHS
+#: columns; the fit's 1 + 16 is among the kernels phase's square cases), and
+#: the Thompson ascent's query rows: num_top 2 × the 8-column bucket
+ENGINE_WIDTHS, ENGINE_ASCENT_ROWS = (8, 16, 32, 64), 16
 #: the kernels' records on the last lines, in order
 RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
            "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
@@ -250,8 +270,9 @@ def main() -> int:
     stochastic_phase(torch, kernels, oracle)
     route_parity_phase(torch)
     thompson_phase(torch, kernels)
+    engine = engine_phase(torch, kernels, oracle)
     lm_serve_phase(torch, kernels)
-    profile_phase(torch)
+    profile_phase(torch, engine)
     large_n_phase(torch)
 
     for rec in kernels.values():
@@ -411,6 +432,7 @@ def kernels_phase(torch) -> dict:
     from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_bwd, gram_plan
     from repro_torch.kernels.ref import gram_matvec_ref, rff_matvec_ref
     from repro_torch.kernels.rff_matvec import rff_matvec, rff_plan
+    from repro_torch.serve.engine import RHS_SLICE
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -501,6 +523,12 @@ def kernels_phase(torch) -> dict:
         if kind == "matern32":
             paths["train"]["gram_matvec"] = line
 
+    # the serving engine's solve batches at each bucketed width, the widest
+    # its line
+    paths["engine"] = {}
+    for s in ENGINE_WIDTHS:
+        paths["engine"]["gram_matvec"] = gram_case("matern32", xs, xs, s, "square_engine")
+
     def bwd_case(kind, rows, cols, s, label, variants=False):
         # the first CHECK_ROWS rows against the plain version in float64; in
         # the square case they hold their own diagonal entries, where the
@@ -526,7 +554,7 @@ def kernels_phase(torch) -> dict:
     serve_omega = rff_omega(ls, 1024)  # 2,048 features
     # the training path's prior f_X: mll_grad's 1,024 features at θ₀, 8 probes
     train_omega = rff_omega(tls, 512)
-    for rows, omega, label, widths in ((x, serve_omega, "train", (16, 64)),
+    for rows, omega, label, widths in ((x, serve_omega, "train", (RHS_SLICE, 16, 64)),
                                        (xt, serve_omega, "test", (16, 64)),
                                        (x, train_omega, "mll_prior", (TRAIN_PROBES,))):
         for s in widths:
@@ -554,6 +582,8 @@ def kernels_phase(torch) -> dict:
             rec["rff_matvec"]["max_abs_err"] = max(rec["rff_matvec"]["max_abs_err"], err)
             if label == "train" and s == 64:  # f_X on the serving path
                 paths["fit_predict"]["rff_matvec"] = line
+            if label == "train" and s == RHS_SLICE:  # the engine's RHS launches
+                paths["engine"]["rff_matvec"] = line
             if label == "mll_prior":  # f_X on the training path
                 paths["train"]["rff_matvec"] = line
 
@@ -561,6 +591,7 @@ def kernels_phase(torch) -> dict:
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
     rff_bwd_cases(torch, x, rff_omega, gen, rec)
     thompson_kernel_cases(torch, gen, rec, paths)
+    engine_kernel_cases(torch, x, xs, serve_omega, gen, rec, paths)
     flash_cases(torch, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -959,6 +990,24 @@ def thompson_kernel_cases(torch, gen, rec, paths) -> None:
     paths["thompson"]["rff_bwd"] = _rff_bwd_case(
         torch, rec, "thompson_dx", xq, omega, g, g, w[:m].contiguous(), w[m:].contiguous(),
         math.sqrt(1.0 / m))
+
+
+def engine_kernel_cases(torch, x, xs, omega, gen, rec, paths) -> None:
+    """The backward kernels at the serving engine's Thompson ascent, against
+    their plain versions in float64: ENGINE_ASCENT_ROWS query rows against
+    protein's n = 45,730 points at the engine's 8-column bucket, the Gram
+    backward's ∂x and the RFF backward's ∂x on the 2,048-feature prior."""
+    dev, (n, d) = x.device, x.shape
+    ls, rows, s, m = math.sqrt(d) * 0.5, ENGINE_ASCENT_ROWS, 8, omega.shape[0]
+    xq = torch.rand((rows, d), generator=gen, device=dev)
+    g = torch.randn((rows, s), generator=gen, device=dev)
+    v = torch.randn((n, s), generator=gen, device=dev)
+    paths["engine"]["gram_matvec_bwd"] = _bwd_line(
+        torch, rec, (xq / ls).contiguous(), xs, g, v, "matern32", "engine_ascent", False)
+    w = torch.randn((2 * m, s), generator=gen, device=dev)
+    paths["engine"]["rff_bwd"] = _rff_bwd_case(
+        torch, rec, "engine_ascent_dx", xq, omega, g, g, w[:m].contiguous(),
+        w[m:].contiguous(), math.sqrt(1.0 / m))
 
 
 def _flash_bound_ms(b, s, hq, hkv, d, causal):
@@ -1807,6 +1856,322 @@ def thompson_phase(torch, kernels: dict) -> None:
     check(state.x.shape == (cfg["n0"] + cfg["steps"] * acq, d), "the state grew by the batches")
 
 
+def _engine_stream(torch, xt):
+    """launch/serve_gp.py's default traffic (its request_stream, a quarter
+    replayed), each query block ENGINE["num_rows"] consecutive test points
+    (request i's from row num_rows·i)."""
+    from repro_torch.launch.serve_gp import request_stream
+
+    cfg = ENGINE
+    stream = []
+    for i, (kind, kw) in enumerate(request_stream(
+            cfg["requests"], cfg["mix"], xt.shape[1], SEED + 1, cfg["num_rows"],
+            cfg["req_samples"], device=xt.device)):
+        if "xs" in kw:
+            lo = (cfg["num_rows"] * i) % xt.shape[0]
+            kw = dict(kw, xs=xt[lo:lo + cfg["num_rows"]])
+        if kind == "thompson_step":
+            kw = dict(kw, ascent_steps=cfg["ascent_steps"])
+        stream.append((kind, kw))
+    return stream + stream[:int(len(stream) * cfg["repeat"])]
+
+
+def _step_identity(comps) -> dict:
+    """The launches one engine step must make, from what it served: a predict
+    batch, 2 Gram launches (the mean and the samples) and 1 RFF launch; a
+    solve batch, an RFF launch for each RHS_SLICE columns of its right-hand
+    sides and its solve's matvecs in Gram launches, 1 more of each for the
+    sample requests' evaluation, and for each Thompson request of T ascent
+    steps T + 3 of each forward kernel (the candidates, T ascent steps, the
+    final values, the per-sample values) and T of each backward."""
+    from repro_torch.serve.engine import RHS_SLICE
+
+    zero = dict(gram_matvec=0, gram_matvec_bwd=0, rff_matvec=0, rff_bwd=0, gram_rows_pair=0,
+                gram_rows_matvec=0, rff_t_matvec=0, rff_pair=0, flash_attention=0)
+    if not comps:
+        return zero
+    if comps[0].metrics["group"] == "predict":
+        return dict(zero, gram_matvec=2, rff_matvec=1)
+    sample = int(any(c.kind == "sample" for c in comps))
+    ascent = [ENGINE["ascent_steps"] for c in comps if c.kind == "thompson_step"]
+    fwd = sum(t + 3 for t in ascent)
+    slices = -(-comps[0].metrics["bucket_columns"] // RHS_SLICE)
+    return dict(zero, gram_matvec=comps[0].metrics["matvecs"] + sample + fwd,
+                rff_matvec=slices + sample + fwd, gram_matvec_bwd=sum(ascent),
+                rff_bwd=sum(ascent))
+
+
+def engine_phase(torch, kernels: dict, oracle: dict):
+    """The serving engine at protein's full n: ``IterativeGP(...).fit(x, y)
+    .engine(...)`` on the main path's cell, WRITE_ROWS rows held out for the
+    write, then serve_gp's default traffic through its ``drive`` with one
+    ``add_observations`` after WRITE_AFTER completions, the launch counts read
+    just around the fit and the drive. Held: every request served; every
+    predict mean within ENGINE_MEAN_TOL of the Cholesky oracle at its rows
+    (relative), every variance finite and ≥ 0; each step's launches to
+    ``_step_identity`` and the write's to its solve's bill, no plain dispatch;
+    the write certified within the auto budget or compacted. Then the last
+    cold solve batch replayed warm (its iterations below a quarter of the
+    cold batch's), one sample request of a full batch served alone and cold
+    (its payload within ENGINE_DET_TOL of its scale), and the fault path at
+    n = 512. Returns the engine: profile_phase profiles one of its solve
+    batches last (the idle share is on that phase's ``engine_solve_batch``
+    line), since a profiler session slows later host loops."""
+    from repro_torch.core import CG, IterativeGP
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.launch.serve_gp import drive
+
+    data = regression_dataset("protein", seed=SEED)
+    d = data["d"]
+    cfg, dev = ENGINE, torch.device("cuda")
+    x = torch.as_tensor(data["x"], device=dev)
+    y = torch.as_tensor(data["y"], device=dev)
+    xt = torch.as_tensor(data["x_test"], device=dev)
+    x_fit, y_fit = x[:-WRITE_ROWS], y[:-WRITE_ROWS]
+    gp = IterativeGP("matern32", spec=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL),
+                     lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1, seed=SEED)
+
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    eng = gp.fit(x_fit, y_fit).engine(
+        num_samples=cfg["num_samples"], num_features=cfg["num_features"],
+        max_rhs_columns=cfg["max_rhs_columns"], max_batch_requests=cfg["max_batch_requests"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches, _, _ = _read_counts()
+    fit = eng.state.fit_result
+    check(eng.device.type == "cuda", f"the engine runs on the card, got {eng.device}")
+    check(fit.converged and fit.healthy, "the engine's fit converged, no flag")
+    check(fit_launches["gram_matvec"] == fit.matvecs and fit_launches["rff_matvec"] == 1,
+          f"the fit: Gram = its {fit.matvecs} matvecs, RFF = 1: {fit_launches}")
+
+    # every step's and the write's launches, read around them; the warm
+    # cache's host copies timed one by one
+    steps, writes, stores = [], [], []
+    step, add_obs, store = eng.step, eng.add_observations, eng.cache.store
+
+    def delta(before):
+        after = _read_counts()
+        return tuple({k: a[k] - b[k] for k in a} for a, b in zip(after, before))
+
+    def counted_step():
+        before = _read_counts()
+        nstores = len(stores)
+        comps = step()
+        steps.append((comps, *delta(before), sum(stores[nstores:])))
+        return comps
+
+    def counted_add_observations(x_new, y_new, **kw):
+        eng.run_until_idle()  # the drain's steps counted as steps
+        before = _read_counts()
+        snap = eng.stats()
+        t0 = time.perf_counter()
+        add_obs(x_new, y_new, **kw)
+        torch.cuda.synchronize()
+        writes.append((eng.stats(), snap, time.perf_counter() - t0, *delta(before), len(steps)))
+
+    def timed_store(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store(*args)
+        stores.append(time.perf_counter() - t0)
+
+    eng.step, eng.add_observations, eng.cache.store = (counted_step, counted_add_observations,
+                                                       timed_store)
+    stream = _engine_stream(torch, xt)
+    held_out = [(x[-WRITE_ROWS:], y[-WRITE_ROWS:])]
+    handles, wall = drive(eng, stream, cfg["depth"], writes=held_out,
+                          write_every=WRITE_AFTER, update="auto")
+    torch.cuda.synchronize()
+    launches, matvec_counts, feature_counts = _read_counts()  # the fit's among them
+    _record_path(kernels, "engine", launches)
+    snap = eng.stats()
+
+    check(len(handles) == len(stream) and all(h.done and h.result().ok for h in handles),
+          "every request of the stream served")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0, "no plain Gram matvec")
+    check(feature_counts["features"] == 0, "no materialised feature matrix")
+    # the predict means against the Cholesky oracle at their rows; the oracle
+    # conditions on all n rows, the requests served before the write on
+    # n − WRITE_ROWS of them (at protein's n a change far below the tolerance)
+    errs = []
+    for h, (kind, kw) in zip(handles, stream):
+        if kind != "predict":
+            continue
+        lo = (cfg["num_rows"] * h.request.seed) % xt.shape[0]
+        want = oracle["exact_mean"][lo:lo + cfg["num_rows"]]
+        val = h.result().value
+        errs.append(((val["mean"] - want).norm() / want.norm()).item())
+        check(bool(torch.isfinite(val["var"]).all() and (val["var"] >= 0).all()),
+              f"predict {h.request.id}: finite, non-negative variances")
+    check(max(errs) <= ENGINE_MEAN_TOL, f"predict means within {ENGINE_MEAN_TOL} of the "
+          f"Cholesky mean at their rows: worst {max(errs)}")
+    # each step's launches
+    check(len(writes) == 1, f"one write, got {len(writes)}")
+    after_w, before_w, write_s, wl, wmv, wfc, write_step = writes[0]
+    cold, warm_in_stream, copy_ms, cold_after_write = [], [], [], []
+    for i, (comps, got, mv, fc, store_s) in enumerate(steps):
+        want = _step_identity(comps)
+        check(got == want, f"step launches {got} == {want}")
+        check(mv["chunked"] == mv["dense"] == 0 and fc["features"] == 0,
+              "a step took no plain dispatch")
+        if comps and comps[0].metrics["group"] != "predict":
+            (warm_in_stream if comps[0].metrics["group"] == "solve_warm" else cold).append(
+                comps)
+            if comps[0].metrics["group"] == "solve_cold" and i >= write_step:
+                cold_after_write.append(comps)
+            copy_ms.append(1e3 * store_s)
+    compacted = after_w["compactions"] > before_w["compactions"]
+    w_mv = after_w["lowrank_matvecs"] - before_w["lowrank_matvecs"]
+    w_iters = after_w["lowrank_iterations"] - before_w["lowrank_iterations"]
+    if compacted:
+        w_iters = after_w["refit_iterations"] - before_w["refit_iterations"]
+    budget = eng.compaction_tol_factor * MAIN_TOL
+    check(compacted or after_w["last_refit_rel_residual"] <= budget,
+          f"the write certified within {budget} or compacted: {after_w}")
+    if not compacted:
+        check(wl["gram_matvec"] == w_mv and wl["rff_matvec"] == 1,
+              f"the rank-{WRITE_ROWS} write: Gram = its {w_mv} matvecs (the Z solve's and "
+              f"the certification's), RFF = 1: {wl}")
+    check(wmv["chunked"] == wmv["dense"] == 0, "the write took no plain Gram matvec")
+    check(eng.state.n == int(data["n"]), "the write restored the full training set")
+
+    # the last cold solve batch replayed: one warm batch of the same requests
+    check(len(cold_after_write) > 0, "cold solve batches after the write")
+    last = cold_after_write[-1]
+    replay = [eng.submit(c.kind, handles[c.request_id].request.xs,
+                         num_samples=handles[c.request_id].request.num_samples,
+                         seed=handles[c.request_id].request.seed,
+                         **handles[c.request_id].request.options) for c in last]
+    nsteps = len(steps)
+    eng.run_until_idle()
+    check(len(steps) == nsteps + 1 and all(h.request.warm for h in replay),
+          "the replay ran as one warm batch")
+    warm_comps = steps[-1][0]
+    cold_iters, warm_iters = last[0].metrics["iterations"], warm_comps[0].metrics["iterations"]
+    check(warm_iters < cold_iters / 4, f"the warm batch: {warm_iters} iterations < a quarter "
+          f"of its cold batch's {cold_iters}")
+    check(steps[-1][1] == _step_identity(warm_comps), "the warm batch's launches")
+
+    # one sample request of the widest cold batch since the write, served
+    # again alone and cold, on the same posterior
+    full = max((c for c in cold_after_write if any(r.kind == "sample" for r in c)),
+               key=lambda comps: comps[0].metrics["batch_columns"])
+    pick = next(c for c in full if c.kind == "sample")
+    req = handles[pick.request_id].request
+    key = eng.state.hypers_key
+    batched = eng.cache.lookup(key, "sample", req.seed)
+    eng.cache.purge("")
+    solo = eng.sample(req.xs, num_samples=req.num_samples, seed=req.seed)
+    eng.run_until_idle()
+    same_columns = bool((batched == eng.cache.lookup(key, "sample", req.seed)).all())
+    a, b = pick.value["samples"], solo.result().value["samples"]
+    det_err = (a - b).abs().max().item()
+    det_tol = ENGINE_DET_TOL * max(1.0, b.abs().max().item())
+    check(not solo.request.warm and solo.result().metrics["batch_columns"] == req.num_samples,
+          "the solo request ran alone and cold")
+    check(det_err <= det_tol, f"a payload in a full batch and alone: {det_err} > {det_tol}")
+    eng.step, eng.add_observations, eng.cache.store = step, add_obs, store
+
+    # the Gram kernel at each width the engine's solve batches used
+    from repro_torch.kernels.gram_matvec import gram_matvec
+
+    xs = (eng.state.x / eng.state.params.lengthscale).contiguous()
+    widths = sorted({c[0].metrics["bucket_columns"] for c in cold + warm_in_stream}
+                    | {1 + cfg["num_samples"]})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gram_ms = {}
+    for s in widths:
+        v = torch.randn((xs.shape[0], s), generator=gen, device=dev)
+        gram_ms[s] = _events_ms(torch, lambda: gram_matvec(xs, xs, v, kind="matern32"), 10)
+    fault = _engine_fault_path(torch)
+    lat = [h.result().metrics["total_s"] for h in handles]
+    emit("engine", n=int(data["n"]) - WRITE_ROWS, d=d, fit_s=fit_s, fit_iterations=fit.iterations,
+         fit_columns=1 + cfg["num_samples"], requests=len(handles), wall_s=wall,
+         requests_per_s=len(handles) / wall, p50_total_s=snap["total_latency_p50_s"],
+         p99_total_s=snap["total_latency_p99_s"], p50_queue_s=snap["queue_latency_p50_s"],
+         max_total_s=max(lat), steps=snap["steps"], batches=snap["batches"],
+         solve_batches=snap["solves"], rhs_columns=snap["rhs_columns"],
+         padded_columns=snap["padded_columns"],
+         cold_batches=[dict(columns=c[0].metrics["batch_columns"],
+                            bucket=c[0].metrics["bucket_columns"],
+                            iterations=c[0].metrics["iterations"],
+                            requests=len(c), exec_s=c[0].metrics["exec_s"]) for c in cold],
+         warm_batches_in_stream=len(warm_in_stream), warm_hits=snap["warm_hits"],
+         iterations_per_cold_batch=sum(c[0].metrics["iterations"] for c in cold) / len(cold),
+         replay=dict(cold_iterations=cold_iters, warm_iterations=warm_iters,
+                     requests=len(replay), exec_s=warm_comps[0].metrics["exec_s"]),
+         gram_ms_by_width=gram_ms,
+         write=dict(path="compaction" if compacted else "lowrank", iterations=w_iters,
+                    matvecs=w_mv if not compacted else None, wall_s=write_s,
+                    rel_residual=after_w["last_refit_rel_residual"], budget=budget,
+                    launches=wl),
+         cache_copy_ms_per_batch=sum(copy_ms) / len(copy_ms), cache_copy_ms=copy_ms,
+         predict_max_rel_err=max(errs), tol=ENGINE_MEAN_TOL,
+         determinism=dict(max_abs_err=det_err, tol=det_tol,
+                          batch_columns=pick.metrics["batch_columns"],
+                          solved_columns_bit_identical=same_columns),
+         fault=fault, launches=launches, fit_launches=fit_launches,
+         matvec_counts=matvec_counts, feature_counts=feature_counts)
+    return eng
+
+
+def _engine_fault_path(torch) -> dict:
+    """The engine's fault isolation at the robust phase's problem (n = 512,
+    d = 3, CG(120, 1e-4)): a FaultyOperator poisons one request's columns in
+    a batch of three (width-gated, so it vanishes on the solo rescue); that
+    request is rescued through the ladder and its batch-mates' payloads are
+    bit-identical to a fault-free engine's; then a persistently poisoned
+    prior (FaultyFeatureOperator) fails one seed twice, and its third submit
+    is quarantined."""
+    import dataclasses
+
+    from repro_torch.core import CG, make_params
+    from repro_torch.serve import GPEngine
+    from repro_torch.testing import FaultyFeatureOperator, FaultyOperator
+
+    dev, n, d = torch.device("cuda"), ROBUST["n"], ROBUST["d"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((n, d), generator=gen, device=dev)
+    y = torch.sin(4.0 * x[:, 0]) + 0.5 * torch.cos(3.0 * x[:, 1])
+    params = make_params("matern32", lengthscale=0.5, signal=1.0, noise=0.1, d=d, device=dev)
+
+    def engine(**kw):
+        return GPEngine(params, x, y, spec=CG(**ROBUST["spec"]), num_samples=8,
+                        num_features=256, seed=SEED, **kw)
+
+    # request 1's second column (batch column 5) poisoned at the batch's width
+    faulty = engine(operator_transform=lambda op: FaultyOperator(op, columns=(5,),
+                                                                 min_width=9))
+    clean = engine()
+    xq = torch.rand((3, 16, d), generator=gen, device=dev)
+    hf = [faulty.sample(xq[i], num_samples=4, seed=50 + i) for i in range(3)]
+    hc = [clean.sample(xq[i], num_samples=4, seed=50 + i) for i in range(3)]
+    faulty.run_until_idle()
+    clean.run_until_idle()
+    st = faulty.stats()
+    check(all(h.result().ok for h in hf) and st["escalations"] == 1 and st["failed"] == 0,
+          f"the poisoned request rescued solo: {st['escalations']} escalations")
+    intact = all(torch.equal(hf[i].result().value["samples"], hc[i].result().value["samples"])
+                 for i in (0, 2))
+    check(intact, "the batch-mates' payloads are bit-identical to a fault-free run")
+    rescued_err = (hf[1].result().value["samples"] - hc[1].result().value["samples"]).abs().max()
+
+    poisoned = engine(quarantine_after=2)
+    poisoned.state.post = dataclasses.replace(
+        poisoned.state.post, prior=FaultyFeatureOperator(poisoned.state.prior, columns=(0,)))
+    codes = []
+    for _ in range(3):
+        h = poisoned.sample(xq[0], num_samples=4, seed=77)
+        poisoned.run_until_idle()
+        codes.append(h.result().error["code"])
+    check(codes == ["solver_failure", "solver_failure", "quarantined"],
+          f"a twice-failing seed is quarantined: {codes}")
+    return dict(escalations=st["escalations"], batch_mates_bit_identical=intact,
+                rescued_vs_clean_max_abs=rescued_err.item(), quarantine=codes,
+                quarantined=poisoned.stats()["quarantined"])
+
+
 def _greedy_plain(torch, cfg, model, tokens, gen_n):
     """Greedy decoding with prefill on the plain attention route: the tokens
     (b, gen_n), the last-position prefill logits and each step's top-2 margin
@@ -1965,11 +2330,12 @@ def _device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
-def profile_phase(torch) -> None:
+def profile_phase(torch, engine) -> None:
     """The serving and training paths, each stochastic solver's
     fit → predict at PROFILE_STOCH_STEPS steps, one Thompson acquisition
-    step, and the serving path on Nyström CG, once more under
-    ``torch.profiler``: device time by kernel and the
+    step, the serving path on Nyström CG, and one cold solve batch of the
+    serving engine (a full batch's worth of sample requests on fresh seeds),
+    once more under ``torch.profiler``: device time by kernel and the
     card's idle share of the wall time. Run after the counted passes so
     that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
@@ -2029,10 +2395,20 @@ def profile_phase(torch) -> None:
             return gp.posterior(64).solve_info.iterations  # cached: no launch
         return run
 
+    xq = torch.as_tensor(data["x_test"][:ENGINE["num_rows"]], device=dev)
+
+    def engine_batch():
+        cols = ENGINE["max_rhs_columns"] // ENGINE["req_samples"]
+        for i in range(cols):
+            engine.sample(xq, num_samples=ENGINE["req_samples"], seed=10_000 + i)
+        (comp, *_) = engine.step()
+        return comp.metrics["iterations"]
+
     for path, run in (("fit_predict", fit_predict), ("train", train),
                       *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS),
                       ("thompson", thompson),
-                      ("precond_nystrom", precond(_precond_specs()["nystrom"]))):
+                      ("precond_nystrom", precond(_precond_specs()["nystrom"])),
+                      ("engine_solve_batch", engine_batch)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

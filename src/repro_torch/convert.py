@@ -1,5 +1,5 @@
 """Carry the JAX package's state across, as numpy arrays, into the port's objects
-(GP hyperparameters, features, posteriors and draws; LM params).
+(GP hyperparameters, features, posteriors, serving states and draws; LM params).
 
 The parity tests pull these arrays out of ``repro`` objects; the port itself
 never sees JAX. Every function takes the target ``device`` (the card unless
@@ -14,11 +14,14 @@ from .core.kernels_fn import KernelParams
 from .core.pathwise import PosteriorFunctions
 from .core.precond import PrecondDraws
 from .core.rff import FourierFeatures, PriorSamples
-from .core.solvers import RowDraws, SGDDraws
+from .core.solvers import RowDraws, SGDDraws, SolveResult
+from .core.solvers.spec import as_spec, spec_from_dict
 from .core.thompson import ThompsonDraws, ThompsonState
 from .device import DeviceLike, resolve_device
 from .models.model import Transformer
 from .models.param import tree_map
+from .serve.request import RequestDraws
+from .serve.state import PosteriorState, hypers_fingerprint
 
 
 def _t(a, device: torch.device) -> torch.Tensor:
@@ -65,6 +68,54 @@ def posterior_from_numpy(params: KernelParams, x, v_mean, alpha,
     dev = resolve_device(device)
     return PosteriorFunctions(params=params, x=_t(x, dev), prior=prior,
                               v_mean=_t(v_mean, dev), alpha=_t(alpha, dev))
+
+
+def posterior_state_from_numpy(params: KernelParams, x, y, omega, w, v_mean, alpha, eps,
+                               f_x, spec, *, iterations: int, matvecs: int,
+                               rel_residual=None, flags=None,
+                               device: DeviceLike = None) -> PosteriorState:
+    """A serving engine's fitted state: the training data ``x`` (n, d) and
+    ``y`` (n,), the prior's ``omega`` (num_features/2, d) and ``w``
+    (num_features, s), the representer weights ``v_mean`` (n,) and ``alpha``
+    (n, s), the fit's noise draws ``eps`` and prior values ``f_x`` (n, s),
+    the ``spec`` (a port spec, or the reference's ``spec_to_dict``), and the
+    fit result's ``iterations``, ``matvecs`` and, if given, per-column
+    ``rel_residual`` and ``flags`` (1 + s,). ``params`` come from
+    :func:`params_from_numpy` on the same device."""
+    dev = resolve_device(device)
+    spec = spec_from_dict(spec) if isinstance(spec, dict) else as_spec(spec)
+    prior = prior_from_numpy(omega, w, params.signal.detach().cpu().numpy(), device=dev)
+    x, y = _t(x, dev), _t(y, dev)
+    v_mean, alpha = _t(v_mean, dev), _t(alpha, dev)
+    sol = torch.cat([v_mean[:, None], alpha], dim=1)
+    cols = sol.shape[1]
+    rel = torch.zeros(cols, device=dev) if rel_residual is None else _t(rel_residual, dev)
+    fl = (torch.zeros(cols, dtype=torch.int32, device=dev) if flags is None else
+          torch.as_tensor(np.array(flags, dtype=np.int32), device=dev))
+    res = SolveResult(solution=sol, residual_norm=rel * 0.0, rel_residual=rel,
+                      iterations=int(iterations), converged=bool((fl == 0).all()),
+                      matvecs=int(matvecs), flags=fl)
+    post = PosteriorFunctions(params=params, x=x, prior=prior, v_mean=v_mean, alpha=alpha,
+                              solve_info=res)
+    return PosteriorState(params=params, x=x, y=y, spec=spec, post=post, eps=_t(eps, dev),
+                          f_x=_t(f_x, dev), fit_result=res,
+                          hypers_key=hypers_fingerprint(params, x.shape[0]))
+
+
+def request_draws_from_numpy(w, eps, uniform=None, pick=None, perturb=None, *,
+                             device: DeviceLike = None) -> RequestDraws:
+    """One serving request's draws: prior weights ``w`` (num_features,
+    num_samples), noise ``eps`` (n, num_samples) and, for ``thompson_step``,
+    the ``uniform`` explore candidates, the incumbents ``pick`` and their
+    ``perturb`` normals — e.g. the reference engine's ``_request_draws`` and
+    its ascent key's splits."""
+    dev = resolve_device(device)
+    return RequestDraws(
+        w=_t(w, dev), eps=_t(eps, dev),
+        uniform=None if uniform is None else _t(uniform, dev),
+        pick=None if pick is None else torch.as_tensor(np.asarray(pick, dtype=np.int64),
+                                                       device=dev),
+        perturb=None if perturb is None else _t(perturb, dev))
 
 
 def sgd_draws_from_numpy(idx, omega, *, device: DeviceLike = None) -> SGDDraws:

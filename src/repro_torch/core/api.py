@@ -7,13 +7,14 @@
 ``fit`` stores the data; ``optimize`` runs Adam ascent on the marginal
 likelihood with warm-started solves (core/mll.py); ``predict`` runs ONE
 batched solve of (K+σ²I)V = [y | f_X + ε] with the model's spec (CG, SGD, SDD
-or AP) and evaluates the pathwise-conditioned posterior at the new points. The model lives on the card
-unless ``device="cpu"`` is passed.
+or AP) and evaluates the pathwise-conditioned posterior at the new points;
+``engine`` hands the fitted GP to the serving engine (``repro_torch.serve``).
+The model lives on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import torch
 
@@ -23,6 +24,9 @@ from .mll import MLLOptimState, optimize_mll
 from .pathwise import PosteriorFunctions, posterior_functions
 from .solvers.base import flag_names
 from .solvers.spec import SolverSpec, SpecLike, as_spec
+
+if TYPE_CHECKING:
+    from ..serve import GPEngine
 
 
 class IterativeGP:
@@ -112,11 +116,38 @@ class IterativeGP:
         self._post = None
         return self
 
-    def engine(self, *args, **kwargs):
-        """The serving engine is not ported yet."""
-        raise NotImplementedError(
-            "IterativeGP.engine (the serving engine) is not ported yet: "
-            "ROADMAP queue 1 item 10"
+    def engine(
+        self,
+        *,
+        num_samples: int = 16,
+        num_features: int = 2048,
+        generator: Optional[torch.Generator] = None,
+        **engine_kwargs,
+    ) -> "GPEngine":
+        """Hand the fitted GP off to a long-lived serving engine.
+
+        Returns a :class:`repro_torch.serve.GPEngine` on this GP's device,
+        holding its fitted posterior state (representer weights, pathwise prior
+        paths, solver spec) and serving streams of ``predict`` / ``sample`` /
+        ``thompson_step`` requests with continuous batching over shared
+        multi-RHS solves. The engine snapshots the current hyperparameters and
+        data; further ``optimize``/``fit`` calls on this façade do not affect
+        it (push new observations with ``engine.add_observations``). Its fit
+        draws from this GP's generator unless ``generator`` is given.
+        """
+        self._require_fitted()
+        from ..serve import GPEngine  # deferred: serve imports core
+
+        return GPEngine(
+            self.params,
+            self.x,
+            self.y,
+            spec=self.spec,
+            num_samples=num_samples,
+            num_features=num_features,
+            generator=self._gen if generator is None else generator,
+            device=self.device,
+            **engine_kwargs,
         )
 
     def posterior(

@@ -13,6 +13,10 @@ the loop must know on the host whether to launch the next matvec.
 Matvec economy, kept exactly: a cold start costs no initial matvec (r₀ = b),
 and the recursion's residual is handed to ``finalize``, so a solve spends
 ``iterations`` matvecs, or ``iterations + 1`` on a warm start.
+
+On the card the column dots and norms accumulate in float64
+(:func:`_col_dot`), so a column's trajectory does not depend on how many
+columns share the solve.
 """
 from __future__ import annotations
 
@@ -41,6 +45,28 @@ def _flag(cond: torch.Tensor, bit: int) -> torch.Tensor:
     return torch.where(cond, bit, 0).to(torch.int32)
 
 
+def _col_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ_rows a ⊙ b per column (s,). On the card the products' sum runs in
+    float64 and is rounded once: the float32 sum over dim 0 of an (n, s)
+    tensor splits its work by the width s and rounds each column by it, so a
+    column's recursion would move with the columns riding beside it — the
+    serving engine's payloads with their batch's bucket. The Gram kernel's
+    columns are independent of the width, so with these dots a column's CG
+    trajectory on the card is too. On the CPU the float32 sum stays: the
+    plain matvecs there round by the width anyway."""
+    if a.is_cuda:
+        return torch.sum(a * b, dim=0, dtype=torch.float64).to(a.dtype)
+    return torch.sum(a * b, dim=0)
+
+
+def _col_norm(a: torch.Tensor) -> torch.Tensor:
+    """‖a‖₂ per column (s,), the same at every width on the card (as
+    :func:`_col_dot`)."""
+    if a.is_cuda:
+        return torch.linalg.vector_norm(a, dim=0, dtype=torch.float64).to(a.dtype)
+    return torch.linalg.norm(a, dim=0)
+
+
 def solve_cg(
     op: LinearOperator,
     b: torch.Tensor,
@@ -67,8 +93,8 @@ def solve_cg(
         init_mv = 1
     z = r if precond is None else precond(r)
     bn = torch.clamp(torch.linalg.norm(b2, dim=0), min=1e-30)
-    rn = torch.linalg.norm(r, dim=0)
-    rz = torch.sum(r * z, dim=0)
+    rn = _col_norm(r)
+    rz = _col_dot(r, z)
     # a non-finite initial residual is flagged before the first iteration:
     # NaN > tol is False, so an unflagged NaN column would read as converged
     fl = _flag(~(torch.isfinite(rn) & torch.isfinite(rz)), FLAG_NONFINITE)
@@ -81,7 +107,7 @@ def solve_cg(
         if not bool(live.any()):  # the one host sync of the iteration
             break
         ap = op.mv(p)
-        pap = torch.sum(p * ap, dim=0)
+        pap = _col_dot(p, ap)
         # in-loop health checks on (s,) reductions: NaN/Inf in ap surfaces in
         # pᵀAp, and pᵀAp ≤ 0 on an active column is breakdown. Flagged columns
         # freeze BEFORE their update is applied.
@@ -94,8 +120,8 @@ def solve_cg(
         v = v + alpha[None, :] * p
         r = r - alpha[None, :] * ap
         z = r if precond is None else precond(r)
-        rz_new = torch.sum(r * z, dim=0)
-        rn_new = torch.linalg.norm(r, dim=0)
+        rz_new = _col_dot(r, z)
+        rn_new = _col_norm(r)
         # the update itself can overflow (Inf in ap with a finite pᵀAp)
         post_bad = live & ~(torch.isfinite(rn_new) & torch.isfinite(rz_new))
         fl = fl | _flag(post_bad, FLAG_NONFINITE)

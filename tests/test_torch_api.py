@@ -15,6 +15,7 @@ from repro_torch.core import CG, IterativeGP, exact_posterior
 from repro_torch.core.solvers import as_spec
 from repro_torch.data.pipeline import UCI_SHAPES, regression_dataset
 from repro_torch.device import resolve_device
+from repro_torch.serve import GPEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -71,11 +72,27 @@ def test_no_device_means_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_engine_serves_the_gps_predict():
+    # IterativeGP.engine hands the fitted GP to the serving engine on its
+    # device; the engine's first predict is the posterior mean of its own fit,
+    # which equals gp.predict's to CG's accuracy (both CG to 1e-6)
+    x, y, xt = _toy(n=120)
+    gp = IterativeGP("matern32", lengthscale=0.8, noise=0.1,
+                     spec=CG(max_iters=500, tol=1e-6), device="cpu").fit(x, y)
+    mean, _ = gp.predict(xt)
+    eng = gp.engine(num_samples=8, num_features=256)
+    assert isinstance(eng, GPEngine) and eng.device == gp.device
+    assert eng.state.n == 120 and eng.spec == gp.spec
+    h = eng.predict(xt[:10])
+    eng.run_until_idle()
+    got = h.result().value["mean"]
+    assert float((got - mean[:10]).abs().max()) <= 1e-5
+    with pytest.raises(RuntimeError, match="fit"):
+        IterativeGP(device="cpu").engine()
+
+
 def test_paths_outside_the_slice_raise():
     x, y, _ = _toy(n=50)
-    gp = IterativeGP(device="cpu").fit(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        gp.engine()
     # the stochastic solvers are ported: "sgd", "sdd" and "ap" run end to end
     # (SDD at a step size for n = 50: the paper's 50/n is for large n)
     for name, kw in (("sgd", dict(batch_size=16)),

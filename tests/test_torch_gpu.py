@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
 the fit → predict, MLL-optimisation, stochastic-solver and Thompson-sampling
-paths through the kernels against the same paths on the CPU, and LM serving's
-kernel route against its plain route.
+paths through the kernels against the same paths on the CPU, LM serving's
+kernel route against its plain route, and the serving engine's launches.
 
 Every test is marked ``gpu`` and skips without a card, deciding inside the
 ``card`` fixture. This file imports neither JAX nor the reference package, so
@@ -264,7 +264,8 @@ def test_optimize_on_card_matches_cpu(card):
     kw = dict(num_steps=3, lr=0.05, spec=CG(max_iters=500, tol=1e-5))
     on_cpu = optimize_mll(params, x, y, draws=draws, **kw)
     before = gram_matvec_bwd.launches
-    card_draws = MLLDraws(**{f.name: getattr(draws, f.name).cuda()
+    card_draws = MLLDraws(**{f.name: None if getattr(draws, f.name) is None
+                             else getattr(draws, f.name).cuda()
                              for f in dataclasses.fields(draws)})
     on_card = optimize_mll(map_params(torch.Tensor.cuda, params), x.cuda(), y.cuda(),
                            draws=card_draws, **kw)
@@ -757,3 +758,59 @@ def test_forward_train_gradients_on_card_match_plain_route(card):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
         if id(p) in mixer:  # the attention weights' gradients are not dropped
             assert a.abs().max().item() > 0
+
+
+@pytest.mark.gpu
+def test_engine_on_card_follows_the_launch_identities(card):
+    # A small serving engine on the card: a predict batch is 2 Gram launches
+    # and 1 RFF launch; a solve batch is its solve's matvecs in Gram launches
+    # plus 1 for the sample evaluation, an RFF launch for each RHS_SLICE
+    # columns of its right-hand sides plus 1 for the evaluation, and each
+    # Thompson request of T ascent steps T + 3 launches of each forward
+    # kernel and T of each backward; no plain dispatch anywhere. A request
+    # served in a batch and alone gets the same solved columns, bit for bit.
+    from repro_torch.serve import GPEngine
+    from repro_torch.serve.engine import RHS_SLICE
+
+    data = regression_dataset(2000, d=4, seed=1, n_test=64)
+    params = make_params("matern32", lengthscale=0.9, noise=0.1, d=4, device="cuda")
+    eng = GPEngine(params, data["x"], data["y"], spec=CG(max_iters=500, tol=1e-4),
+                   num_samples=8, num_features=256, seed=0)
+    assert eng.device.type == "cuda" and eng.state.fit_result.converged
+    xt = torch.as_tensor(data["x_test"], device="cuda")
+    wrappers = (gram_matvec, gram_matvec_bwd, rff_matvec, rff_bwd)
+
+    def run_step():
+        ops.reset_matvec_trace_counts()
+        ops.reset_feature_trace_counts()
+        for w in wrappers:
+            w.launches = 0
+        comps = eng.step()
+        assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+        assert ops.FEATURE_TRACE_COUNTS["features"] == 0
+        return comps, [w.launches for w in wrappers]
+
+    for i in range(3):
+        eng.predict(xt[8 * i:8 * i + 5])
+    comps, (g, gb, r, rb) = run_step()
+    assert len(comps) == 3 and (g, gb, r, rb) == (2, 0, 1, 0)
+    steps = 3
+    hs = [eng.sample(xt[:7], num_samples=4, seed=1), eng.sample(xt[7:20], num_samples=3, seed=2),
+          eng.thompson_step(num_samples=2, seed=3, ascent_steps=steps, num_candidates=64)]
+    comps, (g, gb, r, rb) = run_step()
+    assert [c.request_id for c in comps] == [h.request.id for h in hs]
+    matvecs = comps[0].metrics["matvecs"]
+    assert comps[0].metrics["bucket_columns"] == 16 and matvecs > 0
+    assert g == matvecs + 1 + steps + 3 and r == 16 // RHS_SLICE + 1 + steps + 3
+    assert gb == rb == steps
+    assert all(c.ok and all(bool(torch.isfinite(v).all()) for v in c.value.values())
+               for c in comps)
+    batched = torch.as_tensor(eng.cache.lookup(eng.state.hypers_key, "sample", 1))
+    eng.cache.purge("")  # served again alone and cold, in an 8-column bucket
+    again = eng.sample(xt[:7], num_samples=4, seed=1)
+    eng.run_until_idle()
+    assert not again.request.warm and again.result().metrics["bucket_columns"] == 8
+    solo = torch.as_tensor(eng.cache.lookup(eng.state.hypers_key, "sample", 1))
+    assert torch.equal(batched, solo)
+    a, b = hs[0].result().value["samples"], again.result().value["samples"]
+    assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))

@@ -1,7 +1,7 @@
 """The port's escalation ladder (repro_torch.core.solvers.robust) and fault
 injection (repro_torch.testing) against the JAX reference on the CPU: twins
-of tests/test_robustness.py:78-247,437 (not the scheduler and engine tests,
-which wait for the serving engine) and of
+of tests/test_robustness.py:78-247,437 (its scheduler and engine tests have
+their twins in tests/test_torch_serve.py) and of
 tests/test_robustness_property.py:52, on the reference's own problem arrays,
 and benchmarks/bench_robust.py's three problems against the committed
 results/BENCH_bench_robust.json."""
