@@ -27,14 +27,23 @@ on the protein-shaped problem at full n through those kernels:
   backward and the Gram backward kernels, held to the reference's launch
   identities, to the plain Functions' gradient in float64, and to acquiring
   batches better than the median observation;
+* the sparse paths, bench_solvers' SVGP(SGPR) row at protein's n with 512
+  inducing points: ``sgpr``, ``sgpr_iterative`` (its normal-equations
+  operator through the Gram kernel on the cross shapes, a 1,024-column
+  variance solve), ``inducing_posterior`` (its prior through the RFF kernel)
+  and SVGP natural-gradient steps, each against the float64 dense SGPR;
+* the latent Kronecker GP, bench_kronecker's full 512 × 50 learning-curve
+  grid: ``lkgp_posterior`` against the float64 dense posterior, the bench's
+  standard iterative GP on the same cells through the kernels, and
+  ``fit_curve_gp``;
 * LM serving, ``repro_torch.launch.serve.generate`` on llama3-8b at full width
   and depth (random fp32 weights from a seed): prefill's causal attention
   through the flash-attention kernel, greedy decode, held against the plain
   attention route and against ``forward_train`` at one more position.
 
 The training path's θ-gradients are held against the plain autograd Function
-in float64 at a reduced n, and one Gram matvec runs at 3droad's n, where K could
-not be held.
+in float64 at a reduced n, one CG column's bits are held at widths 8 and 64,
+and one Gram matvec runs at 3droad's n, where K could not be held.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its result lines. Without a CUDA device, or outside a checkout
@@ -172,6 +181,46 @@ ENGINE_MEAN_TOL, ENGINE_DET_TOL = 1e-2, 1e-3
 #: columns; the fit's 1 + 16 is among the kernels phase's square cases), and
 #: the Thompson ascent's query rows: num_top 2 × the 8-column bucket
 ENGINE_WIDTHS, ENGINE_ASCENT_ROWS = (8, 16, 32, 64), 16
+#: The sparse phase: benchmarks/bench_solvers.py's SVGP(SGPR) row on the
+#: main path's cell (its θ, :79-80) at full n, with the bench's inducing
+#: inputs Z = x[::n // 512][:512] (:115); sgpr_iterative on its default
+#: CG(400, 1e-6), inducing_posterior on 16 samples of 2,048 features and its
+#: default CG(200, 1e-5), and the SVGP natural-gradient schedule of
+#: tests/test_svgp_inducing.py:64-78 (25 full-batch steps at lr 0.5, then 3
+#: on 256-row batches at lr 0.05). Held against the float64 dense SGPR on
+#: the same Z: sgpr within SGPR_TOL of its scale, the iterative means and
+#: variance within the reference's SPARSE_TOL (tests/test_svgp_inducing.py:
+#: 50-51,88) or, where the float64 plain route misses it too, within
+#: SPARSE_PLAIN_RATIO × that route's gap; the SVGP mean within the
+#: reference's SVGP_TOL (:78)
+SPARSE = dict(m=512, num_samples=16, num_features=2048, full_steps=25, full_lr=0.5,
+              batch=256, batch_steps=3, batch_lr=0.05)
+SGPR_TOL, SPARSE_TOL, SVGP_TOL, SPARSE_PLAIN_RATIO = 1e-2, 5e-2, 0.25, 1.5
+#: The LKGP phase: benchmarks/bench_kronecker.py:34-62 at its full size (a
+#: 512 × 50 learning-curve grid, 70% density; Matérn-5/2 factors, σ² = 1e-2,
+#: 8 samples, 200 iterations) and its standard iterative GP on the same
+#: observations (d = 5, Matérn-5/2, noise 0.1, 8 samples on 1,024 features,
+#: CG(200)); the LKGP mean at tol 1e-4 held within the reference's LKGP_TOL
+#: (tests/test_kronecker.py:70) of the float64 dense posterior mean, and
+#: fit_curve_gp's error on the observed cells under CURVE_TOL
+#: (tests/test_train.py:131)
+LKGP = dict(n_configs=512, n_steps=50, density=0.7, noise=1e-2, num_samples=8,
+            max_iters=200, std_noise=0.1, std_features=1024)
+LKGP_TOL, CURVE_TOL = 2e-2, 0.1
+#: the budget of the LKGP's accuracy check at the reference's tol 1e-4: the
+#: bench's 200 iterations leave CG far from converged at this size, in fp32
+#: and float64 alike (both residuals are printed), and the fp32 solve
+#: reaches 1e-4 in ~1,000
+LKGP_CHECK_ITERS = 2000
+#: the timed run at the bench's 200 iterations: its fp32 mean's gap from the
+#: float64 dense posterior mean is the budget's, so it is held within
+#: LKGP_BUDGET_RATIO of the reference's own fp32 gap at that budget on this
+#: grid, LKGP_REF_GAP (measured on the CPU by tests/test_torch_kronecker.py::
+#: test_lkgp_at_the_bench_budget_misses_where_the_reference_does)
+LKGP_REF_GAP, LKGP_BUDGET_RATIO = 0.3276, 1.5
+#: CG's column check: one column at width 8 and beside 63 others at width
+#: 64, on the first CG_WIDTH_N protein rows at the main path's θ and tol
+CG_WIDTH_N = 8192
 #: the kernels' records on the last lines, in order
 RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
            "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
@@ -271,8 +320,11 @@ def main() -> int:
     route_parity_phase(torch)
     thompson_phase(torch, kernels)
     engine = engine_phase(torch, kernels, oracle)
+    cg_width_phase(torch)
+    sparse = sparse_phase(torch, kernels)
+    lkgp = lkgp_phase(torch, kernels)
     lm_serve_phase(torch, kernels)
-    profile_phase(torch, engine)
+    profile_phase(torch, engine, sparse, lkgp)
     large_n_phase(torch)
 
     for rec in kernels.values():
@@ -493,7 +545,7 @@ def kernels_phase(torch) -> dict:
         torch.cuda.synchronize()
         err = (out.double() - ref64).abs().max().item()
         scale = max(1.0, ref64.abs().max().item())
-        n, m = rows.shape[0], cols.shape[0]
+        (n, d), m = rows.shape, cols.shape[0]
         bound, flops, nbytes = _gram_bound_ms(n, m, d, s)
         plan = gram_plan(n, m, d, s)
         line = dict(kernel="gram_matvec", case=label, kind=kind, n=n, m=m, d=d, s=s,
@@ -554,38 +606,66 @@ def kernels_phase(torch) -> dict:
     serve_omega = rff_omega(ls, 1024)  # 2,048 features
     # the training path's prior f_X: mll_grad's 1,024 features at θ₀, 8 probes
     train_omega = rff_omega(tls, 512)
+
+    def rff_case(rows, omega, s, label):
+        w = torch.randn((2 * omega.shape[0], s), generator=gen, device=dev)
+        out = rff_matvec(rows, omega, w)
+        ref64 = rff_matvec_ref(rows.double(), omega.double(), w.double())
+        ref32 = rff_matvec_ref(rows, omega, w)
+        torch.cuda.synchronize()
+        err = (out.double() - ref64).abs().max().item()
+        scale = max(1.0, ref64.abs().max().item())
+        (n, d), m = rows.shape, omega.shape[0]
+        bound, flops, nbytes = _rff_bound_ms(n, m, d, s)
+        plan = rff_plan(n, m, d, s)
+        line = dict(kernel="rff_matvec", case=label, n=n, m=m, d=d, s=s,
+                    ctas=plan.mv_ctas, chunks=plan.freq_chunks,
+                    **_rff_floors(n, m, d, s), max_abs_err=err, tol=RFF_TOL * scale,
+                    err_vs_fp32_plain=(out - ref32).abs().max().item(),
+                    smem_bytes=rff_matvec.smem_bytes(d, s),
+                    ms=_events_ms(torch, lambda: rff_matvec(rows, omega, w), 20),
+                    plain_ms=_events_ms(torch, lambda: rff_matvec_ref(rows, omega, w), 3),
+                    bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
+                    bytes=nbytes)
+        emit("kernels", **line)
+        check(err <= RFF_TOL * scale, f"rff_matvec {label} s={s}: {err}")
+        rec["rff_matvec"]["max_abs_err"] = max(rec["rff_matvec"]["max_abs_err"], err)
+        return line
+
     for rows, omega, label, widths in ((x, serve_omega, "train", (RHS_SLICE, 16, 64)),
                                        (xt, serve_omega, "test", (16, 64)),
                                        (x, train_omega, "mll_prior", (TRAIN_PROBES,))):
         for s in widths:
-            w = torch.randn((2 * omega.shape[0], s), generator=gen, device=dev)
-            out = rff_matvec(rows, omega, w)
-            ref64 = rff_matvec_ref(rows.double(), omega.double(), w.double())
-            ref32 = rff_matvec_ref(rows, omega, w)
-            torch.cuda.synchronize()
-            err = (out.double() - ref64).abs().max().item()
-            scale = max(1.0, ref64.abs().max().item())
-            n, m = rows.shape[0], omega.shape[0]
-            bound, flops, nbytes = _rff_bound_ms(n, m, d, s)
-            plan = rff_plan(n, m, d, s)
-            line = dict(kernel="rff_matvec", case=label, n=n, m=m, d=d, s=s,
-                        ctas=plan.mv_ctas, chunks=plan.freq_chunks,
-                        **_rff_floors(n, m, d, s), max_abs_err=err, tol=RFF_TOL * scale,
-                        err_vs_fp32_plain=(out - ref32).abs().max().item(),
-                        smem_bytes=rff_matvec.smem_bytes(d, s),
-                        ms=_events_ms(torch, lambda: rff_matvec(rows, omega, w), 20),
-                        plain_ms=_events_ms(torch, lambda: rff_matvec_ref(rows, omega, w), 3),
-                        bound_ms=bound, bound_by=_bound_by(flops, nbytes), flops=flops,
-                        bytes=nbytes)
-            emit("kernels", **line)
-            check(err <= RFF_TOL * scale, f"rff_matvec {label} s={s}: {err}")
-            rec["rff_matvec"]["max_abs_err"] = max(rec["rff_matvec"]["max_abs_err"], err)
+            line = rff_case(rows, omega, s, label)
             if label == "train" and s == 64:  # f_X on the serving path
                 paths["fit_predict"]["rff_matvec"] = line
             if label == "train" and s == RHS_SLICE:  # the engine's RHS launches
                 paths["engine"]["rff_matvec"] = line
             if label == "mll_prior":  # f_X on the training path
                 paths["train"]["rff_matvec"] = line
+
+    # the sparse phase's three NormalEq products, K_XZ·u (n × m),
+    # K_ZX·(K_XZ·u) (m × n) and K_ZZ·u (m × m), at the SGPR fit's 1 column
+    # (and its right-hand side K_ZX y), the inducing solve's 17 (and its
+    # right-hand side) and the SGPR variance solve's 1,024; the inducing
+    # prior's f_X on 16 samples of 2,048 features. Every shape a path runs
+    # is listed under its ``shapes``.
+    paths.update(sgpr_iterative={}, inducing={}, lkgp_standard={})
+    zs = xs[::max(1, xs.shape[0] // SPARSE["m"])][:SPARSE["m"]].contiguous()
+    for s in (1, SPARSE["num_samples"] + 1, xt.shape[0]):
+        on = ("sgpr_iterative",) if s != SPARSE["num_samples"] + 1 else ("inducing",)
+        for rows, cols, label in ((xs, zs, "sparse_nm"), (zs, xs, "sparse_mn"),
+                                  (zs, zs, "sparse_mm")):
+            line = gram_case("matern32", rows, cols, s, label)
+            for path in on:
+                _path_shape(paths, path, "gram_matvec", line)
+            if label == "sparse_nm" and s == xt.shape[0]:
+                paths["sgpr_iterative"]["gram_matvec"] = line
+            if label == "sparse_nm" and s == SPARSE["num_samples"] + 1:
+                paths["inducing"]["gram_matvec"] = line
+    paths["inducing"]["rff_matvec"] = rff_case(x, serve_omega, SPARSE["num_samples"],
+                                               "inducing_prior")
+    lkgp_kernel_cases(torch, gram_case, rff_case, gen, paths)
 
     paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
@@ -609,7 +689,7 @@ def kernels_phase(torch) -> dict:
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         library_ms=line.get("library_ms"),
                         **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms") if k in line},
-                        by_path={p: {k: lines[key][k] for k in keep if k in lines[key]}
+                        by_path={p: _path_line(lines, key, keep)
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
     for path in ("sdd", "thompson"):
@@ -617,6 +697,60 @@ def kernels_phase(torch) -> dict:
             k: paths[path]["gram_rows_matvec"][k] for k in keep
             if k in paths[path]["gram_rows_matvec"]}
     return rec
+
+
+def _path_shape(paths: dict, path: str, key: str, line: dict) -> None:
+    """List ``line`` (a kernel case) among the shapes ``path`` runs ``key`` at."""
+    paths[path].setdefault("shapes", {}).setdefault(key, []).append(line)
+
+
+def _path_line(lines: dict, key: str, keep) -> dict:
+    """A path's entry in a kernel record: its line's numbers, and each shape
+    it runs the kernel at with its own."""
+    out = {k: lines[key][k] for k in keep if k in lines[key]}
+    shapes = lines.get("shapes", {}).get(key)
+    if shapes:
+        out["shapes"] = [{k: line[k] for k in ("case", "kind", "n", "m", "d", "s", "ms",
+                                                "plain_ms", "bound_ms", "max_abs_err", "tol")}
+                         for line in shapes]
+    return out
+
+
+def _lkgp_inputs(torch):
+    """The LKGP phase's grid (grid_curves at bench_kronecker's full size), its
+    observed flat indices, and the standard GP's 5-D inputs: each grid cell's
+    config features beside its log-step, all cells and the observed ones."""
+    from repro_torch.data.pipeline import grid_curves
+
+    cfg, dev = LKGP, torch.device("cuda")
+    data = grid_curves(cfg["n_configs"], cfg["n_steps"], cfg["density"], seed=SEED)
+    idx = torch.as_tensor(data["mask"].reshape(-1).nonzero()[0], device=dev)
+    g1 = torch.as_tensor(data["grid1"], device=dev)
+    g2 = torch.as_tensor(data["grid2"], device=dev)
+    x_all = torch.cat([g1.repeat_interleave(cfg["n_steps"], dim=0),
+                       g2.repeat(cfg["n_configs"], 1)], dim=1)
+    return data, idx, x_all, x_all[idx].contiguous()
+
+
+def lkgp_kernel_cases(torch, gram_case, rff_case, gen, paths) -> None:
+    """The LKGP phase's standard GP: its CG matvec on the 17,742 observed
+    cells (d = 5, Matérn-5/2 at ℓ = 1, 1 + 8 columns) and its prior f_X on
+    8 samples of 1,024 features."""
+    from repro_torch.core.kernels_fn import make_params, spectral_sample
+
+    _, _, x_all, x_obs = _lkgp_inputs(torch)
+    d = x_obs.shape[1]
+    line = gram_case("matern52", x_obs, x_obs, 1 + LKGP["num_samples"], "lkgp_standard")
+    paths["lkgp_standard"]["gram_matvec"] = line
+    _path_shape(paths, "lkgp_standard", "gram_matvec", line)
+    # its predict on the whole grid: the mean (1 column) and the samples' update
+    for s in (1, LKGP["num_samples"]):
+        _path_shape(paths, "lkgp_standard", "gram_matvec",
+                    gram_case("matern52", x_all, x_obs, s, "lkgp_predict"))
+    params = make_params("matern52", lengthscale=1.0, d=d, device=x_obs.device)
+    omega = spectral_sample(params, LKGP["std_features"] // 2, d, generator=gen)
+    paths["lkgp_standard"]["rff_matvec"] = rff_case(x_obs, omega, LKGP["num_samples"],
+                                                    "lkgp_standard")
 
 
 def _bwd_line(torch, rec, rows, cols, rowv, colv, kind, label, variants) -> dict:
@@ -2172,6 +2306,417 @@ def _engine_fault_path(torch) -> dict:
                 quarantined=poisoned.stats()["quarantined"])
 
 
+def _scaled_err(a, ref) -> float:
+    """max|a − ref| over the scale max(1, max|ref|), the kernels' convention."""
+    return (a.double() - ref.double()).abs().max().item() / max(1.0, ref.abs().max().item())
+
+
+def cg_width_phase(torch) -> None:
+    """CG's stop test and reported residual at two widths: one column (the
+    protein targets' first CG_WIDTH_N rows at the main path's θ) solved at
+    width 8 and beside 63 others at width 64, with random companions and
+    with zero ones (which converge at once, so the batch's iteration count is
+    the column's own). Held: the 8 columns both widths share (the column and
+    its first 7 companions) have the same ‖b‖, relative residual, residual
+    norm and solved bits at both widths, and so the same iteration count."""
+    from repro_torch.core import CG, Gram, make_params, solve
+    from repro_torch.core.solvers.base import _col_norm
+    from repro_torch.data.pipeline import regression_dataset
+
+    data = regression_dataset("protein", seed=SEED)
+    d, dev = data["d"], torch.device("cuda")
+    x = torch.as_tensor(data["x"][:CG_WIDTH_N], device=dev)
+    y = torch.as_tensor(data["y"][:CG_WIDTH_N], device=dev)
+    params = make_params("matern32", lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1,
+                         d=d, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    others = torch.randn((x.shape[0], 63), generator=gen, device=dev)
+    op, spec = Gram(x=x, params=params), CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL)
+    out = {}
+    for name, companions in (("random", others), ("zero", torch.zeros_like(others))):
+        got = []
+        for width in (8, 64):
+            b = torch.cat([y[:, None], companions[:, :width - 1]], dim=1).contiguous()
+            res = solve(op, b, spec)
+            got.append(dict(bn=_col_norm(b)[:8], rel=res.rel_residual[:8],
+                            rn=res.residual_norm[:8], solution=res.solution[:, :8],
+                            iterations=res.iterations, converged=res.converged))
+        a, b = got
+        # the columns of the 8 shared that differ between the widths, by quantity
+        differ = {k: int((a[k] != b[k]).reshape(-1, 8).any(dim=0).sum())
+                  for k in ("bn", "rel", "rn", "solution")}
+        same = {k: v == 0 for k, v in differ.items()}
+        out[name] = dict(same=same, columns_differing=differ,
+                         iterations=[a["iterations"], b["iterations"]],
+                         rel_residual=a["rel"][0].item(),
+                         converged=[a["converged"], b["converged"]])
+        check(all(same.values()), f"CG column at widths 8 and 64 ({name} companions): {same}")
+        check(a["converged"] and b["converged"], f"CG converged at both widths ({name})")
+    check(out["zero"]["iterations"][0] == out["zero"]["iterations"][1],
+          f"the column's own iteration count at widths 8 and 64: {out['zero']['iterations']}")
+    emit("cg_width", n=int(x.shape[0]), d=d, **out)
+
+
+def sparse_phase(torch, kernels: dict) -> dict:
+    """bench_solvers' SVGP(SGPR) row at protein's full n through the entry
+    points a user calls: ``sgpr`` and ``sgpr_elbo``; ``sgpr_iterative``
+    and its mean and variance at the 1,024 test points (the variance a
+    1,024-column NormalEq solve); ``inducing_posterior`` and its mean and
+    sample paths there; the SVGP natural-gradient schedule and
+    ``svgp_mean_var``. Each held against the float64 dense SGPR on the same
+    Z (SPARSE's tolerances), and the iterative paths' launches read around
+    them: 3 Gram launches a NormalEq matvec, 1 for each right-hand side, 1
+    RFF launch for the inducing prior's f_X and 1 an evaluation of its sample
+    paths, no plain dispatch. Where an iterative check misses, the same spec
+    on the float64 plain route (backend "chunked") gives the yardstick.
+    Returns the problem (θ, x, y, Z, the test points) for the profile."""
+    from repro_torch.core import (
+        CG, inducing_posterior, make_params, sgpr, sgpr_elbo, sgpr_iterative,
+    )
+    from repro_torch.core.svgp import SVGPState, svgp_mean_var, svgp_natgrad_step
+    from repro_torch.data.pipeline import regression_dataset
+
+    cfg, dev = SPARSE, torch.device("cuda")
+    data = regression_dataset("protein", seed=SEED)
+    d = data["d"]
+    x = torch.as_tensor(data["x"], device=dev)
+    y = torch.as_tensor(data["y"], device=dev)
+    xt = torch.as_tensor(data["x_test"], device=dev)
+    y_test = torch.as_tensor(data["y_test"], device=dev)
+    n = x.shape[0]
+    z = x[::max(1, n // cfg["m"])][:cfg["m"]]
+    params = make_params("matern32", lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1,
+                         d=d, device=dev)
+    p64 = map_params_double(params)
+    x64, y64, z64, xt64 = x.double(), y.double(), z.double(), xt.double()
+
+    t0 = time.perf_counter()
+    oracle = sgpr(p64, x64, y64, z64)
+    o_mean, o_var = oracle.mean(xt64), oracle.var(xt64)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+
+    # the dense baseline, as the bench's row times it
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    post = sgpr(params, x, y, z)
+    mean, var = post.mean(xt), post.var(xt)
+    torch.cuda.synchronize()
+    sgpr_s = time.perf_counter() - t0
+    elbo = sgpr_elbo(params, x, y, z).item()
+    elbo64 = sgpr_elbo(p64, x64, y64, z64).item()
+    dense_launches, dense_mv, _ = _read_counts()
+    rmse, nll = _test_metrics(torch, mean, var, y_test)
+    sgpr_err = dict(mean=_scaled_err(mean, o_mean), var=_scaled_err(var, o_var))
+    check(all(math.isfinite(v) and v <= SGPR_TOL for v in sgpr_err.values()),
+          f"sgpr in fp32 within {SGPR_TOL} of the float64 oracle's scale: {sgpr_err}")
+    check(sum(dense_launches.values()) == 0 and sum(dense_mv.values()) == 0,
+          "the dense SGPR dispatches no Gram matvec")
+
+    def held(errs, plain_errs):
+        """Each error within SPARSE_TOL, or, where the float64 plain route
+        misses it too, within SPARSE_PLAIN_RATIO × that route's."""
+        out = {}
+        for k, e in errs.items():
+            if e <= SPARSE_TOL:
+                out[k] = "tol"
+            else:
+                p = plain_errs()[k]
+                check(p > SPARSE_TOL, f"{k}: the kernel route misses {SPARSE_TOL} ({e}) where "
+                      f"the float64 plain route meets it ({p}): a port fault")
+                check(e <= SPARSE_PLAIN_RATIO * p, f"{k}: the kernel route's gap {e} within "
+                      f"{SPARSE_PLAIN_RATIO} × the float64 plain route's {p}")
+                out[k] = "plain_ratio"
+        return out
+
+    # sgpr_iterative: the fit's NormalEq solve, then the mean and the
+    # 1,024-column variance solve at the test points
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    it = sgpr_iterative(params, x, y, z)
+    torch.cuda.synchronize()
+    it_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it_mean = it.mean(xt)
+    solved = it.var_solve(xt)
+    it_var, var_info = solved.var, solved.solve_info
+    torch.cuda.synchronize()
+    it_pred_s = time.perf_counter() - t0
+    launches, matvec_counts, feature_counts = _read_counts()
+    fit_info = it.solve_info
+    want = 3 * fit_info.matvecs + 1 + 3 * var_info.matvecs
+    check(launches["gram_matvec"] == want, f"sgpr_iterative: Gram launches "
+          f"{launches['gram_matvec']} == 3·{fit_info.matvecs} + 1 + 3·{var_info.matvecs}")
+    check(launches["rff_matvec"] == 0 and launches["gram_matvec_bwd"] == 0,
+          f"sgpr_iterative: no feature or backward launch: {launches}")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0 and matvec_counts["cuda"]
+          == want, f"sgpr_iterative: every Gram dispatch on cuda: {matvec_counts}")
+    check(feature_counts["features"] == 0, "sgpr_iterative: no materialised feature matrix")
+    check(fit_info.healthy and var_info.healthy, "sgpr_iterative's solves carry no flag")
+    _record_path(kernels, "sgpr_iterative", launches)
+    it_err = dict(mean=_scaled_err(it_mean, o_mean), var=_scaled_err(it_var, o_var))
+    plain = {}
+
+    def it_plain():
+        if "sgpr_iterative" not in plain:
+            spec = CG(max_iters=400, tol=1e-6, backend="chunked")
+            t0 = time.perf_counter()
+            ref = sgpr_iterative(p64, x64, y64, z64, spec=spec)
+            pm, pvar = ref.mean(xt64), ref.var_solve(xt64)
+            pv, pinfo = pvar.var, pvar.solve_info
+            torch.cuda.synchronize()
+            plain["sgpr_iterative"] = dict(
+                mean=_scaled_err(pm, o_mean), var=_scaled_err(pv, o_var),
+                fit_iterations=ref.solve_info.iterations, var_iterations=pinfo.iterations,
+                seconds=time.perf_counter() - t0)
+        return plain["sgpr_iterative"]
+
+    it_held = held(it_err, it_plain)
+
+    # the inducing-point pathwise posterior on the same Z
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    ind = inducing_posterior(params, x, y, z, generator=gen, num_samples=cfg["num_samples"],
+                             num_features=cfg["num_features"])
+    torch.cuda.synchronize()
+    ind_fit_s = time.perf_counter() - t0
+    fit_launches, _, _ = _read_counts()
+    t0 = time.perf_counter()
+    ind_mean = ind.mean(xt)
+    paths = ind(xt)
+    torch.cuda.synchronize()
+    ind_pred_s = time.perf_counter() - t0
+    launches, matvec_counts, feature_counts = _read_counts()
+    info = ind.solve_info
+    check(fit_launches["gram_matvec"] == 1 + 3 * info.matvecs and fit_launches["rff_matvec"] == 1,
+          f"inducing_posterior: Gram = 1 + 3·{info.matvecs}, RFF = 1: {fit_launches}")
+    check(launches["gram_matvec"] == fit_launches["gram_matvec"]
+          and launches["rff_matvec"] == 2, f"the sample paths: 1 RFF launch: {launches}")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0
+          and feature_counts["features"] == 0 and feature_counts["cuda"] == 2,
+          f"inducing: no plain dispatch: {matvec_counts}, {feature_counts}")
+    check(info.healthy, "inducing_posterior's solve carries no flag")
+    check(paths.shape == (xt.shape[0], cfg["num_samples"]) and bool(torch.isfinite(paths).all()),
+          "finite sample paths of the expected shape")
+    _record_path(kernels, "inducing", launches)
+    ind_err = dict(mean=_scaled_err(ind_mean, o_mean))
+
+    def ind_plain():
+        if "inducing" not in plain:
+            t0 = time.perf_counter()
+            ref = inducing_posterior(p64, x64, y64, z64,
+                                     generator=torch.Generator(device=dev).manual_seed(SEED),
+                                     num_samples=cfg["num_samples"],
+                                     num_features=cfg["num_features"],
+                                     spec=CG(max_iters=200, tol=1e-5, backend="chunked"))
+            pm = ref.mean(xt64)
+            torch.cuda.synchronize()
+            plain["inducing"] = dict(mean=_scaled_err(pm, o_mean),
+                                     iterations=ref.solve_info.iterations,
+                                     seconds=time.perf_counter() - t0)
+        return plain["inducing"]
+
+    ind_held = held(ind_err, ind_plain)
+
+    # SVGP: natural-gradient steps from the prior, full batch then minibatches
+    m = z.shape[0]
+    state = SVGPState(theta1=torch.zeros(m, device=dev), theta2=-0.5 * torch.eye(m, device=dev))
+    t0 = time.perf_counter()
+    for _ in range(cfg["full_steps"]):
+        state = svgp_natgrad_step(params, x, y, z, state, n_total=n, lr=cfg["full_lr"])
+    for _ in range(cfg["batch_steps"]):
+        idx = torch.randint(0, n, (cfg["batch"],), generator=gen, device=dev)
+        state = svgp_natgrad_step(params, x[idx], y[idx], z, state, n_total=n,
+                                  lr=cfg["batch_lr"])
+    sv_mean, sv_var = svgp_mean_var(params, z, state, xt)
+    torch.cuda.synchronize()
+    svgp_s = time.perf_counter() - t0
+    svgp_err = (sv_mean.double() - o_mean).abs().max().item()
+    check(math.isfinite(svgp_err) and svgp_err <= SVGP_TOL,
+          f"the SVGP mean within {SVGP_TOL} of the oracle's: {svgp_err}")
+    o_rmse, o_nll = _test_metrics(torch, o_mean.float(), o_var.float(), y_test)
+    emit("sparse", n=n, d=d, m=m, n_test=int(xt.shape[0]),
+         oracle=dict(seconds=oracle_s, rmse=o_rmse, nll=o_nll, elbo=elbo64),
+         sgpr=dict(wall_s=sgpr_s, rmse=rmse, nll=nll, elbo=elbo, err=sgpr_err, tol=SGPR_TOL),
+         sgpr_iterative=dict(
+             fit_s=it_fit_s, predict_s=it_pred_s, wall_s=it_fit_s + it_pred_s,
+             fit_iterations=fit_info.iterations, fit_matvecs=fit_info.matvecs,
+             fit_rel_residual=fit_info.rel_residual.max().item(),
+             var_columns=int(xt.shape[0]), var_iterations=var_info.iterations,
+             var_matvecs=var_info.matvecs, var_rel_residual=var_info.rel_residual.max().item(),
+             ridge=float(it.op.ridge), err=it_err, held=it_held, tol=SPARSE_TOL,
+             rmse_nll=_test_metrics(torch, it_mean, it_var, y_test)),
+         inducing=dict(
+             fit_s=ind_fit_s, predict_s=ind_pred_s, iterations=info.iterations,
+             matvecs=info.matvecs, rel_residual=info.rel_residual.max().item(),
+             columns=1 + cfg["num_samples"], err=ind_err, held=ind_held, tol=SPARSE_TOL,
+             paths_var_vs_oracle=_scaled_err(torch.var(paths, dim=1, correction=0), o_var)),
+         svgp=dict(wall_s=svgp_s, steps=cfg["full_steps"] + cfg["batch_steps"],
+                   max_abs_err=svgp_err, tol=SVGP_TOL,
+                   rmse_nll=_test_metrics(torch, sv_mean, sv_var, y_test)),
+         plain_route=plain, launches=launches)
+    return dict(params=params, x=x, y=y, z=z, xt=xt)
+
+
+def lkgp_phase(torch, kernels: dict) -> dict:
+    """bench_kronecker's LKGP-vs-standard row at its full size: the latent
+    Kronecker posterior over the 512 × 50 learning-curve grid from its
+    17,742 observed cells (``make_lkgp`` → ``lkgp_posterior``; two dense
+    products an iteration, no kernel) at the bench's 200 iterations, timed;
+    the bench's standard iterative GP on the same observations through the
+    Gram and RFF kernels (``posterior_functions``, then its mean and samples
+    on the whole grid), held to the main path's launch identities (Gram =
+    iterations + 2, RFF = 2, no plain dispatch); and ``fit_curve_gp`` on the
+    same grid, its error on the observed cells under CURVE_TOL. The LKGP
+    mean is held within LKGP_TOL of the float64 dense posterior mean (built
+    from K_obs) where CG reaches the reference's tol 1e-4, at LKGP_CHECK_ITERS
+    iterations at most; 200 leave it far from converged at this size, in
+    float64 as in fp32 (both gaps and residuals are printed), so the timed
+    run's gap is held within LKGP_BUDGET_RATIO of the reference's own fp32
+    gap at that budget, LKGP_REF_GAP. Returns the model and its centred
+    observations for the profile."""
+    from repro_torch.core import CG, make_params, posterior_functions
+    from repro_torch.core.kernels_fn import gram
+    from repro_torch.core.kronecker import (
+        break_even_density, lkgp_matvec_flops, lkgp_posterior, make_lkgp,
+    )
+    from repro_torch.train.curve_gp import fit_curve_gp
+
+    cfg, dev = LKGP, torch.device("cuda")
+    data, idx, x_all, x_obs = _lkgp_inputs(torch)
+    n1, n2 = cfg["n_configs"], cfg["n_steps"]
+    n_obs = int(idx.shape[0])
+    p1 = make_params("matern52", lengthscale=1.0, signal=1.0, d=data["grid1"].shape[1],
+                     device=dev)
+    p2 = make_params("matern52", lengthscale=1.0, signal=1.0, d=1, device=dev)
+    gp = make_lkgp(p1, p2, data["grid1"], data["grid2"], data["mask"], cfg["noise"])
+    check(gp.grid1.device.type == "cuda", f"make_lkgp defaults to the card: {gp.grid1.device}")
+    y_obs = torch.as_tensor(data["curves"], device=dev).reshape(-1)[idx]
+    y_c = y_obs - y_obs.mean()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    lk = lkgp_posterior(gp, y_c, generator=gen, num_samples=cfg["num_samples"],
+                        max_iters=cfg["max_iters"])
+    (mean, samples), info = lk, lk.solve_info
+    torch.cuda.synchronize()
+    lk_s = time.perf_counter() - t0
+    lk_launches, lk_mv, lk_fc = _read_counts()
+    check(sum(lk_launches.values()) == 0 and sum(lk_mv.values()) == sum(lk_fc.values()) == 0,
+          "the LKGP's matvecs are its two dense products: no kernel, no Gram dispatch")
+    check(info.healthy and mean.shape == (n1, n2)
+          and samples.shape == (n1, n2, cfg["num_samples"])
+          and bool(torch.isfinite(samples).all()), "a healthy LKGP solve, finite outputs")
+
+    # the float64 dense posterior mean: K_obs = K₁[i₁, i₁] ⊙ K₂[i₂, i₂] + σ²I
+    t0 = time.perf_counter()
+    p64 = (map_params_double(p1), map_params_double(p2))
+    k1, k2 = gram(p64[0], gp.grid1.double()), gram(p64[1], gp.grid2.double())
+    i1, i2 = idx // n2, idx % n2
+    k_obs = k1[i1][:, i1] * k2[i2][:, i2]
+    k_obs.diagonal().add_(cfg["noise"])
+    w = torch.cholesky_solve(y_c.double()[:, None], torch.linalg.cholesky(k_obs))[:, 0]
+    del k_obs
+    rows = 64  # grid rows a block of K(grid, obs): 64 · 50 × n_obs float64
+    mean_ref = torch.cat([((k1[a:a + rows, i1][:, None, :] * k2[:, i2][None]) @ w)
+                          for a in range(0, n1, rows)])
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    def gap(m):
+        return (m.double() - mean_ref).abs().max().item()
+
+    # the bench's budget in float64 (the same model and spec), and CG to the
+    # reference's tol, for the check
+    gp64 = make_lkgp(*p64, gp.grid1.double(), gp.grid2.double(), data["mask"], cfg["noise"])
+    lk64 = lkgp_posterior(gp64, y_c.double(), generator=gen, num_samples=1,
+                          max_iters=cfg["max_iters"])
+    t0 = time.perf_counter()
+    lk_conv = lkgp_posterior(gp, y_c, generator=gen, num_samples=cfg["num_samples"],
+                             spec=CG(max_iters=LKGP_CHECK_ITERS, tol=1e-4))
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    conv = lk_conv.solve_info
+    lk_err, lk64_err, conv_err = gap(mean), gap(lk64[0]), gap(lk_conv[0])
+    check(lk_err <= LKGP_BUDGET_RATIO * LKGP_REF_GAP, f"the LKGP mean at the bench's "
+          f"{cfg['max_iters']} iterations: its gap {lk_err} within {LKGP_BUDGET_RATIO} × "
+          f"the reference's fp32 gap {LKGP_REF_GAP} (float64's here {lk64_err})")
+    check(conv.converged and conv_err <= LKGP_TOL, f"the LKGP mean at tol 1e-4 "
+          f"({conv.iterations} iterations, converged {conv.converged}) within {LKGP_TOL} of "
+          f"the float64 dense posterior mean: {conv_err}")
+
+    # the bench's standard iterative GP on the same observations
+    p_flat = make_params("matern52", lengthscale=1.0, signal=1.0, noise=cfg["std_noise"],
+                         d=x_obs.shape[1], device=dev)
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    pf = posterior_functions(p_flat, x_obs, y_c, generator=gen, num_samples=cfg["num_samples"],
+                             num_features=cfg["std_features"],
+                             spec=CG(max_iters=cfg["max_iters"]))
+    torch.cuda.synchronize()
+    std_s = time.perf_counter() - t0
+    fit_launches, _, _ = _read_counts()
+    t0 = time.perf_counter()
+    std_mean, std_var = pf.sample_mean_and_var(x_all)
+    torch.cuda.synchronize()
+    std_pred_s = time.perf_counter() - t0
+    launches, matvec_counts, feature_counts = _read_counts()
+    sinfo = pf.solve_info
+    check(fit_launches["gram_matvec"] == sinfo.iterations and fit_launches["rff_matvec"] == 1,
+          f"the standard GP's fit: Gram = {sinfo.iterations} iterations, RFF = 1: "
+          f"{fit_launches}")
+    check(launches["gram_matvec"] == sinfo.iterations + 2 and launches["rff_matvec"] == 2,
+          f"the standard GP: Gram = iterations + 2, RFF = 2: {launches}")
+    check(matvec_counts["chunked"] == matvec_counts["dense"] == 0
+          and feature_counts["features"] == 0, "the standard GP: no plain dispatch")
+    check(sinfo.healthy and bool(torch.isfinite(std_mean).all() and torch.isfinite(std_var).all()),
+          "the standard GP: a healthy solve, finite outputs")
+    _record_path(kernels, "lkgp_standard", launches)
+
+    # learning-curve prediction through the trainer-side entry point
+    t0 = time.perf_counter()
+    pred = fit_curve_gp(data["curves"], data["mask"], data["grid1"])
+    torch.cuda.synchronize()
+    curve_s = time.perf_counter() - t0
+    check(pred.mean.device.type == "cuda", f"fit_curve_gp runs on the card: {pred.mean.device}")
+    mask = torch.as_tensor(data["mask"], device=dev)
+    curve_err = (pred.mean - torch.as_tensor(data["curves"], device=dev))[mask].abs().mean().item()
+    check(curve_err < CURVE_TOL, f"fit_curve_gp's mean error on the observed cells "
+          f"{curve_err} < {CURVE_TOL}")
+    lk_flops, direct_flops = lkgp_matvec_flops(n1, n2, n_obs / (n1 * n2))
+    emit("lkgp", grid=[n1, n2], n_obs=n_obs, density=n_obs / (n1 * n2),
+         rho_star=break_even_density(n1, n2), matvec_flops=dict(lkgp=lk_flops,
+                                                                direct=direct_flops),
+         lkgp=dict(wall_s=lk_s, iterations=info.iterations, matvecs=info.matvecs,
+                   rel_residual=info.rel_residual.max().item(),
+                   rel_residual_mean=info.rel_residual[0].item(), converged=info.converged,
+                   max_abs_err=lk_err, ref_fp32_gap=LKGP_REF_GAP, ratio=LKGP_BUDGET_RATIO,
+                   oracle_s=oracle_s),
+         lkgp_float64=dict(iterations=lk64.solve_info.iterations,
+                           rel_residual=lk64.solve_info.rel_residual.max().item(),
+                           rel_residual_mean=lk64.solve_info.rel_residual[0].item(),
+                           max_abs_err=lk64_err),
+         lkgp_converged=dict(wall_s=conv_s, iterations=conv.iterations,
+                             rel_residual=conv.rel_residual.max().item(),
+                             max_abs_err=conv_err, tol=LKGP_TOL),
+         standard=dict(wall_s=std_s, predict_s=std_pred_s, iterations=sinfo.iterations,
+                       matvecs=sinfo.matvecs, rel_residual=sinfo.rel_residual.max().item(),
+                       converged=sinfo.converged, launches=launches),
+         lkgp_speedup=std_s / lk_s,
+         curve_gp=dict(wall_s=curve_s, observed_mean_abs_err=curve_err, tol=CURVE_TOL))
+    return dict(gp=gp, y=y_c)
+
+
+def map_params_double(params):
+    """θ in float64, for the oracles."""
+    from repro_torch.core import map_params
+
+    return map_params(lambda a: a.double(), params)
+
+
 def _greedy_plain(torch, cfg, model, tokens, gen_n):
     """Greedy decoding with prefill on the plain attention route: the tokens
     (b, gen_n), the last-position prefill logits and each step's top-2 margin
@@ -2330,18 +2875,23 @@ def _device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
-def profile_phase(torch, engine) -> None:
+def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
     """The serving and training paths, each stochastic solver's
     fit → predict at PROFILE_STOCH_STEPS steps, one Thompson acquisition
-    step, the serving path on Nyström CG, and one cold solve batch of the
+    step, the serving path on Nyström CG, one cold solve batch of the
     serving engine (a full batch's worth of sample requests on fresh seeds),
-    once more under ``torch.profiler``: device time by kernel and the
-    card's idle share of the wall time. Run after the counted passes so
+    and the sparse and LKGP phases' iterative paths (``sgpr_iterative`` with
+    its variance solve, ``inducing_posterior`` with its evaluations,
+    ``lkgp_posterior``, on the problems those phases built), once more under
+    ``torch.profiler``: device time by kernel and the card's idle share of the
+    wall time. Run after the counted passes so
     that the profiler's overhead touches no other number."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import CG, SDD, IterativeGP, ThompsonState, make_params, sample_prior
-    from repro_torch.core import thompson_step
+    from repro_torch.core import (
+        CG, SDD, IterativeGP, ThompsonState, inducing_posterior, lkgp_posterior, make_params,
+        sample_prior, sgpr_iterative, thompson_step,
+    )
     from repro_torch.data.pipeline import regression_dataset
 
     data = regression_dataset("protein", seed=SEED)
@@ -2396,6 +2946,25 @@ def profile_phase(torch, engine) -> None:
         return run
 
     xq = torch.as_tensor(data["x_test"][:ENGINE["num_rows"]], device=dev)
+    sparams, sx, sy, sz, sxt = (sparse[k] for k in ("params", "x", "y", "z", "xt"))
+
+    def sgpr_it():
+        post = sgpr_iterative(sparams, sx, sy, sz)
+        post.mean(sxt)
+        return post.solve_info.iterations + post.var_solve(sxt).solve_info.iterations
+
+    def inducing():
+        post = inducing_posterior(sparams, sx, sy, sz, generator=gen,
+                                  num_samples=SPARSE["num_samples"],
+                                  num_features=SPARSE["num_features"])
+        post.mean(sxt)
+        post(sxt)
+        return post.solve_info.iterations
+
+    def lkgp_run():
+        return lkgp_posterior(lkgp["gp"], lkgp["y"], generator=gen,
+                              num_samples=LKGP["num_samples"],
+                              max_iters=LKGP["max_iters"]).solve_info.iterations
 
     def engine_batch():
         cols = ENGINE["max_rhs_columns"] // ENGINE["req_samples"]
@@ -2408,7 +2977,8 @@ def profile_phase(torch, engine) -> None:
                       *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS),
                       ("thompson", thompson),
                       ("precond_nystrom", precond(_precond_specs()["nystrom"])),
-                      ("engine_solve_batch", engine_batch)):
+                      ("engine_solve_batch", engine_batch), ("sgpr_iterative", sgpr_it),
+                      ("inducing", inducing), ("lkgp", lkgp_run)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

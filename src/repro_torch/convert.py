@@ -1,5 +1,6 @@
 """Carry the JAX package's state across, as numpy arrays, into the port's objects
-(GP hyperparameters, features, posteriors, serving states and draws; LM params).
+(GP hyperparameters, features, posteriors, serving states, SVGP and LKGP
+states and draws; LM params).
 
 The parity tests pull these arrays out of ``repro`` objects; the port itself
 never sees JAX. Every function takes the target ``device`` (the card unless
@@ -11,11 +12,13 @@ import numpy as np
 import torch
 
 from .core.kernels_fn import KernelParams
+from .core.kronecker import LatentKroneckerGP
 from .core.pathwise import PosteriorFunctions
 from .core.precond import PrecondDraws
 from .core.rff import FourierFeatures, PriorSamples
 from .core.solvers import RowDraws, SGDDraws, SolveResult
 from .core.solvers.spec import as_spec, spec_from_dict
+from .core.svgp import SVGPState
 from .core.thompson import ThompsonDraws, ThompsonState
 from .device import DeviceLike, resolve_device
 from .models.model import Transformer
@@ -45,11 +48,11 @@ def params_to_numpy(params: KernelParams) -> tuple:
             params.kind)
 
 
-def features_from_numpy(omega, phase, signal, *,
+def features_from_numpy(omega, phase, signal, *, paired: bool = True,
                         device: DeviceLike = None) -> FourierFeatures:
     dev = resolve_device(device)
     return FourierFeatures(omega=_t(omega, dev), phase=_t(phase, dev),
-                           signal=_t(signal, dev))
+                           signal=_t(signal, dev), paired=paired)
 
 
 def prior_from_numpy(omega, w, signal, *, device: DeviceLike = None) -> PriorSamples:
@@ -145,6 +148,41 @@ def precond_draws_from_numpy(idx=None, normals=None, gammas=None, *,
                                                      device=dev),
         normals=None if normals is None else _t(normals, dev),
         gammas=None if gammas is None else _t(gammas, dev))
+
+
+def svgp_state_from_numpy(theta1, theta2, *, device: DeviceLike = None) -> SVGPState:
+    """An SVGP state from its natural parameters ``theta1`` (m,) and
+    ``theta2`` (m, m)."""
+    dev = resolve_device(device)
+    return SVGPState(theta1=_t(theta1, dev), theta2=_t(theta2, dev))
+
+
+def lkgp_from_numpy(params1: KernelParams, params2: KernelParams, grid1, grid2, obs_idx,
+                    noise, *, device: DeviceLike = None) -> LatentKroneckerGP:
+    """A latent Kronecker GP from its factor hyperparameters, grids ``grid1``
+    (n1, d1) and ``grid2`` (n2, d2), flat observed indices ``obs_idx``
+    (n_obs,) and noise variance ``noise``."""
+    dev = resolve_device(device)
+    return LatentKroneckerGP(
+        params1=params1, params2=params2, grid1=_t(grid1, dev), grid2=_t(grid2, dev),
+        obs_idx=torch.as_tensor(np.asarray(obs_idx, dtype=np.int64), device=dev),
+        noise=_t(noise, dev))
+
+
+def inducing_draws_from_numpy(omega, w, eps, *, device: DeviceLike = None) -> dict:
+    """``inducing_posterior``'s draws as its keyword arguments: the prior's
+    ``omega`` (num_features/2, d) and ``w`` (num_features, num_samples), and
+    the noise ``eps`` (n, num_samples)."""
+    dev = resolve_device(device)
+    return dict(omega=_t(omega, dev), w=_t(w, dev), eps=_t(eps, dev))
+
+
+def lkgp_draws_from_numpy(w, eps, *, device: DeviceLike = None) -> dict:
+    """``lkgp_posterior``'s (and ``fit_curve_gp``'s) draws as keyword
+    arguments: the grid normals ``w`` (n1, n2, s) and the noise ``eps``
+    (n_obs, s)."""
+    dev = resolve_device(device)
+    return dict(w=_t(w, dev), eps=_t(eps, dev))
 
 
 def thompson_draws_from_numpy(omega, w, eps, uniform, pick, perturb, obs, *,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -33,6 +34,19 @@ class ExactPosterior:
 
     def var(self, xs: torch.Tensor) -> torch.Tensor:
         return torch.diagonal(self.cov(xs))
+
+    def sample(self, xs: torch.Tensor, num_samples: int, *,
+               generator: Optional[torch.Generator] = None,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Conventional sampling via Cholesky of the posterior covariance
+        (Eq. 2.9) → (n*, num_samples). The standard normals ``w`` (n*,
+        num_samples) are injected or drawn from ``generator``."""
+        eye = torch.eye(xs.shape[0], dtype=xs.dtype, device=xs.device)
+        chol = torch.linalg.cholesky(self.cov(xs) + 1e-6 * eye)
+        if w is None:
+            w = torch.randn((xs.shape[0], num_samples), generator=generator,
+                            dtype=xs.dtype, device=xs.device)
+        return self.mean(xs)[:, None] + chol @ w
 
 
 def _cholesky(params: KernelParams, x: torch.Tensor, row_chunk: int) -> torch.Tensor:

@@ -179,3 +179,12 @@ def spectral_sample(
             gammas = _gamma_half_integer(nu, m, generator, dev)
         w = normals / torch.sqrt(gammas.reshape(m, 1) / nu)
     return w / params.lengthscale
+
+
+# ---------------------------------------------------------------------------
+# Product kernels over Cartesian grids (Ch. 6 latent Kronecker structure).
+
+
+def kronecker_grams(params_list: list, grids: list) -> list:
+    """Per-factor Gram matrices K_j = k_j(X_j, X_j) of a product kernel (Eq. 2.68)."""
+    return [gram(p, g) for p, g in zip(params_list, grids)]

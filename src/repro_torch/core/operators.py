@@ -10,8 +10,12 @@ consumer that needs one the operator lacks. :class:`Gram` offers the row-block
 capabilities the stochastic solvers consume (``rows_mv``, ``rows_t_mv``,
 ``rows_pair_mv``, ``block_at``) and the ``precond_factor`` that the
 preconditioner specs build from (core/precond.py). :class:`RFFGram` is the
-random-feature surrogate ΦΦᵀ + σ²I, touched through two feature matvecs. The
-other operators are not ported yet (ROADMAP queue 1 item 11).
+random-feature surrogate ΦΦᵀ + σ²I, touched through two feature matvecs.
+:class:`NormalEq` is the m×m inducing-point normal-equations operator
+K_ZX K_XZ + σ²K_ZZ (three cross Gram matvecs), and :class:`LatentKroneckerOp`
+the latent Kronecker operator P(K₁ ⊗ K₂)Pᵀ + σ²I of Ch. 6; both are
+matvec-only. The sharded operators are not ported yet (ROADMAP queue 1 item
+13).
 
 Pathwise conditioning writes every posterior sample as f(·) + K(·, X) w with the
 prior f a feature expansion Φ(·) w; :class:`FeatureOperator` is its protocol,
@@ -262,9 +266,12 @@ class RFFGram(LinearOperator):
         return self.ff.phi_mv(self.x, t, backend=bk, precision=pr) + self.sigma2 * v
 
     def diag_part(self) -> torch.Tensor:
-        """diag(ΦΦᵀ) + σ². Paired sin/cos features (the port's only map)
-        satisfy Σ_j Φ_ij² = σ_f² exactly."""
-        return torch.broadcast_to(self.ff.signal, (self.n,)) + self.sigma2
+        """diag(ΦΦᵀ) + σ². Paired sin/cos features satisfy Σ_j Φ_ij² = σ_f²
+        exactly (sin² + cos² = 1 per frequency); the cos-only map needs the
+        materialised rows."""
+        if getattr(self.ff, "paired", True):
+            return torch.broadcast_to(self.ff.signal, (self.n,)) + self.sigma2
+        return torch.sum(self.ff.features(self.x) ** 2, dim=1) + self.sigma2
 
     def precond_factor(self, rank: int, *, generator: Optional[torch.Generator] = None,
                        draws=None, method: str = "rff") -> torch.Tensor:
@@ -288,3 +295,108 @@ class RFFGram(LinearOperator):
         phi = self.ff.features(self.x)
         eye = torch.eye(self.n, dtype=self.x.dtype, device=self.x.device)
         return phi @ phi.T + self.sigma2 * eye
+
+
+# ---------------------------------------------------------------------------
+# NormalEq — inducing-point normal equations (§3.2.3), matvec-only
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalEq(LinearOperator):
+    """The m×m operator K_ZX K_XZ + σ² K_ZZ (+ ridge·I), touched only through
+    matvecs.
+
+    Matvec-only (no kernel-row capabilities, no ``precond_factor``), so only
+    CG-family specs without a factor preconditioner drive it through
+    ``solve()``: SGD, SDD, AP and ``Nystrom`` are refused with a capability
+    error. Used by ``inducing_posterior`` (Eqs. 3.23/3.24) and the iterative
+    SGPR path (``svgp.sgpr_iterative``): K_ZX K_XZ + σ²K_ZZ = σ²·B with B the
+    Titsias matrix K_ZZ + σ⁻²K_ZX K_XZ.
+
+    ``backend`` selects the Gram matvec path of its three products (K_XZ·u,
+    K_ZX·(K_XZ·u), K_ZZ·u) as :class:`Gram`'s does: ``"auto"`` is the CUDA
+    kernel on the cross shapes n × m and m × n on the card and the chunked
+    matvec on the CPU. A spec's ``backend`` pins it per solve, as it pins
+    ``Gram``'s. ``ridge`` adds ridge·I — the iterative SGPR path's copy of the
+    dense path's fp32-stabilising ridge.
+    """
+
+    x: torch.Tensor  # (n, d) training inputs
+    z: torch.Tensor  # (m, d) inducing inputs
+    params: KernelParams
+    ridge: object = 0.0  # additive ridge·I: a float or a 0-d tensor (0 = the pure operator)
+    row_chunk: int = 4096
+    backend: str = "auto"
+    precision: str = "fp32"
+
+    @property
+    def shape(self) -> tuple:
+        return (self.z.shape[0], self.z.shape[0])
+
+    @property
+    def noise(self) -> torch.Tensor:
+        return self.params.noise
+
+    def _mv(self, rows: torch.Tensor, v: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        return gram_mv(self.params, rows, v, z=cols, backend=self.backend,
+                       row_chunk=self.row_chunk, precision=self.precision)
+
+    def mv(self, u: torch.Tensor) -> torch.Tensor:
+        """(K_ZX K_XZ + σ² K_ZZ + ridge·I) @ u without materialising K_XZ (n×m):
+        three Gram matvecs."""
+        kxz_u = self._mv(self.x, u, self.z)
+        kzx_kxz_u = self._mv(self.z, kxz_u, self.x)
+        kzz_u = self._mv(self.z, u, self.z)
+        return kzx_kxz_u + self.params.noise * kzz_u + self.ridge * u
+
+    def diag_part(self) -> torch.Tensor:
+        """diag(K_ZX K_XZ) + σ²·diag(K_ZZ) + ridge: Σᵢ k(xᵢ, z_j)² in row
+        chunks of X, never the whole n×m block."""
+        sq = sum(torch.sum(gram(self.params, self.x[i:i + self.row_chunk], self.z) ** 2, dim=0)
+                 for i in range(0, self.x.shape[0], self.row_chunk))
+        return sq + self.params.noise * gram_diag(self.params, self.z) + self.ridge
+
+
+# ---------------------------------------------------------------------------
+# LatentKroneckerOp — Ch. 6 structured operator
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentKroneckerOp(LinearOperator):
+    """(P_M (K₁ ⊗ K₂) P_Mᵀ + σ²I) as a LinearOperator (§6.2.2–6.2.3).
+
+    Wraps a :class:`~repro_torch.core.kronecker.LatentKroneckerGP`: the matvec
+    costs O(n₁n₂(n₁+n₂)) through the latent Kronecker identity (two dense
+    products over the factors) instead of O(n_obs²). Matvec-only: SGD, SDD,
+    AP and factor preconditioners are refused with a capability error;
+    ``Jacobi`` builds from ``diag_part``. ``instrument=True`` counts executed
+    matvecs in ``matvec_counts()``.
+    """
+
+    gp: "LatentKroneckerGP"  # noqa: F821 (core/kronecker.py)
+    instrument: bool = False
+
+    @property
+    def shape(self) -> tuple:
+        n_obs = self.gp.obs_idx.shape[0]
+        return (n_obs, n_obs)
+
+    @property
+    def noise(self) -> torch.Tensor:
+        return self.gp.noise
+
+    def mv(self, v: torch.Tensor) -> torch.Tensor:
+        """(K_obs + σ²I) @ v via the latent Kronecker matvec (§6.2.3)."""
+        out = self.gp.mv(v)
+        if self.instrument:
+            _RUNTIME_COUNTS["mv"] += 1
+        return out
+
+    def diag_part(self) -> torch.Tensor:
+        """diag(K_obs) + σ² = d₁[i₁]·d₂[i₂] at each observed grid index + σ²."""
+        n2 = self.gp.shape[1]
+        d1 = gram_diag(self.gp.params1, self.gp.grid1)
+        d2 = gram_diag(self.gp.params2, self.gp.grid2)
+        return d1[self.gp.obs_idx // n2] * d2[self.gp.obs_idx % n2] + self.gp.noise

@@ -95,6 +95,17 @@ def as_matrix_rhs(b: torch.Tensor) -> tuple:
     return b, False
 
 
+def _col_norm(a: torch.Tensor) -> torch.Tensor:
+    """‖a‖₂ per column (s,). On the card the sum of squares runs in float64
+    and is rounded once, so a column's norm is the same at every width s (the
+    float32 ``linalg.norm`` over dim 0 rounds some columns by the width). On
+    the CPU the float32 norm stays: the plain matvecs there round by the
+    width anyway."""
+    if a.is_cuda:
+        return torch.linalg.vector_norm(a, dim=0, dtype=torch.float64).to(a.dtype)
+    return torch.linalg.norm(a, dim=0)
+
+
 def finalize(
     op: LinearOperator,
     v: torch.Tensor,
@@ -120,8 +131,8 @@ def finalize(
     if residual is None:
         residual = b - op.mv(v)
         matvecs = matvecs + 1
-    rn = torch.linalg.norm(residual, dim=0)
-    bn = torch.clamp(torch.linalg.norm(b, dim=0), min=1e-30)
+    rn = _col_norm(residual)
+    bn = torch.clamp(_col_norm(b), min=1e-30)
     rel = rn / bn
     col_ok = torch.all(torch.isfinite(v), dim=0) & torch.isfinite(rn)
     f = (

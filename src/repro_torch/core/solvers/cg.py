@@ -15,8 +15,9 @@ and the recursion's residual is handed to ``finalize``, so a solve spends
 ``iterations`` matvecs, or ``iterations + 1`` on a warm start.
 
 On the card the column dots and norms accumulate in float64
-(:func:`_col_dot`), so a column's trajectory does not depend on how many
-columns share the solve.
+(:func:`_col_dot`, ``base._col_norm``), ‖b‖ and ``finalize``'s residuals
+among them, so a column's trajectory, its stop and its reported residual do
+not depend on how many columns share the solve.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from .base import (
     FROZEN_FLAGS,
     LinearOperator,
     SolveResult,
+    _col_norm,
     as_matrix_rhs,
     finalize,
 )
@@ -59,14 +61,6 @@ def _col_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=0)
 
 
-def _col_norm(a: torch.Tensor) -> torch.Tensor:
-    """‖a‖₂ per column (s,), the same at every width on the card (as
-    :func:`_col_dot`)."""
-    if a.is_cuda:
-        return torch.linalg.vector_norm(a, dim=0, dtype=torch.float64).to(a.dtype)
-    return torch.linalg.norm(a, dim=0)
-
-
 def solve_cg(
     op: LinearOperator,
     b: torch.Tensor,
@@ -92,7 +86,7 @@ def solve_cg(
         r = b2 - op.mv(v)
         init_mv = 1
     z = r if precond is None else precond(r)
-    bn = torch.clamp(torch.linalg.norm(b2, dim=0), min=1e-30)
+    bn = torch.clamp(_col_norm(b2), min=1e-30)
     rn = _col_norm(r)
     rz = _col_dot(r, z)
     # a non-finite initial residual is flagged before the first iteration:

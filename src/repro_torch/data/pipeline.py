@@ -1,8 +1,8 @@
 """Deterministic synthetic data — twin of ``repro/data/pipeline.py``'s LM token
-batches and regression datasets.
+batches, regression datasets and learning-curve grids.
 
-``regression_dataset``: the reference is pure numpy up to its final
-``jnp.asarray``, so this returns the bit-identical float32 arrays, as numpy
+``regression_dataset`` and ``grid_curves``: the reference is pure numpy up to
+its final ``jnp.asarray``, so these return the bit-identical arrays, as numpy
 arrays; callers move them to a device. ``token_batch``: the same planted bigram
 chain, drawn from a ``torch.Generator`` (so not the reference's tokens: the
 parity tests hand both packages the same tokens instead).
@@ -81,3 +81,25 @@ def regression_dataset(name_or_n, d: Optional[int] = None, seed: int = 0,
         "x_test": xt, "y_test": (yt - mu) / sd,
         "n": n, "d": d,
     }
+
+
+def grid_curves(n_configs: int = 64, n_steps: int = 50, density: float = 0.7,
+                seed: int = 0) -> dict:
+    """Learning-curve grid (configs × steps) with missing values (Ch. 6 §6.3.2):
+    loss_ij = a_i · (t_j+1)^(−b_i) + c_i + noise; curves observed as prefixes
+    of random length. Returns numpy arrays: "curves" (n_configs, n_steps)
+    float32, "mask" bool (True = observed), "grid1" (n_configs, 4) config
+    features and "grid2" (n_steps, 1) log-steps."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 2.0, n_configs)
+    bexp = rng.uniform(0.3, 0.8, n_configs)
+    c = rng.uniform(0.1, 0.5, n_configs)
+    t = np.arange(1, n_steps + 1, dtype=np.float32)
+    curves = a[:, None] * t[None, :] ** (-bexp[:, None]) + c[:, None]
+    curves += 0.01 * rng.normal(size=curves.shape)
+    # prefix observation mask: config i observed up to a random cut
+    cuts = rng.integers(int(density * n_steps * 0.5), n_steps + 1, n_configs)
+    mask = t[None, :] <= cuts[:, None]
+    x1 = rng.normal(size=(n_configs, 4)).astype(np.float32)  # config features
+    x2 = np.log(t)[:, None].astype(np.float32)  # step feature
+    return {"curves": curves.astype(np.float32), "mask": mask, "grid1": x1, "grid2": x2}

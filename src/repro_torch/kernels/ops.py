@@ -223,10 +223,12 @@ def gram_rows_pair(
     return err, panel.T @ err
 
 
-def resolve_feature_backend(backend: str, device: torch.device) -> str:
+def resolve_feature_backend(backend: str, device: torch.device, paired: bool = True) -> str:
     """Normalise a feature-matvec backend request. The Gram names
     ``chunked``/``dense`` coerce to ``features``, so a spec's single
-    ``backend`` field pins both sides of a solve."""
+    ``backend`` field pins both sides of a solve. The fused kernel implements
+    the paired sin/cos map only: ``auto`` gives ``features`` for the cos-only
+    map, and an explicit ``cuda`` raises."""
     _no_pallas(backend)
     if backend in ("chunked", "dense"):
         backend = "features"
@@ -236,7 +238,12 @@ def resolve_feature_backend(backend: str, device: torch.device) -> str:
             f"{FEATURE_BACKENDS} (or a Gram backend name, coerced to 'features')"
         )
     if backend == "auto":
-        return "cuda" if device.type == "cuda" else "features"
+        return "cuda" if (device.type == "cuda" and paired) else "features"
+    if backend == "cuda" and not paired:
+        raise ValueError(
+            "the fused RFF kernel only implements the paired sin/cos feature "
+            "map; use paired features or backend='features'"
+        )
     return backend
 
 

@@ -814,3 +814,103 @@ def test_engine_on_card_follows_the_launch_identities(card):
     assert torch.equal(batched, solo)
     a, b = hs[0].result().value["samples"], again.result().value["samples"]
     assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def _width_solves(x, params, b_col, companions, spec):
+    """CG on (K + σ²I) for ``b_col`` as column 0 beside ``companions`` (n, k)."""
+    b = torch.cat([b_col[:, None], companions], dim=1).contiguous()
+    return b, solve(Gram(x=x, params=params), b, spec)
+
+
+@pytest.mark.gpu
+def test_cg_column_does_not_move_with_its_batch_width_on_card(card):
+    # One column solved at width 8 and beside 63 others at width 64: the 8
+    # columns both batches share (it and its first 7 companions) have the
+    # same ‖b‖ (the stop test's denominator), relative residual, residual
+    # norm and solved bits, since CG's dots and norms, finalize's included, run
+    # in float64 on the card and the Gram kernel's columns do not depend on
+    # the width. With zero companions, which converge at once, the batch's
+    # iteration count is the column's own, and it is the same too.
+    from repro_torch.core.solvers.base import _col_norm
+
+    data = regression_dataset(4096, d=5, seed=2, n_test=8)
+    x = torch.as_tensor(data["x"], device="cuda")
+    params = make_params("matern32", lengthscale=1.1, noise=0.1, d=5, device="cuda")
+    y = torch.as_tensor(data["y"], device="cuda")
+    others = _normal(3, 4096, 63)
+    spec = CG(max_iters=500, tol=1e-4)
+    for companions in ((others[:, :7], others), (torch.zeros_like(others[:, :7]),
+                                                 torch.zeros_like(others))):
+        (b8, r8), (b64, r64) = (_width_solves(x, params, y, c, spec) for c in companions)
+        # all 8 columns the widths share: the column and its first 7 companions
+        assert torch.equal(_col_norm(b8), _col_norm(b64)[:8])
+        assert torch.equal(r8.rel_residual, r64.rel_residual[:8])
+        assert torch.equal(r8.residual_norm, r64.residual_norm[:8])
+        assert torch.equal(r8.solution, r64.solution[:, :8])
+        assert r8.converged and r64.converged
+    assert r8.iterations == r64.iterations > 0
+
+
+@pytest.mark.gpu
+def test_normal_eq_on_card_matches_its_chunked_route(card):
+    # NormalEq's three products (K_XZ·u, K_ZX·(K_XZ·u), K_ZZ·u) through the
+    # Gram kernel on the cross shapes n × m, m × n and m × m, against the
+    # chunked route in float64 on the same fp32 inputs: the reference's Gram
+    # tolerance relative to the largest entry; 3 launches, no plain dispatch
+    from repro_torch.core import NormalEq
+
+    n, m, d = 5000, 128, 9
+    x, z = _normal(4, n, d, scale=0.5), _normal(5, m, d, scale=0.5)
+    params = make_params("matern32", lengthscale=1.2, noise=0.1, d=d, device="cuda")
+    p64 = map_params(lambda a: a.double(), params)
+    for s in (1, 17):
+        u = _normal(6 + s, m, s)
+        gram_matvec.launches = 0
+        ops.reset_matvec_trace_counts()
+        out = NormalEq(x=x, z=z, params=params, ridge=0.5).mv(u)
+        torch.cuda.synchronize()
+        assert gram_matvec.launches == 3
+        assert ops.MATVEC_TRACE_COUNTS == {"cuda": 3, "chunked": 0, "dense": 0}
+        ref = NormalEq(x=x.double(), z=z.double(), params=p64, ridge=0.5,
+                       backend="chunked").mv(u.double())
+        err = (out.double() - ref).abs().max().item()
+        assert err <= GRAM_TOL * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_sgpr_iterative_and_inducing_on_card_follow_the_launch_identities(card):
+    # sgpr_iterative + mean + var: 3 Gram launches a NormalEq matvec, 1 for
+    # K_ZX y; inducing_posterior: 1 + 3 a matvec and 1 RFF launch for f_X,
+    # then 1 RFF launch an evaluation of the sample paths; no plain dispatch
+    from repro_torch.core import inducing_posterior, sgpr_iterative
+
+    data = regression_dataset(3000, d=5, seed=3, n_test=64)
+    x = torch.as_tensor(data["x"], device="cuda")
+    y = torch.as_tensor(data["y"], device="cuda")
+    xt = torch.as_tensor(data["x_test"], device="cuda")
+    params = make_params("matern32", lengthscale=1.1, noise=0.1, d=5, device="cuda")
+    z = x[::30][:96]
+
+    def reset():
+        ops.reset_matvec_trace_counts()
+        ops.reset_feature_trace_counts()
+        gram_matvec.launches = rff_matvec.launches = 0
+
+    reset()
+    post = sgpr_iterative(params, x, y, z, spec=CG(max_iters=60, tol=1e-6))
+    mean = post.mean(xt)
+    out = post.var_solve(xt)
+    var, info = out.var, out.solve_info
+    torch.cuda.synchronize()
+    assert gram_matvec.launches == 3 * post.solve_info.matvecs + 1 + 3 * info.matvecs
+    assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+    assert bool(torch.isfinite(mean).all() and torch.isfinite(var).all())
+    reset()
+    ind = inducing_posterior(params, x, y, z, generator=torch.Generator("cuda").manual_seed(0),
+                             num_samples=4, num_features=256, spec=CG(max_iters=40, tol=1e-5))
+    f = ind(xt)
+    torch.cuda.synchronize()
+    assert gram_matvec.launches == 1 + 3 * ind.solve_info.matvecs
+    assert rff_matvec.launches == 2 and f.shape == (64, 4)
+    assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+    assert ops.FEATURE_TRACE_COUNTS["features"] == 0
