@@ -21,7 +21,10 @@ on the protein-shaped problem at full n through those kernels:
 * the stochastic solvers, ``IterativeGP(spec=SGD | SDD | AP).fit(x, y)
   .predict(x_test)``, through the row-panel pair, the rows matvec and the
   feature pair kernels, each held against the same Cholesky oracle, and each
-  run's first steps held against the plain route on the same draws;
+  run's first steps held against the plain route on the same draws; and the
+  same three at ``precision="bf16"``, through the kernels' bf16 tiles (the
+  Gram kernel, the row panel and its pair, the feature pair), their first
+  steps held against the fp32 run on the same draws;
 * parallel Thompson sampling, ``thompson_step`` on SDD from 50,000 observed
   points in 8-D, whose Adam ascent takes every gradient through the RFF
   backward and the Gram backward kernels, held to the reference's launch
@@ -221,9 +224,31 @@ LKGP_REF_GAP, LKGP_BUDGET_RATIO = 0.3276, 1.5
 #: CG's column check: one column at width 8 and beside 63 others at width
 #: 64, on the first CG_WIDTH_N protein rows at the main path's θ and tol
 CG_WIDTH_N = 8192
-#: the kernels' records on the last lines, in order
-RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
-           "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
+#: the kernels' records on the last lines, in order: the fp32 kernels, then
+#: the bf16 tiles of the forward GP kernels (``[bf16]``), each its own record
+BF16_RECORDS = ("gram_matvec[bf16]", "gram_rows_pair[bf16]", "rff_matvec[bf16]",
+                "rff_t_matvec[bf16]", "rff_pair[bf16]")
+FP32_RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
+                "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
+RECORDS = FP32_RECORDS + BF16_RECORDS
+#: a bf16 kernel against its bf16 plain version (the same cast points, fp32
+#: sums: one bf16 ulp of a panel entry now and then flips with the summation
+#: order) and against the fp32 kernel (tests/test_pair_and_precision.py:164,
+#: 174), and a bf16 solve's first PARITY_STEPS steps against the fp32 solve's
+#: on the same draws (:209-221), each of max(1, scale)
+BF16_TOL, BF16_FP32_TOL, BF16_SOLVE_TOL = 2e-3, 5e-2, 8e-2
+#: AP solves each block exactly in fp32 and updates the residual through the
+#: bf16 contraction, so its bf16 iterate drifts from its fp32 one past
+#: BF16_SOLVE_TOL in the reference's own bf16 route: AP_REF_GAP is the JAX
+#: package's bf16-vs-fp32 gap of max(1, scale) after PARITY_STEPS steps at
+#: this phase's problem (protein's n, θ and 64 prior draws on 2,048
+#: features, blocks of 512), measured on the CPU by tests/
+#: test_torch_precision.py::test_ap_bf16_reference_gap_at_protein_n; the
+#: kernel route's AP is held within AP_REF_RATIO of it, SGD and SDD within
+#: BF16_SOLVE_TOL
+AP_REF_GAP, AP_REF_RATIO = 0.2343, 1.5
+#: bf16 on the tensor cores, dense (H100 SXM, 700 W)
+PEAK_BF16_FLOPS = 989e12
 
 _T0 = time.perf_counter()
 
@@ -263,6 +288,8 @@ def _reset_counts(torch) -> None:
     ops.reset_attention_trace_counts()
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "bf16_launches"):
+            w.bf16_launches = 0
 
 
 def _read_counts() -> tuple:
@@ -274,20 +301,43 @@ def _read_counts() -> tuple:
             dict(ops.MATVEC_TRACE_COUNTS), dict(ops.FEATURE_TRACE_COUNTS))
 
 
+def _read_bf16_counts() -> dict:
+    """The bf16 kernels' launches by wrapper since the last reset."""
+    return {k: w.bf16_launches for k, w in _wrappers().items() if hasattr(w, "bf16_launches")}
+
+
+def _bf16_path_launches(bf16: dict) -> dict:
+    """A path's bf16 launches by bf16 record, counted as ``_path_launches``
+    counts the fp32 ones."""
+    return {"gram_matvec[bf16]": bf16["gram_matvec"],
+            "gram_rows_pair[bf16]": bf16["gram_rows_pair"] + bf16["gram_rows_matvec"],
+            "rff_matvec[bf16]": bf16["rff_matvec"] + bf16["rff_pair"],
+            "rff_t_matvec[bf16]": bf16["rff_t_matvec"] + bf16["rff_pair"],
+            "rff_pair[bf16]": bf16["rff_pair"]}
+
+
 def _path_launches(launches: dict) -> dict:
     """A path's launches by kernel record: the row-panel record counts both
     of its C entries (the pair and the rows matvec), and every feature-pair
     launch runs the RFF kernel's Φ̃ᵀu orientation (phase 1, under
     ``rff_t_matvec``) and its Φ̃W orientation (phase 2, under ``rff_matvec``)."""
-    out = {k: launches[k] for k in RECORDS}
+    out = {k: launches[k] for k in FP32_RECORDS}
     out["gram_rows_pair"] += launches["gram_rows_matvec"]
     out["rff_t_matvec"] += launches["rff_pair"]
     out["rff_matvec"] += launches["rff_pair"]
     return out
 
 
-def _record_path(kernels: dict, path: str, launches: dict) -> None:
-    for k, n in _path_launches(launches).items():
+def _record_path(kernels: dict, path: str, launches: dict, bf16: dict = None) -> None:
+    """A path's launches under each record, from the counts its run read just
+    after it ran: the fp32 kernels' ``launches`` and the bf16 kernels'
+    ``bf16`` (``_read_bf16_counts``). An fp32 path may pass no ``bf16``: it
+    records none, and none is checked here (the counts only grow between
+    resets, so none now means none in its run)."""
+    if bf16 is None:
+        bf16 = _read_bf16_counts()
+        check(not any(bf16.values()), f"{path}: no bf16 kernel launched: {bf16}")
+    for k, n in {**_path_launches(launches), **_bf16_path_launches(bf16)}.items():
         kernels[k]["by_path"].setdefault(path, {})["launches"] = n
     kernels["gram_rows_pair"]["by_path"][path]["launches_by_entry"] = dict(
         pair=launches["gram_rows_pair"], rows_matvec=launches["gram_rows_matvec"])
@@ -673,6 +723,8 @@ def kernels_phase(torch) -> dict:
     thompson_kernel_cases(torch, gen, rec, paths)
     engine_kernel_cases(torch, x, xs, serve_omega, gen, rec, paths)
     flash_cases(torch, gen, rec, paths)
+    paths.update(sgd_bf16={}, sdd_bf16={}, ap_bf16={})
+    bf16_kernel_cases(torch, x, xs, rff_omega, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "sfu_floor_ms", "tc_split_bound_ms")
@@ -683,19 +735,24 @@ def kernels_phase(torch) -> dict:
     # GP kernels' fused functions have none.
     home = dict(gram_matvec="train", gram_matvec_bwd="train", rff_matvec="train",
                 gram_rows_pair="sgd", rff_t_matvec="sgd", rff_pair="sgd",
-                rff_bwd="thompson", flash_attention="lm_serve")
+                rff_bwd="thompson", flash_attention="lm_serve",
+                **{"gram_matvec[bf16]": "ap_bf16", "gram_rows_pair[bf16]": "sgd_bf16",
+                   "rff_matvec[bf16]": "sgd_bf16", "rff_t_matvec[bf16]": "sgd_bf16",
+                   "rff_pair[bf16]": "sgd_bf16"})
     for key in rec:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         library_ms=line.get("library_ms"),
-                        **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms") if k in line},
+                        **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms")
+                           if k in line},
                         by_path={p: _path_line(lines, key, keep)
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
-    for path in ("sdd", "thompson"):
-        rec["gram_rows_pair"]["by_path"][path] = {
-            k: paths[path]["gram_rows_matvec"][k] for k in keep
-            if k in paths[path]["gram_rows_matvec"]}
+    for path, key, rows in (("sdd", "gram_rows_pair", "gram_rows_matvec"),
+                            ("thompson", "gram_rows_pair", "gram_rows_matvec"),
+                            ("sdd_bf16", "gram_rows_pair[bf16]", "gram_rows_matvec[bf16]")):
+        rec[key]["by_path"][path] = {k: paths[path][rows][k] for k in keep
+                                     if k in paths[path][rows]}
     return rec
 
 
@@ -711,7 +768,8 @@ def _path_line(lines: dict, key: str, keep) -> dict:
     shapes = lines.get("shapes", {}).get(key)
     if shapes:
         out["shapes"] = [{k: line[k] for k in ("case", "kind", "n", "m", "d", "s", "ms",
-                                                "plain_ms", "bound_ms", "max_abs_err", "tol")}
+                                                "plain_ms", "bound_ms", "max_abs_err", "tol")
+                          if k in line}
                          for line in shapes]
     return out
 
@@ -918,6 +976,179 @@ def new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
         if m == 100:  # SGD's fresh features: its pair and the pair's phase 1
             paths["sgd"][name] = line
+
+
+def _bf16_bound(entries, per_entry, nbytes) -> dict:
+    """The bound of a bf16 kernel over ``entries`` kernel entries (row,
+    column or row, frequency pairs), each ``per_entry`` flops of products of
+    bf16 operands: the distance or the projection (2d, on the rounded
+    operands, which the kernels run on the FMA pipes) and the contractions
+    (2s each), all at the bf16 tensor-core rate, the rate the card has for
+    that type; ``bound_ms`` the larger of that and ``nbytes`` over the
+    memory rate. The SFU floor of the exp, sqrt or sincos is its own column
+    (``sfu_floor_ms``)."""
+    flops = entries * per_entry
+    ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                flops_bf16=flops, bytes=nbytes)
+
+
+def _bf16_line(torch, rec, key, case, got, plain, fp32, fn, plain_fn, **fields) -> dict:
+    """One bf16 kernel case: its largest error against its bf16 plain version
+    and against the fp32 kernel, over its outputs, absolute (``max_abs_err``,
+    ``err_vs_fp32_kernel``) and of max(1, scale) (``rel_err``,
+    ``rel_err_vs_fp32_kernel``, checked against BF16_TOL and BF16_FP32_TOL),
+    and its CUDA-event time over 20 warm launches beside the plain version's
+    over 3."""
+    def errs(outs, refs):
+        pairs = [((a.double() - b.double()).abs().max().item(),
+                  max(1.0, b.abs().max().item())) for a, b in zip(outs, refs)]
+        return max(e for e, _ in pairs), max(e / sc for e, sc in pairs)
+
+    (e_plain, r_plain), (e_fp32, r_fp32) = errs(got, plain), errs(got, fp32)
+    line = dict(kernel=key, case=case, precision="bf16", **fields, max_abs_err=e_plain,
+                rel_err=r_plain, tol=BF16_TOL, err_vs_fp32_kernel=e_fp32,
+                rel_err_vs_fp32_kernel=r_fp32, tol_vs_fp32=BF16_FP32_TOL,
+                ms=_events_ms(torch, fn, 20), plain_ms=_events_ms(torch, plain_fn, 3),
+                library_ms=None)
+    emit("kernels", **line)
+    check(r_plain <= BF16_TOL, f"{key} {case}: {r_plain} from its bf16 plain version")
+    check(r_fp32 <= BF16_FP32_TOL, f"{key} {case}: {r_fp32} from the fp32 kernel")
+    rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], e_plain)
+    return line
+
+
+def bf16_kernel_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
+    """The bf16 tiles at the bf16 paths' shapes, each against its bf16 plain
+    version (``precision="bf16"``: the same cast points, products of rounded
+    operands summed in fp32, TF32 off) and against its fp32 launch: the Gram
+    kernel at 45,730² (finalize's matvec of SGD and SDD) and at AP's 45,730 ×
+    512 (``rows_t_mv``), every kind there; the row pair and SDD's rows matvec
+    at p = 512 of 45,730; the feature pair and its Φ̃ᵀu at m = 100, Φ̃W at the
+    pair's m = 100 and at m = 512, s = 8; s = 65 but where said."""
+    from repro_torch.kernels.gram_matvec import (
+        gram_matvec, gram_plan, gram_rows_matvec, gram_rows_pair,
+    )
+    from repro_torch.kernels.ref import (
+        gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref, rff_matvec_ref,
+        rff_pair_ref, rff_t_matvec_ref,
+    )
+    from repro_torch.kernels.rff_matvec import rff_matvec, rff_pair, rff_plan, rff_t_matvec
+
+    bf = dict(precision="bf16")
+    for key, src, replaces in (
+            ("gram_matvec[bf16]", "gram_matvec_bf16.cu", "src/repro/kernels/gram_matvec.py:154"),
+            ("gram_rows_pair[bf16]", "gram_rows_pair.cu", "src/repro/kernels/gram_matvec.py:390"),
+            ("rff_matvec[bf16]", "rff_matvec_bf16.cu", "src/repro/kernels/rff_matvec.py:78"),
+            ("rff_t_matvec[bf16]", "rff_matvec_bf16.cu", "src/repro/kernels/rff_matvec.py:154"),
+            ("rff_pair[bf16]", "rff_matvec_bf16.cu", "src/repro/kernels/rff_matvec.py:447")):
+        rec[key] = dict(name=key, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                        replaces=replaces, max_abs_err=0.0)
+    rec["gram_rows_pair[bf16]"]["entries"] = ["repro_gram_rows_pair_bf16",
+                                             "repro_gram_matvec_bf16"]
+    dev = x.device
+    n, d = xs.shape
+    s, p = 65, 512
+
+    def gram(kind, rows, cols, label):
+        v = torch.randn((cols.shape[0], s), generator=gen, device=dev)
+        (nr, _), m = rows.shape, cols.shape[0]
+        plan = gram_plan(nr, m, d, s)
+        line = _bf16_line(
+            torch, rec, "gram_matvec[bf16]", label,
+            [gram_matvec(rows, cols, v, kind=kind, **bf)],
+            [gram_matvec_ref(rows, cols, v, kind=kind, **bf)],
+            [gram_matvec(rows, cols, v, kind=kind)],
+            lambda: gram_matvec(rows, cols, v, kind=kind, **bf),
+            lambda: gram_matvec_ref(rows, cols, v, kind=kind, **bf),
+            kind=kind, n=nr, m=m, d=d, s=s, ctas=plan.ctas, chunks=plan.chunks,
+            smem_bytes=gram_matvec.smem_bytes(d, s, plan.rows_per_cta, "bf16"),
+            sfu_floor_ms=1e3 * nr * m * SFU_OPS[kind] / SFU_OPS_PER_S,
+            **_bf16_bound(nr * m, 2 * (d + s), 4 * (nr * d + m * d + m * s + nr * s)))
+        return line
+
+    idx = torch.randint(0, n, (p,), generator=gen, device=dev)
+    xi = xs[idx].contiguous()
+    line = gram("matern32", xs, xs, "square")
+    for path in ("sgd_bf16", "sdd_bf16"):  # finalize's matvec
+        _path_shape(paths, path, "gram_matvec[bf16]", line)
+        paths[path]["gram_matvec[bf16]"] = line
+    for kind in KINDS:
+        line = gram(kind, xs, xi, "ap_rows_t")
+        if kind == "matern32":  # AP's rows_t_mv: K(x, x[idx]) u
+            paths["ap_bf16"]["gram_matvec[bf16]"] = line
+
+    look = torch.randn((n, s), generator=gen, device=dev)
+    b = torch.randn((p, s), generator=gen, device=dev)
+    p_true = p - 7
+    panel, back = gram_plan(p, n, d, s), gram_plan(n, p, d, s)
+    pair_ref = gram_rows_pair_ref(xi, xs, look, b, kind="matern32", p_true=p_true, **bf)
+    got = gram_rows_pair(xi, xs, look, b, kind="matern32", p_true=p_true, **bf)
+    check(bool((got[0][p_true:] == 0).all()), "gram_rows_pair[bf16]: rows >= p_true zeroed")
+    _, _, nbytes = _rows_bound_ms(p, n, d, s, panel.chunks, True)
+    paths["sgd_bf16"]["gram_rows_pair[bf16]"] = _bf16_line(
+        torch, rec, "gram_rows_pair[bf16]", "pair", got, pair_ref,
+        gram_rows_pair(xi, xs, look, b, kind="matern32", p_true=p_true),
+        lambda: gram_rows_pair(xi, xs, look, b, kind="matern32", p_true=p_true, **bf),
+        lambda: gram_rows_pair_ref(xi, xs, look, b, kind="matern32", p_true=p_true, **bf),
+        kind="matern32", n=n, p=p, p_true=p_true, d=d, s=s, chunks=panel.chunks,
+        ctas_phase0=panel.ctas, ctas_phase2=back.ctas,
+        sfu_floor_ms=1e3 * 2 * p * n * SFU_OPS["matern32"] / SFU_OPS_PER_S,
+        **_bf16_bound(2 * p * n, 2 * (d + s), nbytes))
+    _, _, nbytes = _rows_bound_ms(p, n, d, s, panel.chunks, False)
+    paths["sdd_bf16"]["gram_rows_matvec[bf16]"] = _bf16_line(
+        torch, rec, "gram_rows_pair[bf16]", "rows_matvec",
+        [gram_rows_matvec(xi, xs, look, kind="matern32", **bf)],
+        [gram_rows_matvec_ref(xi, xs, look, kind="matern32", **bf)],
+        [gram_rows_matvec(xi, xs, look, kind="matern32")],
+        lambda: gram_rows_matvec(xi, xs, look, kind="matern32", **bf),
+        lambda: gram_rows_matvec_ref(xi, xs, look, kind="matern32", **bf),
+        kind="matern32", n=n, p=p, d=d, s=s, chunks=panel.chunks, ctas=panel.ctas,
+        sfu_floor_ms=1e3 * p * n * SFU_OPS["matern32"] / SFU_OPS_PER_S,
+        **_bf16_bound(p * n, 2 * (d + s), nbytes))
+
+    # SGD's fresh features: m = 100 frequencies at the serving θ's ℓ
+    omega = rff_omega(math.sqrt(d) * 0.5, 100)
+    u = torch.randn((n, s), generator=gen, device=dev)
+    m = omega.shape[0]
+    plan = rff_plan(n, m, d, s)
+
+    def sfu(passes):
+        return 1e3 * passes * n * m * SFU_OPS_RFF / SFU_OPS_PER_S
+
+    _, _, nbytes = _rff_t_bound_ms(n, m, d, s, plan.row_chunks, False)
+    paths["sgd_bf16"]["rff_t_matvec[bf16]"] = _bf16_line(
+        torch, rec, "rff_t_matvec[bf16]", "sgd", [rff_t_matvec(x, omega, u, **bf)],
+        [rff_t_matvec_ref(x, omega, u, **bf)], [rff_t_matvec(x, omega, u)],
+        lambda: rff_t_matvec(x, omega, u, **bf), lambda: rff_t_matvec_ref(x, omega, u, **bf),
+        n=n, m=m, d=d, s=s, chunks=plan.row_chunks, ctas=plan.t_ctas,
+        sfu_floor_ms=sfu(1), **_bf16_bound(n * m, 2 * d + 4 * s, nbytes))
+    _, _, nbytes = _rff_t_bound_ms(n, m, d, s, plan.row_chunks, True)
+    paths["sgd_bf16"]["rff_pair[bf16]"] = _bf16_line(
+        torch, rec, "rff_pair[bf16]", "sgd", [rff_pair(x, omega, u, **bf)],
+        [rff_pair_ref(x, omega, u, **bf)], [rff_pair(x, omega, u)],
+        lambda: rff_pair(x, omega, u, **bf), lambda: rff_pair_ref(x, omega, u, **bf),
+        n=n, m=m, d=d, s=s, chunks=plan.row_chunks, ctas=plan.t_ctas,
+        ctas_phase2=plan.mv_ctas, sfu_floor_ms=sfu(2),
+        **_bf16_bound(2 * n * m, 2 * d + 4 * s, nbytes))
+    for label, om, width in (("sgd_phase2", omega, s),
+                             ("train", rff_omega(TRAIN_HYPERS["lengthscale"], 512), 8)):
+        w = torch.randn((2 * om.shape[0], width), generator=gen, device=dev)
+        mm, wplan = om.shape[0], rff_plan(n, om.shape[0], d, width)
+        _, _, nbytes = _rff_bound_ms(n, mm, d, width)
+        line = _bf16_line(
+            torch, rec, "rff_matvec[bf16]", label, [rff_matvec(x, om, w, **bf)],
+            [rff_matvec_ref(x, om, w, **bf)], [rff_matvec(x, om, w)],
+            lambda: rff_matvec(x, om, w, **bf), lambda: rff_matvec_ref(x, om, w, **bf),
+            n=n, m=mm, d=d, s=width, chunks=wplan.freq_chunks, ctas=wplan.mv_ctas,
+            smem_bytes=rff_matvec.smem_bytes(d, width, "bf16"),
+            sfu_floor_ms=1e3 * n * mm * SFU_OPS_RFF / SFU_OPS_PER_S,
+            **_bf16_bound(n * mm, 2 * d + 4 * width, nbytes))
+        _path_shape(paths, "sgd_bf16", "rff_matvec[bf16]", line)
+        if label == "sgd_phase2":
+            paths["sgd_bf16"]["rff_matvec[bf16]"] = line
 
 
 def _rff_bwd_bound_ms(rows, cols, d, s, ws_floats, operands):
@@ -1670,7 +1901,9 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
     just around each run and checked against the solver's identity; the
     posterior mean is held against the Cholesky mean of the main path
     (measured, not asserted: the quality of a fixed step budget is a
-    finding), beside CG's test metrics."""
+    finding), beside CG's test metrics. Each solver runs again at
+    ``precision="bf16"``: its steps' launches, and finalize's, on the bf16
+    kernels, the prior and predict's on the fp32 ones."""
     from repro_torch.core import IterativeGP
     from repro_torch.core.solvers import FLAG_NONFINITE
     from repro_torch.data.pipeline import regression_dataset
@@ -1684,6 +1917,11 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
     runs = [(name, steps, _stochastic_spec(name, steps)) for name, steps in STOCH_STEPS.items()]
     runs.append(("sdd_paper_step", STOCH_STEPS["sdd"],
                  _stochastic_spec("sdd", STOCH_STEPS["sdd"], step_size_times_n=SDD_PAPER_STEP)))
+    # the same solves on the bf16 tiles: solve() pins the precision onto the
+    # operator, so the steps, their feature pairs and finalize's matvec run
+    # bf16 kernels, and the prior f_X and predict stay fp32
+    runs += [(f"{name}_bf16", steps, _stochastic_spec(name, steps, precision="bf16"))
+             for name, steps in STOCH_STEPS.items()]
     for run, steps, spec in runs:
         name = spec.name
         gp = IterativeGP("matern32", spec=spec, **hypers)
@@ -1696,6 +1934,7 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, matvec_counts, feature_counts = _read_counts()
+        bf16 = _read_bf16_counts()
         info = gp.posterior(64).solve_info  # cached: no further launches
         rmse, nll = _test_metrics(torch, mean, var, y_test)
         rel = ((mean - exact_mean).norm() / exact_mean.norm()).item()
@@ -1709,7 +1948,8 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
              max_rel_residual=info.rel_residual.max().item(), flags=flags,
              columns_flagged=int(((info.flags & 1) != 0).sum()),
              rel_mean_err_vs_cholesky=rel, rmse=rmse, nll=nll, cg=oracle["cg"],
-             launches=launches, matvec_counts=matvec_counts, feature_counts=feature_counts)
+             precision=spec.precision or "fp32", launches=launches, bf16_launches=bf16,
+             matvec_counts=matvec_counts, feature_counts=feature_counts)
         check(mean.shape == var.shape == (1024,), f"{run}: outputs of shape (1024,)")
         if run == "sdd_paper_step":
             # diverged or not, no column is non-finite without its NONFINITE
@@ -1737,14 +1977,20 @@ def stochastic_phase(torch, kernels: dict, oracle: dict) -> None:
             want.update(gram_rows_matvec=steps)
         else:
             want.update(gram_matvec=steps + 2)
+        want_bf16 = {k: 0 for k in bf16}
+        if spec.precision == "bf16":  # the solve's launches move to the bf16 kernels
+            for k in want_bf16:
+                want_bf16[k] = want[k] - (2 if k in ("gram_matvec", "rff_matvec") else 0)
+                want[k] -= want_bf16[k]
         check(info.matvecs == (0 if name == "ap" else 1),
               f"{name}: finalize's full matvecs {info.matvecs}")
-        check(launches == want, f"{name}: launches {launches} == {want}")
+        check(launches == want, f"{run}: launches {launches} == {want}")
+        check(bf16 == want_bf16, f"{run}: bf16 launches {bf16} == {want_bf16}")
         check(matvec_counts["chunked"] == matvec_counts["dense"] == 0,
               f"{name}: no plain Gram matvec")
         check(feature_counts["features"] == 0, f"{name}: no materialised feature matrix")
-        if run in STOCH_STEPS:
-            _record_path(kernels, run, launches)
+        if run != "sdd_paper_step":
+            _record_path(kernels, run, launches, bf16)
         del gp, mean, var
         torch.cuda.empty_cache()
 
@@ -1760,7 +2006,10 @@ def route_parity_phase(torch) -> None:
     against the plain route in float64 on the same draws (``vs_fp64``), on
     PARITY_SEEDS draw sequences: the kernel route's mean excess over rtol at
     most PARITY_FP64_MARGIN × the plain fp32 route's (or PARITY_TOL); SDD
-    and AP keep the fp32 check."""
+    and AP keep the fp32 check. Then each solver's PARITY_STEPS steps on the
+    bf16 tiles are held against its fp32 kernel route on the same draws,
+    within the reference's bf16-vs-fp32 bound (BF16_SOLVE_TOL; AP within
+    AP_REF_RATIO × the reference's own AP gap here, AP_REF_GAP)."""
     from repro_torch.core import make_params
     from repro_torch.core.operators import Gram
     from repro_torch.core.pathwise import pathwise_targets
@@ -1848,6 +2097,49 @@ def route_parity_phase(torch) -> None:
         check(used > 0, f"{name}: the kernel route launched its kernels")
         check(all(v == 0 for k, v in launched["chunked"].items() if k != "seconds"),
               f"{name}: the plain route launched no kernel")
+
+    # each solver's first PARITY_STEPS steps on the bf16 tiles against the
+    # fp32 kernels, on the same draws and targets, within the reference's
+    # bf16-vs-fp32 bound of a solve (SGD, SDD), or within AP_REF_RATIO × the
+    # reference's own AP gap at this problem; the plain route's own gap is
+    # printed beside it
+    for name in STOCH_STEPS:
+        sols, launched = {}, {}
+        for backend, precision in (("cuda", "fp32"), ("cuda", "bf16"), ("chunked", "fp32"),
+                                   ("chunked", "bf16")):
+            _reset_counts(torch)
+            spec = _stochastic_spec(name, PARITY_STEPS, backend=backend,
+                                    precision=None if precision == "fp32" else precision)
+            t0 = time.perf_counter()
+            res = solve(Gram(x=x, params=params), b, spec, delta=delta,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            launched[f"{backend}_{precision}"] = dict(
+                seconds=time.perf_counter() - t0, fp32=_path_launches(_read_counts()[0]),
+                bf16=_bf16_path_launches(_read_bf16_counts()))
+            sols[backend, precision] = res.solution
+
+        def gap(backend):
+            a, ref = sols[backend, "bf16"], sols[backend, "fp32"]
+            return (a - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+        kernel_gap, plain_gap = gap("cuda"), gap("chunked")
+        limit = AP_REF_RATIO * AP_REF_GAP if name == "ap" else BF16_SOLVE_TOL
+        emit("route_parity_bf16", solver=name, steps=PARITY_STEPS, gap=kernel_gap,
+             plain_route_gap=plain_gap, reference_gap=AP_REF_GAP if name == "ap" else None,
+             limit=limit, rel_diff=(
+                 (sols["cuda", "bf16"] - sols["cuda", "fp32"]).norm()
+                 / sols["cuda", "fp32"].norm()).item(), runs=launched)
+        check(bool(torch.isfinite(sols["cuda", "bf16"]).all()), f"{name} bf16: finite iterates")
+        check(kernel_gap <= limit, f"{name}: bf16 within {limit} of max(1, scale) of fp32 after "
+              f"{PARITY_STEPS} steps on the same draws ({kernel_gap}; the plain route's "
+              f"{plain_gap})")
+        check(sum(launched["cuda_bf16"]["bf16"].values()) > 0
+              and not any(launched["cuda_fp32"]["bf16"].values()),
+              f"{name}: bf16 kernels on the bf16 run alone")
+        check(all(v == 0 for run in ("chunked_fp32", "chunked_bf16")
+                  for launches in (launched[run]["fp32"], launched[run]["bf16"])
+                  for v in launches.values()), f"{name}: the plain route launched no kernel")
 
 
 def _plain_ascent_value64(torch, post, xs):
@@ -2910,9 +3202,10 @@ def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
                                               num_probes=TRAIN_PROBES)
         return gp.last_optim.total_solver_iters
 
-    def stochastic(name):
+    def stochastic(name, precision=None):
         def run():
-            gp = IterativeGP("matern32", spec=_stochastic_spec(name, PROFILE_STOCH_STEPS[name]),
+            gp = IterativeGP("matern32", spec=_stochastic_spec(name, PROFILE_STOCH_STEPS[name],
+                                                               precision=precision),
                              lengthscale=math.sqrt(data["d"]) * 0.5, signal=1.0, noise=0.1,
                              seed=SEED)
             gp.fit(data["x"], data["y"]).predict(data["x_test"])
@@ -2975,6 +3268,8 @@ def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
 
     for path, run in (("fit_predict", fit_predict), ("train", train),
                       *((name, stochastic(name)) for name in PROFILE_STOCH_STEPS),
+                      *((f"{name}_bf16", stochastic(name, "bf16"))
+                        for name in PROFILE_STOCH_STEPS),
                       ("thompson", thompson),
                       ("precond_nystrom", precond(_precond_specs()["nystrom"])),
                       ("engine_solve_batch", engine_batch), ("sgpr_iterative", sgpr_it),
@@ -2993,13 +3288,14 @@ def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
         # the Gram forward's device code: its kernel and its chunk sums (the
         # row-panel launches' included), not the backward
         gram_ms = sum(v for k, v in by_name.items()
-                      if "gram_matvec_kernel" in k or "chunk_sum_kernel" in k)
+                      if "gram_matvec_kernel" in k or "gram_matvec_bf16_kernel" in k
+                      or "chunk_sum_kernel" in k)
         # the Gram backward and the RFF kernel (both orientations: the
         # feature pair, Φ̃ᵀu, Φ̃W), each with its fixed-order sum
         bwd_ms = sum(v for k, v in by_name.items()
                      if "gram_bwd_kernel" in k or "bwd_sum_kernel" in k)
         rff_ms = sum(v for k, v in by_name.items()
-                     if "rff_kernel<" in k or "rff_sum_kernel" in k)
+                     if "rff_kernel<" in k or "rff_bf16_kernel<" in k or "rff_sum_kernel" in k)
         emit("profile", path=path, wall_ms=wall * 1e3, device_ms=device_ms,
              idle_share=1.0 - device_ms / (wall * 1e3), iterations=iterations,
              processing_s=processing_s, gram_ms=gram_ms, gram_share=gram_ms / device_ms,

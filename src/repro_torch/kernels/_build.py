@@ -44,6 +44,9 @@ SIGNATURES = {
     # rows_per_cta, stream
     "repro_gram_matvec_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P),
+    # the same with bf16 tiles (gram_matvec_bf16.cu)
+    "repro_gram_matvec_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
     # x, z, rowv, colv, workspace, out, n, m, d, s, kind, width, chunk,
     # stage2_tc, stream
     "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -59,6 +62,12 @@ SIGNATURES = {
     # x, omega, u, workspace, t, out, n, m, d, s, m_true, width, row_chunk,
     # freq_chunk, stream
     "repro_rff_pair_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the four above with bf16 tiles (gram_rows_pair.cu, rff_matvec_bf16.cu)
+    "repro_gram_rows_pair_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P),
+    "repro_rff_matvec_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_rff_t_matvec_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_rff_pair_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # r, c, p1, p2, q1, q2, workspace, out, rows, cols, d, s, scale, width,
     # chunk, products_tc, stream
     "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
@@ -69,10 +78,12 @@ SIGNATURES = {
     "repro_flash_attention_smem_bytes": (_I,),
     # d, width, rows_per_cta -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I, _I),
+    "repro_gram_matvec_smem_bytes_bf16": (_I, _I, _I),
     # d, width, stage2_tc -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I, _I),
     # d, width -> dynamic shared memory per CTA in bytes
     "repro_rff_matvec_smem_bytes": (_I, _I),
+    "repro_rff_matvec_smem_bytes_bf16": (_I, _I),
     # d, width, products_tc -> dynamic shared memory per CTA in bytes
     "repro_rff_bwd_smem_bytes": (_I, _I, _I),
 }
@@ -113,7 +124,7 @@ def _nvcc() -> str:
 def _kernel_name(mangled: str) -> str:
     """``_ZN…18gram_matvec_kernelILi2ELi72EEEv…`` → ``gram_matvec_kernel<2,72>``
     (a ``bool`` argument, ``Lb1E``, as 1)."""
-    m = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(r"\d+([a-z_][a-z0-9_]*_kernel)I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"

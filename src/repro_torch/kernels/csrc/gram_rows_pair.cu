@@ -39,6 +39,12 @@
 //
 // Both phases are the Gram kernel, so d2 and k agree bit for bit with the
 // Gram forward's.
+//
+// repro_gram_rows_pair_bf16 is the same two phases on the Gram kernel's bf16
+// tiles (repro_gram_matvec_bf16, gram_matvec_bf16.cu): gram_rows_pair_pallas
+// with precision="bf16", whose second phase contracts the panel with err
+// rounded to bf16 after its fp32 accumulation, b and the mask: phase 2's v
+// operand, which that kernel rounds as it lands.
 #include <cuda_runtime.h>
 
 extern "C" int repro_gram_matvec_f32(const float* x, const float* z,
@@ -47,6 +53,33 @@ extern "C" int repro_gram_matvec_f32(const float* x, const float* z,
                                      int m, int d, int s, int kind,
                                      int rows_true, int width, int chunk,
                                      int rows_per_cta, void* stream);
+extern "C" int repro_gram_matvec_bf16(const float* x, const float* z,
+                                      const float* v, const float* b,
+                                      float* workspace, float* out, int n,
+                                      int m, int d, int s, int kind,
+                                      int rows_true, int width, int chunk,
+                                      int rows_per_cta, void* stream);
+
+namespace {
+
+using GramEntry = int (*)(const float*, const float*, const float*, const float*,
+                          float*, float*, int, int, int, int, int, int, int, int,
+                          int, void*);
+
+// The two phases on the Gram entry `mv`.
+int rows_pair(GramEntry mv, const float* xi, const float* x, const float* look,
+              const float* b, float* workspace, float* err, float* g, int p,
+              int n, int d, int s, int kind, int p_true, int width, int chunk0,
+              int rows_per_cta0, int chunk2, int rows_per_cta2, void* stream) {
+  if (p < 1 || p_true < 0 || p_true > p) return (int)cudaErrorInvalidValue;
+  const int e = mv(xi, x, look, b, workspace, err, p, n, d, s, kind, p_true, width,
+                   chunk0, rows_per_cta0, stream);
+  if (e != 0) return e;
+  return mv(x, xi, err, nullptr, workspace, g, n, p, d, s, kind, n, width, chunk2,
+            rows_per_cta2, stream);
+}
+
+}  // namespace
 
 // xi (p, d), x (n, d), look (n, s), b (p, s) -> err (p, s) = K~(xi, x) @ look
 // - b with rows >= p_true zeroed, and g (n, s) = K~(xi, x)^T @ err. All
@@ -65,11 +98,21 @@ extern "C" int repro_gram_rows_pair_f32(const float* xi, const float* x,
                                         int chunk0, int rows_per_cta0,
                                         int chunk2, int rows_per_cta2,
                                         void* stream) {
-  if (p < 1 || p_true < 0 || p_true > p) return (int)cudaErrorInvalidValue;
-  const int e = repro_gram_matvec_f32(xi, x, look, b, workspace, err, p, n, d,
-                                      s, kind, p_true, width, chunk0,
-                                      rows_per_cta0, stream);
-  if (e != 0) return e;
-  return repro_gram_matvec_f32(x, xi, err, nullptr, workspace, g, n, p, d, s,
-                               kind, n, width, chunk2, rows_per_cta2, stream);
+  return rows_pair(repro_gram_matvec_f32, xi, x, look, b, workspace, err, g, p, n,
+                   d, s, kind, p_true, width, chunk0, rows_per_cta0, chunk2,
+                   rows_per_cta2, stream);
+}
+
+// The same with bf16 tiles: repro_gram_matvec_bf16 in both phases.
+extern "C" int repro_gram_rows_pair_bf16(const float* xi, const float* x,
+                                         const float* look, const float* b,
+                                         float* workspace, float* err,
+                                         float* g, int p, int n, int d, int s,
+                                         int kind, int p_true, int width,
+                                         int chunk0, int rows_per_cta0,
+                                         int chunk2, int rows_per_cta2,
+                                         void* stream) {
+  return rows_pair(repro_gram_matvec_bf16, xi, x, look, b, workspace, err, g, p, n,
+                   d, s, kind, p_true, width, chunk0, rows_per_cta0, chunk2,
+                   rows_per_cta2, stream);
 }

@@ -1,8 +1,9 @@
-// The tile primitives of the tensor-core kernels (gram_matvec.cu,
-// gram_matvec_bwd.cu, rff_matvec.cu, rff_bwd.cu, flash_attention.cu): 4- and
-// 16-byte cp.async with zero fill, the m16n8k8 TF32 tensor-core product with
-// fp32 accumulation, and the three-way TF32 split of its operands; and the
-// pair-weight tiles that the two backward kernels (gram_matvec_bwd.cu,
+// The tile primitives of the tensor-core kernels (gram_matvec_kernel.cuh,
+// gram_matvec_bwd.cu, rff_matvec_kernel.cuh, rff_bwd.cu, flash_attention.cu):
+// 4- and 16-byte cp.async with zero fill, the m16n8k8 TF32 tensor-core
+// product with fp32 accumulation, and the three-way TF32 split of its
+// operands; the m16n8k16 bf16 product with fp32 accumulation and the
+// rounding to bf16; and the pair-weight tiles that the two backward kernels (gram_matvec_bwd.cu,
 // rff_bwd.cu) share: a factor product rowv . colv^T over a slice, into a
 // micro-tile in the MMA C-fragment layout, and the weights contracted with a
 // split column tile on the tensor cores.
@@ -85,6 +86,56 @@ __device__ __forceinline__ void mma_split_add(float (&c)[4], const float (&ahi)[
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += f[e];
 }
+
+// Two floats rounded to bf16, to nearest even, packed into one .b32: lo in
+// the low half (the lower column or k index of an MMA fragment), hi in the
+// high half.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// a rounded to bf16 (to nearest even), as the fp32 value it stands for.
+__device__ __forceinline__ float round_bf16(float a) {
+  return __uint_as_float(pack_bf16x2(a, 0.0f) << 16);
+}
+
+// The bf16 bits of a, rounded to nearest even.
+__device__ __forceinline__ unsigned short bf16_bits(float a) {
+  return static_cast<unsigned short>(pack_bf16x2(a, 0.0f) & 0xffffu);
+}
+
+// a as a contraction operand of a tile of precision BF16: rounded to bf16
+// (to nearest even), or as it is.
+template <bool BF16>
+__device__ __forceinline__ float tile_operand(float a) {
+  if constexpr (BF16) {
+    return round_bf16(a);
+  } else {
+    return a;
+  }
+}
+
+// c += a b for a 16x16 A, a 16x8 B (bf16) and a 16x8 fp32 C, in the
+// fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4; each .b32
+// holds two bf16, the lower k index in the low half):
+//   a[0] A[g][2t..2t+1], a[1] A[g+8][2t..2t+1], a[2] A[g][2t+8..2t+9],
+//   a[3] A[g+8][2t+8..2t+9];  b[0] B[2t..2t+1][g], b[1] B[2t+8..2t+9][g];
+//   c as mma_tf32's. A product of two bf16 values is exact in fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Row stride, in bf16, of a bf16 tile whose rows are read by 32-bit fragment
+// loads at (row g, word t): 64 + 8 bf16 = 36 words, 4 mod 32, so the reads of
+// a warp hit 32 distinct banks.
+constexpr int kBf16Stride = 72;
 
 // Row stride of a (K, 8 NT) B tile read as b[0] = B[t][g]: 8 mod 16 floats,
 // so the B-fragment reads (row t, column g) of a warp hit 32 distinct banks.

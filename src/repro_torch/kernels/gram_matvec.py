@@ -21,6 +21,12 @@ autograd Function with the plain versions (``ref.gram_matvec_ref``,
 ``ref.gram_matvec_bwd_ref``) in place of the launches, so the gradients keep
 the reference's conventions on both devices (Matérn-1/2's zero-distance mask
 among them).
+
+Every forward takes the reference's tile ``precision``: ``"fp32"``, or
+``"bf16"``, bfloat16 contraction operands with fp32 accumulation
+(``csrc/gram_matvec_bf16.cu``, the Gram kernel's own casts, which the row
+panel and the pair run too). The backward of a bf16 forward is not ported
+(its kernel's bf16 branch, ROADMAP queue 1 item 15) and raises.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .ref import (
-    gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref, gram_rows_pair_ref,
+    check_precision, gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_matvec_ref,
+    gram_rows_pair_ref,
 )
 
 #: kernel kinds the CUDA kernel implements (tanimoto has no distance form)
@@ -224,6 +231,16 @@ def _check_chain(name, x, z, v):
         raise ValueError(f"{name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
 
 
+def no_bf16_backward(precision: str) -> None:
+    """The backward of a bf16 forward would need the backward kernels' bf16
+    branch, which is not ported: it raises, and never runs in fp32 instead."""
+    if precision != "fp32":
+        raise NotImplementedError(
+            f"the backward of a precision={precision!r} forward is not ported yet "
+            f"(the bf16 branch of the backward kernels): ROADMAP queue 1 item 15"
+        )
+
+
 def check_kind(kind: str) -> None:
     if kind not in CUDA_KINDS:
         raise ValueError(
@@ -232,70 +249,100 @@ def check_kind(kind: str) -> None:
         )
 
 
+class LaunchCounts:
+    """A kernel wrapper's launch counts: ``launches`` of its fp32 kernel and
+    ``bf16_launches`` of its bf16 kernel, one a call of its C entry (never
+    the plain version's calls)."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self.bf16_launches = 0
+
+    def _count(self, precision: str) -> None:
+        if precision == "bf16":
+            self.bf16_launches += 1
+        else:
+            self.launches += 1
+
+
 class _GramMatvecFn(torch.autograd.Function):
     """K̃(x, z) @ v with the reference's fused VJP (``gram_matvec.py:317-327``
     there). ``fwd`` and ``bwd`` are the forward and backward implementations:
-    the kernels' wrappers, or the plain versions."""
+    the kernels' wrappers, or the plain versions, ``fwd`` at the forward's
+    tile ``precision`` (a bf16 forward's backward raises)."""
 
     @staticmethod
-    def forward(ctx, x, z, v, kind, fwd, bwd):
+    def forward(ctx, x, z, v, kind, fwd, bwd, precision="fp32"):
         ctx.save_for_backward(x, z, v)
-        ctx.kind, ctx.fwd, ctx.bwd = kind, fwd, bwd
+        ctx.kind, ctx.fwd, ctx.bwd, ctx.precision = kind, fwd, bwd, precision
         return fwd(x, z, v, kind=kind)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
+        no_bf16_backward(ctx.precision)
         x, z, v = ctx.saved_tensors
         g = grad.contiguous()
         need_x, need_z, need_v = ctx.needs_input_grad[:3]
         dx = ctx.bwd(x, z, g, v, kind=ctx.kind) if need_x else None
         dz = ctx.bwd(z, x, v, g, kind=ctx.kind) if need_z else None
         dv = ctx.fwd(z, x, g, kind=ctx.kind) if need_v else None
-        return dx, dz, dv, None, None, None
+        return dx, dz, dv, None, None, None, None
 
 
 def plain_gram_matvec(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, *,
-                      kind: str = "se") -> torch.Tensor:
+                      kind: str = "se", precision: str = "fp32") -> torch.Tensor:
     """The differentiable K̃(x, z) @ v with the plain versions in place of both
     kernels, on any device and dtype: what CPU tensors take, and the yardstick
     of the kernels' gradients on the card."""
-    return _GramMatvecFn.apply(x, z, v, kind, gram_matvec_ref, gram_matvec_bwd_ref)
+    return _GramMatvecFn.apply(x, z, v, kind, _at(gram_matvec_ref, precision),
+                               gram_matvec_bwd_ref, precision)
 
 
-class GramMatvec:
-    """The wrapper of the fused Gram matvec kernel. ``launches`` counts the
-    kernel launches it made (never the plain version's calls), the backward's
-    dv among them."""
+#: the C entries by tile precision: a launch ``repro_<kernel>_f32`` or
+#: ``_bf16`` (``csrc/gram_matvec_bf16.cu``, ``csrc/rff_matvec_bf16.cu``), a
+#: shared-memory query ``repro_<kernel>_smem_bytes`` or ``_bf16``
+_ENTRY = {"fp32": "f32", "bf16": "bf16"}
+_SUFFIX = {"fp32": "", "bf16": "_bf16"}
+
+
+def _at(fn, precision: str):
+    """``fn`` at the tile precision: a forward, bound to it."""
+    return fn if precision == "fp32" else functools.partial(fn, precision=precision)
+
+
+class GramMatvec(LaunchCounts):
+    """The wrapper of the fused Gram matvec kernels, fp32 and bf16. Its
+    ``LaunchCounts`` count the launches it made (never the plain version's
+    calls), the backward's dv among them."""
 
     name = "gram_matvec"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, *,
-                 kind: str = "se") -> torch.Tensor:
+                 kind: str = "se", precision: str = "fp32") -> torch.Tensor:
         """x:(n,d) z:(m,d) v:(m,s) → (n,s), inputs pre-scaled by 1/ℓ."""
         check_kind(kind)
+        check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, z, v)):
-            return plain_gram_matvec(x, z, v, kind=kind)
-        return _GramMatvecFn.apply(x, z, v, kind, self._launch, gram_matvec_bwd)
+            return plain_gram_matvec(x, z, v, kind=kind, precision=precision)
+        return _GramMatvecFn.apply(x, z, v, kind, _at(self._launch, precision),
+                                   gram_matvec_bwd, precision)
 
     @staticmethod
-    def smem_bytes(d: int, s: int, rows_per_cta: int = 1) -> int:
+    def smem_bytes(d: int, s: int, rows_per_cta: int = 1, precision: str = "fp32") -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        return _build.library().repro_gram_matvec_smem_bytes(
+        return getattr(_build.library(), f"repro_gram_matvec_smem_bytes{_SUFFIX[precision]}")(
             d, gram_plan(1, 1, d, s).width, rows_per_cta)
 
-    def _launch(self, x, z, v, *, kind):
-        out = _launch_matvec(self.name, x, z, v, kind)
-        self.launches += 1  # one call, one or two launches
+    def _launch(self, x, z, v, *, kind, precision="fp32"):
+        out = _launch_matvec(self.name, x, z, v, kind, precision)
+        self._count(precision)  # one call, one or two launches
         return out
 
 
-def _launch_matvec(name, x, z, v, kind):
-    """K̃(x, z) @ v by the Gram kernel on ``gram_plan``'s launch (its column
-    chunks summed in a fixed order inside the C entry)."""
+def _launch_matvec(name, x, z, v, kind, precision="fp32"):
+    """K̃(x, z) @ v by the Gram kernel of the tile precision on ``gram_plan``'s
+    launch (its column chunks summed in a fixed order inside the C entry)."""
     check_operands(name, x, z, v)
     _check_chain(name, x, z, v)
     (n, d), m, s = x.shape, z.shape[0], v.shape[1]
@@ -308,7 +355,7 @@ def _launch_matvec(name, x, z, v, kind):
     ws = torch.empty(plan.workspace_floats(n, s), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _build.library().repro_gram_matvec_f32(
+        err = getattr(_build.library(), f"repro_gram_matvec_{_ENTRY[precision]}")(
             x.data_ptr(), z.data_ptr(), v.data_ptr(), None, ws.data_ptr(), out.data_ptr(),
             n, m, d, s, CUDA_KINDS.index(kind), n, plan.width, plan.chunk,
             plan.rows_per_cta, stream,
@@ -379,7 +426,7 @@ class GramMatvecBwd:
         return out
 
 
-class GramRowsMatvec:
+class GramRowsMatvec(LaunchCounts):
     """The row-panel matvec K̃(xi, x) @ u of SDD's ``rows_mv``: the Gram
     kernel on ``gram_plan(p, n, d, s)``, as ``gram_matvec`` runs it, counted
     apart (``launches``, never the plain version's calls). Differentiable in
@@ -387,21 +434,20 @@ class GramRowsMatvec:
 
     name = "gram_rows_matvec"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, xi: torch.Tensor, x: torch.Tensor, u: torch.Tensor, *,
-                 kind: str = "se") -> torch.Tensor:
+                 kind: str = "se", precision: str = "fp32") -> torch.Tensor:
         """xi:(p,d) x:(n,d) u:(n,s) → (p,s), inputs pre-scaled by 1/ℓ."""
         check_kind(kind)
+        check_precision(precision)
         if all(t.device.type == "cpu" for t in (xi, x, u)):
-            return _GramMatvecFn.apply(xi, x, u, kind, gram_rows_matvec_ref,
-                                       gram_matvec_bwd_ref)
-        return _GramMatvecFn.apply(xi, x, u, kind, self._launch, gram_matvec_bwd)
+            return _GramMatvecFn.apply(xi, x, u, kind, _at(gram_rows_matvec_ref, precision),
+                                       gram_matvec_bwd_ref, precision)
+        return _GramMatvecFn.apply(xi, x, u, kind, _at(self._launch, precision),
+                                   gram_matvec_bwd, precision)
 
-    def _launch(self, xi, x, u, *, kind):
-        out = _launch_matvec(self.name, xi, x, u, kind)
-        self.launches += 1
+    def _launch(self, xi, x, u, *, kind, precision="fp32"):
+        out = _launch_matvec(self.name, xi, x, u, kind, precision)
+        self._count(precision)
         return out
 
 
@@ -411,18 +457,20 @@ class _GramRowsPairFn(torch.autograd.Function):
     ê = ē + A ḡ masked like err, dlook = Aᵀ ê, db = −ê, and dA = ê lookᵀ + err ḡᵀ,
     a rank-2s product the Gram backward takes on the concatenated factors.
     ``ops`` holds the implementations: the kernels' wrappers, or the plain
-    versions."""
+    versions, ``ops["pair"]`` at the forward's tile ``precision`` (a bf16
+    forward's backward raises)."""
 
     @staticmethod
-    def forward(ctx, xi, x, look, b, kind, p_true, ops):
+    def forward(ctx, xi, x, look, b, kind, p_true, ops, precision="fp32"):
         err, g = ops["pair"](xi, x, look, b, kind=kind, p_true=p_true)
         ctx.save_for_backward(xi, x, look, err)
-        ctx.kind, ctx.p_true, ctx.ops = kind, p_true, ops
+        ctx.kind, ctx.p_true, ctx.ops, ctx.precision = kind, p_true, ops, precision
         return err, g
 
     @staticmethod
     @once_differentiable
     def backward(ctx, e_bar, g_bar):
+        no_bf16_backward(ctx.precision)
         xi, x, look, err = ctx.saved_tensors
         ops, kind = ctx.ops, ctx.kind
         e_bar = torch.zeros_like(err) if e_bar is None else e_bar.contiguous()
@@ -439,38 +487,39 @@ class _GramRowsPairFn(torch.autograd.Function):
             colv = torch.cat([look, g_bar], dim=1).contiguous()  # (n, 2s)
             dxi = ops["bwd"](xi, x, rowv, colv, kind=kind) if need_xi else None
             dx = ops["bwd"](x, xi, colv, rowv, kind=kind) if need_x else None
-        return dxi, dx, dlook, db, None, None, None
+        return dxi, dx, dlook, db, None, None, None, None
 
 
 _PLAIN_PAIR_OPS = dict(pair=gram_rows_pair_ref, rows=gram_rows_matvec_ref,
                        mv=gram_matvec_ref, bwd=gram_matvec_bwd_ref)
 
 
-class GramRowsPair:
-    """The wrapper of the fused pair step (``repro_gram_rows_pair_f32``: the
-    row panel's matvec, the chunk sum minus b, then the Gram kernel on
-    (x, xi, err); three or four launches on one stream). ``launches`` counts the pair
-    launches it made (never the plain version's calls, nor its backward's)."""
+class GramRowsPair(LaunchCounts):
+    """The wrapper of the fused pair step (``repro_gram_rows_pair_f32``, or
+    ``_bf16``: the row panel's matvec, the chunk sum minus b, then the Gram
+    kernel on (x, xi, err), all at the tile precision; three or four launches
+    on one stream). ``launches`` counts the pair launches it made (never the
+    plain version's calls, nor its backward's)."""
 
     name = "gram_rows_pair"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor,
-                 b: torch.Tensor, *, kind: str = "se", p_true=None) -> tuple:
+                 b: torch.Tensor, *, kind: str = "se", p_true=None,
+                 precision: str = "fp32") -> tuple:
         """xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → (err (p,s), g (n,s)), inputs
         pre-scaled by 1/ℓ; err rows ≥ ``p_true`` (default p) are zeroed."""
         check_kind(kind)
+        check_precision(precision)
         p_true = xi.shape[0] if p_true is None else int(p_true)
         if all(t.device.type == "cpu" for t in (xi, x, look, b)):
             ops = _PLAIN_PAIR_OPS
         else:
             ops = dict(pair=self._launch, rows=gram_rows_matvec._launch,
                        mv=gram_matvec._launch, bwd=gram_matvec_bwd)
-        return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops)
+        ops = dict(ops, pair=_at(ops["pair"], precision))
+        return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops, precision)
 
-    def _launch(self, xi, x, look, b, *, kind, p_true):
+    def _launch(self, xi, x, look, b, *, kind, p_true, precision="fp32"):
         check_operands(self.name, xi, x, look, b)
         _check_chain(self.name, xi, x, look)
         (p, d), n, s = xi.shape, x.shape[0], look.shape[1]
@@ -489,14 +538,14 @@ class GramRowsPair:
                          dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            code = _build.library().repro_gram_rows_pair_f32(
+            code = getattr(_build.library(), f"repro_gram_rows_pair_{_ENTRY[precision]}")(
                 xi.data_ptr(), x.data_ptr(), look.data_ptr(), b.data_ptr(),
                 ws.data_ptr(), err.data_ptr(), g.data_ptr(), p, n, d, s,
                 CUDA_KINDS.index(kind), p_true, panel.width, panel.chunk,
                 panel.rows_per_cta, back.chunk, back.rows_per_cta, stream,
             )
         _build.check(code, self.name)
-        self.launches += 1
+        self._count(precision)
         return err, g
 
 

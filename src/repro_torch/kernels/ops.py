@@ -29,8 +29,18 @@ reference (``ops.py:150-163,200-204,287-297,381,496`` there): the cores'
 autograd Functions carry the kernels' VJPs (∂x, ∂ω and the operand's), and
 the factors around them keep their plain autodiff.
 
+``precision`` is the reference's tile precision, pinned by a spec through
+``solve()`` like ``backend``: ``"fp32"``, or ``"bf16"``, bfloat16 contraction
+operands with fp32 accumulation. On ``cuda`` it selects the kernels' bf16
+tiles (their own cast points, ``kernels/ref.py``); on the plain backends it
+applies to the panel and feature contractions alone (:func:`_dot`, the
+reference's ``ops._dot``: the panel, the covariance map and the features stay
+fp32), and ``gram_mv`` on ``chunked``/``dense`` ignores it, as the
+reference's does.
+
 Causal attention goes through :func:`flash_attention` on ``"cuda"`` (the flash
-kernel, ``flash_attention.py``) or ``"plain"`` (materialised logits).
+kernel, ``flash_attention.py``) or ``"plain"`` (materialised logits); bf16
+inputs are not ported.
 
 ``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
 backend dispatched, ``ATTENTION_TRACE_COUNTS`` the attention calls (every call
@@ -45,14 +55,12 @@ from .flash_attention import flash_attention as _flash_kernel
 from .gram_matvec import (
     CUDA_KINDS, gram_matvec, gram_rows_matvec as _rows_kernel, gram_rows_pair as _pair_kernel,
 )
-from .ref import flash_attention_ref
+from .ref import PRECISIONS, check_precision, flash_attention_ref, tile_cast
 from .rff_matvec import rff_matvec, rff_pair, rff_t_matvec
 
 BACKENDS = ("auto", "cuda", "chunked", "dense")
 FEATURE_BACKENDS = ("auto", "cuda", "features")
 ATTENTION_BACKENDS = ("auto", "cuda", "plain")
-#: tile precisions the reference knows; only "fp32" is ported
-PRECISIONS = ("fp32", "bf16")
 
 MATVEC_TRACE_COUNTS = {"cuda": 0, "chunked": 0, "dense": 0}
 FEATURE_TRACE_COUNTS = {"cuda": 0, "features": 0}
@@ -82,13 +90,12 @@ def _no_pallas(backend: str) -> None:
         )
 
 
-def check_precision(precision: str) -> None:
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported yet: ROADMAP queue 1 item 15"
-        )
+def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b at the tile precision, the reference's ``ops._dot``: bfloat16
+    operands and fp32 accumulation for ``"bf16"``, taken as a product of the
+    rounded operands in fp32 (a bfloat16 matmul would round its result); the
+    fp32 path stays a plain ``@``."""
+    return tile_cast(a, precision) @ tile_cast(b, precision)
 
 
 def resolve_backend(backend: str, kind: str, device: torch.device) -> str:
@@ -142,8 +149,9 @@ def gram_mv(
         ls = params.lengthscale
         xs = (x / ls).contiguous()
         zs = xs if z is None else (z / ls).contiguous()
-        out = params.signal * gram_matvec(xs, zs, v2.contiguous(), kind=params.kind)
-    elif bk == "chunked":
+        out = params.signal * gram_matvec(xs, zs, v2.contiguous(), kind=params.kind,
+                                          precision=precision)
+    elif bk == "chunked":  # the plain backends ignore precision, as the reference's
         out = matvec(params, x, v2, z=z, row_chunk=row_chunk)
     else:
         out = gram(params, x, z) @ v2
@@ -182,10 +190,10 @@ def gram_rows_matvec(
     if bk == "cuda":
         xs = (x / params.lengthscale).contiguous()
         out = params.signal * _rows_kernel(xs[idx].contiguous(), xs, u2.contiguous(),
-                                           kind=params.kind)
+                                           kind=params.kind, precision=precision)
     else:
         panel = gram(params, x[idx], x)  # (|idx|, n)
-        out = panel.T @ u2 if transpose else panel @ u2
+        out = _dot(panel.T, u2, precision) if transpose else _dot(panel, u2, precision)
     return out[:, 0] if squeeze else out
 
 
@@ -216,11 +224,12 @@ def gram_rows_pair(
     if bk == "cuda":
         xs = (x / params.lengthscale).contiguous()
         err_u, g_u = _pair_kernel(xs[idx].contiguous(), xs, look.contiguous(),
-                                  (b / params.signal).contiguous(), kind=params.kind)
+                                  (b / params.signal).contiguous(), kind=params.kind,
+                                  precision=precision)
         return params.signal * err_u, params.signal ** 2 * g_u
     panel = gram(params, x[idx], x)  # (|idx|, n), built once, used twice
-    err = panel @ look - b
-    return err, panel.T @ err
+    err = _dot(panel, look, precision) - b
+    return err, _dot(panel.T, err, precision)
 
 
 def resolve_feature_backend(backend: str, device: torch.device, paired: bool = True) -> str:
@@ -274,10 +283,10 @@ def rff_mv(
     if bk == "cuda":
         # the kernel carries √(1/m); σ_f² is folded in here, outside it
         out = torch.sqrt(signal) * rff_matvec(
-            x.contiguous(), omega.contiguous(), w2.contiguous()
+            x.contiguous(), omega.contiguous(), w2.contiguous(), precision=precision
         )
     else:
-        out = materialised_features(x, omega, signal) @ w2
+        out = _dot(materialised_features(x, omega, signal), w2, precision)
     return out[:, 0] if squeeze else out
 
 
@@ -300,10 +309,10 @@ def rff_t_mv(
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
         out = torch.sqrt(signal) * rff_t_matvec(
-            x.contiguous(), omega.contiguous(), u2.contiguous()
+            x.contiguous(), omega.contiguous(), u2.contiguous(), precision=precision
         )
     else:
-        out = materialised_features(x, omega, signal).T @ u2
+        out = _dot(materialised_features(x, omega, signal).T, u2, precision)
     return out[:, 0] if squeeze else out
 
 
@@ -329,10 +338,11 @@ def rff_pair_mv(
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
         # the core's two √(1/m) factors give 1/m; σ_f² is applied here
-        out = signal * rff_pair(x.contiguous(), omega.contiguous(), u2.contiguous())
+        out = signal * rff_pair(x.contiguous(), omega.contiguous(), u2.contiguous(),
+                                precision=precision)
     else:
         feats = materialised_features(x, omega, signal)  # built once, used twice
-        out = feats @ (feats.T @ u2)
+        out = _dot(feats, _dot(feats.T, u2, precision), precision)
     return out[:, 0] if squeeze else out
 
 
@@ -347,7 +357,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
     if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
-        check_precision("bf16")
+        raise NotImplementedError(
+            "bf16 inputs to flash attention are not ported yet: ROADMAP queue 1 item 15"
+        )
     bk = ("cuda" if q.device.type == "cuda" else "plain") if backend == "auto" else backend
     ATTENTION_TRACE_COUNTS[bk] += 1
     if bk == "cuda":

@@ -6,6 +6,18 @@ and ``chip_smoke.py`` and the card tests hold each CUDA kernel against them.
 ``gram_matvec_ref`` and ``gram_matvec_bwd_ref`` work in row chunks so that they
 also run at the sizes the kernels are checked at on the card, where K itself
 would not fit.
+
+The forward matvecs take the reference kernels' tile ``precision``. With
+``"bf16"`` they round to bfloat16 (to nearest even) exactly where the Pallas
+kernels cast (``_cast_mxu``, ``repro/kernels/gram_matvec.py:53-82`` and
+``rff_matvec.py:40-47``): the points before the distance or projection, whose
+norms and inner products are then summed from the rounded values; the
+covariance tile or the sin/cos tile before its contraction, and the
+contraction's other operand. Everything else stays in the inputs' dtype, and
+every product of rounded operands is taken in that dtype, so a product of two
+bfloat16 values is exact and only its sum rounds: the fp32 accumulation of
+the tensor cores, with no TF32 and no bfloat16 matmul (which would round its
+result, and on the card may reduce in reduced precision).
 """
 from __future__ import annotations
 
@@ -48,6 +60,22 @@ def dcov_map(d2: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"unknown stationary kernel {kind!r}")
 
 
+#: the tile precisions of the reference's kernels (``TILE_PRECISIONS``)
+PRECISIONS = ("fp32", "bf16")
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+
+
+def tile_cast(a: torch.Tensor, precision: str) -> torch.Tensor:
+    """A contraction operand as the tile precision casts it, kept in a's dtype:
+    rounded to bfloat16 (to nearest even) for ``"bf16"``, as it is for
+    ``"fp32"``."""
+    return a.to(torch.bfloat16).to(a.dtype) if precision == "bf16" else a
+
+
 def sqdist(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Squared distances via ‖x‖² + ‖z‖² − 2x·z, clamped at 0."""
     xn = torch.sum(x * x, dim=-1)[:, None]
@@ -72,15 +100,19 @@ def gram_matvec_ref(
     *,
     kind: str = "se",
     row_chunk: int = 4096,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """k(x, z) @ v with unit signal and no jitter — the kernel's core, as
     ``gram_matvec_ref(..., signal=1, jitter=0)`` in the reference.
     x:(n,d) z:(m,d) v:(m,s) → (n,s), inputs already lengthscale-scaled (x/ℓ).
+    With ``"bf16"``, ``gram_matvec_pallas``'s casts: x, z, the k tile and v.
     """
+    check_precision(precision)
     if not x.shape[0]:
         return v.new_zeros((0, v.shape[1]))
+    x, z, v = (tile_cast(a, precision) for a in (x, z, v))
     return torch.cat([
-        stationary_map(sqdist(x[i:i + row_chunk], z), kind) @ v
+        tile_cast(stationary_map(sqdist(x[i:i + row_chunk], z), kind), precision) @ v
         for i in range(0, x.shape[0], row_chunk)
     ])
 
@@ -119,19 +151,30 @@ def gram_matvec_bwd_ref(
     return torch.cat(out) if out else x.new_zeros((0, x.shape[1]))
 
 
-def rff_matvec_ref(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def rff_matvec_ref(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *,
+                   precision: str = "fp32") -> torch.Tensor:
     """Φ(x) @ w with paired sin/cos features, unit signal.
-    x:(n,d) ω:(m,d) w:(2m,s) → (n,s)."""
+    x:(n,d) ω:(m,d) w:(2m,s) → (n,s). With ``"bf16"``, ``rff_matvec_pallas``'s
+    casts: x and ω before the projection, the unscaled sin/cos tile and w,
+    √(1/m) applied to the contraction's sum."""
+    check_precision(precision)
     m = omega.shape[0]
+    if precision == "bf16":
+        sn, cs = _proj_features(x, omega, precision)
+        feats = tile_cast(torch.cat([sn, cs], -1), precision)
+        return math.sqrt(1.0 / m) * (feats @ tile_cast(w, precision))
     proj = x @ omega.T
     phi = math.sqrt(1.0 / m) * torch.cat([torch.sin(proj), torch.cos(proj)], -1)
     return phi @ w
 
 
 def gram_rows_matvec_ref(xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor, *,
-                         kind: str = "se") -> torch.Tensor:
+                         kind: str = "se", precision: str = "fp32") -> torch.Tensor:
     """K̃(xi, x) @ look: the row panel's matvec with unit signal, inputs
-    pre-scaled by 1/ℓ. xi:(p,d) x:(n,d) look:(n,s) → (p,s)."""
+    pre-scaled by 1/ℓ. xi:(p,d) x:(n,d) look:(n,s) → (p,s). With ``"bf16"``
+    it is :func:`gram_matvec_ref`'s, the Gram kernel's casts."""
+    if precision != "fp32":
+        return gram_matvec_ref(xi, x, look, kind=kind, precision=precision)
     return stationary_map(sqdist_diff(xi, x), kind) @ look
 
 
@@ -143,33 +186,44 @@ def gram_rows_pair_ref(
     *,
     kind: str = "se",
     p_true=None,
+    precision: str = "fp32",
 ) -> tuple:
     """err = K̃(xi, x) @ look − b with rows ≥ ``p_true`` zeroed, and
     g = K̃(xi, x)ᵀ @ err, from ONE panel — ``gram_rows_pair_pallas``'s
     semantics (unit signal, inputs pre-scaled by 1/ℓ).
-    xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → ((p,s), (n,s))."""
+    xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → ((p,s), (n,s)). With ``"bf16"``,
+    its casts: the points, the panel and look, and err (accumulated, b
+    subtracted and masked at full precision) before the second contraction."""
+    check_precision(precision)
     p = xi.shape[0]
     p_true = p if p_true is None else p_true
-    panel = stationary_map(sqdist_diff(xi, x), kind)  # (p, n), built once
-    err = panel @ look - b
+    if precision == "bf16":  # the cast points' distances (_pair_dists)
+        panel = stationary_map(sqdist(tile_cast(xi, precision), tile_cast(x, precision)), kind)
+    else:
+        panel = stationary_map(sqdist_diff(xi, x), kind)  # (p, n), built once
+    panel = tile_cast(panel, precision)
+    err = panel @ tile_cast(look, precision) - b
     keep = (torch.arange(p, device=xi.device) < p_true)[:, None]
     err = torch.where(keep, err, torch.zeros_like(err))
-    return err, panel.T @ err
+    return err, panel.T @ tile_cast(err, precision)
 
 
-def _proj_features(x: torch.Tensor, omega: torch.Tensor) -> tuple:
-    proj = x @ omega.T
+def _proj_features(x: torch.Tensor, omega: torch.Tensor, precision: str = "fp32") -> tuple:
+    proj = tile_cast(x, precision) @ tile_cast(omega, precision).T
     return torch.sin(proj), torch.cos(proj)
 
 
 def rff_t_matvec_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                     m_true=None) -> torch.Tensor:
+                     m_true=None, precision: str = "fp32") -> torch.Tensor:
     """Φ(x)ᵀ @ u with paired sin/cos features, unit signal, scale √(1/m) of
     the (possibly padded) m, sin rows first, rows of frequencies ≥ ``m_true``
-    zeroed in both halves. x:(n,d) ω:(m,d) u:(n,s) → (2m,s)."""
+    zeroed in both halves. x:(n,d) ω:(m,d) u:(n,s) → (2m,s). With ``"bf16"``,
+    ``rff_t_matvec_pallas``'s casts: x and ω, the sin/cos tiles and u."""
+    check_precision(precision)
     m = omega.shape[0]
     m_true = m if m_true is None else m_true
-    sn, cs = _proj_features(x, omega)
+    sn, cs = (tile_cast(f, precision) for f in _proj_features(x, omega, precision))
+    u = tile_cast(u, precision)
     scale = math.sqrt(1.0 / m)
     t = scale * torch.cat([sn.T @ u, cs.T @ u], dim=0)
     keep = (torch.arange(2 * m, device=x.device) % m < m_true)[:, None]
@@ -202,12 +256,14 @@ def rff_bwd_ref(
 
 
 def rff_pair_ref(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                 m_true=None) -> torch.Tensor:
+                 m_true=None, precision: str = "fp32") -> torch.Tensor:
     """Φ̃(Φ̃ᵀu) with Φ̃ = √(1/m)·[sin | cos] of the (possibly padded) m, the
     intermediate's rows of frequencies ≥ ``m_true`` zeroed (a zero frequency's
     cos is 1: its row would be Σᵢuᵢ, not 0) — ``rff_pair_pallas``'s semantics.
-    x:(n,d) ω:(m,d) u:(n,s) → (n,s)."""
-    return rff_matvec_ref(x, omega, rff_t_matvec_ref(x, omega, u, m_true=m_true))
+    x:(n,d) ω:(m,d) u:(n,s) → (n,s). With ``"bf16"`` the second phase casts
+    the intermediate as it is kept, scaled by √(1/m) and masked."""
+    t = rff_t_matvec_ref(x, omega, u, m_true=m_true, precision=precision)
+    return rff_matvec_ref(x, omega, t, precision=precision)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -30,6 +30,13 @@ autograd Functions with the plain versions (``ref.rff_matvec_ref``,
 the launches; ``plain_rff_matvec``, ``plain_rff_t_matvec`` and
 ``plain_rff_pair`` are those Functions on any device and dtype, the float64
 yardstick of the kernels' gradients on the card.
+
+The three matvecs take the reference's tile ``precision``: ``"fp32"``, or
+``"bf16"``, bfloat16 contraction operands (x and ω before the projection, the
+sin/cos tiles, the operand; the pair's second phase its scaled intermediate)
+with fp32 accumulation, in ``csrc/rff_matvec_bf16.cu``. The backward of a
+bf16 forward is not ported (the RFF backward kernel's bf16 branch, ROADMAP
+queue 1 item 15) and raises.
 """
 from __future__ import annotations
 
@@ -42,10 +49,10 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .gram_matvec import (
-    GRID_Y, MAX_DIM, NARROW_G, SLICE_COLS, TILE_COLS, TILE_ROWS, WIDE_DIM, _cdiv,
-    check_operands, round_chunks,
+    _ENTRY, _SUFFIX, GRID_Y, MAX_DIM, NARROW_G, SLICE_COLS, TILE_COLS, TILE_ROWS, WIDE_DIM,
+    LaunchCounts, _at, _cdiv, check_operands, no_bf16_backward, round_chunks,
 )
-from .ref import rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
+from .ref import check_precision, rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 
 #: The kernel's tile (``csrc/rff_matvec.cu``): Φ̃W runs 64 data rows a CTA over
 #: feature tiles of FREQ_TILE frequencies; Φ̃ᵀu runs FREQ_TILE frequencies a
@@ -204,22 +211,24 @@ def _projection_grads(ctx, x, omega, p, q):
 class _RFFMatvecFn(torch.autograd.Function):
     """Φ̃(x) @ w with the reference's fused VJP: the cotangent of Φ̃ is ḡwᵀ, so
     dx and dω are ``_projection_grads`` of (ḡ, w), and dw = Φ̃ᵀḡ. ``ops`` holds
-    the implementations: the kernels' wrappers, or the plain versions."""
+    the implementations: the kernels' wrappers, or the plain versions, the
+    forward's at its tile ``precision`` (a bf16 forward's backward raises)."""
 
     @staticmethod
-    def forward(ctx, x, omega, w, ops):
+    def forward(ctx, x, omega, w, ops, precision="fp32"):
         ctx.save_for_backward(x, omega, w)
-        ctx.ops = ops
-        return ops["mv"](x, omega, w)
+        ctx.ops, ctx.precision = ops, precision
+        return _at(ops["mv"], precision)(x, omega, w)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
+        no_bf16_backward(ctx.precision)
         x, omega, w = ctx.saved_tensors
         g = grad.contiguous()
         dx, domega = _projection_grads(ctx, x, omega, g, w)
         dw = ctx.ops["t"](x, omega, g, omega.shape[0]) if ctx.needs_input_grad[2] else None
-        return dx, domega, dw, None
+        return dx, domega, dw, None, None
 
 
 class _RFFTMatvecFn(torch.autograd.Function):
@@ -228,21 +237,22 @@ class _RFFTMatvecFn(torch.autograd.Function):
     so dx and dω are ``_projection_grads`` of (u, ḡ), and du = Φ̃ḡ."""
 
     @staticmethod
-    def forward(ctx, x, omega, u, m_true, ops):
+    def forward(ctx, x, omega, u, m_true, ops, precision="fp32"):
         ctx.save_for_backward(x, omega, u)
-        ctx.m_true, ctx.ops = m_true, ops
-        return ops["t"](x, omega, u, m_true)
+        ctx.m_true, ctx.ops, ctx.precision = m_true, ops, precision
+        return _at(ops["t"], precision)(x, omega, u, m_true)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
+        no_bf16_backward(ctx.precision)
         x, omega, u = ctx.saved_tensors
         m = omega.shape[0]
         keep = (torch.arange(2 * m, device=x.device) % m < ctx.m_true)[:, None]
         g = torch.where(keep, grad, torch.zeros_like(grad)).contiguous()
         dx, domega = _projection_grads(ctx, x, omega, u, g)
         du = ctx.ops["mv"](x, omega, g) if ctx.needs_input_grad[2] else None
-        return dx, domega, du, None, None
+        return dx, domega, du, None, None, None
 
 
 class _RFFPairFn(torch.autograd.Function):
@@ -252,14 +262,15 @@ class _RFFPairFn(torch.autograd.Function):
     rank-2s factors give dx and dω."""
 
     @staticmethod
-    def forward(ctx, x, omega, u, m_true, ops):
+    def forward(ctx, x, omega, u, m_true, ops, precision="fp32"):
         ctx.save_for_backward(x, omega, u)
-        ctx.m_true, ctx.ops = m_true, ops
-        return ops["pair"](x, omega, u, m_true)
+        ctx.m_true, ctx.ops, ctx.precision = m_true, ops, precision
+        return _at(ops["pair"], precision)(x, omega, u, m_true)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
+        no_bf16_backward(ctx.precision)
         x, omega, u = ctx.saved_tensors
         ops, g, m_true = ctx.ops, grad.contiguous(), ctx.m_true
         dx = domega = None
@@ -269,39 +280,40 @@ class _RFFPairFn(torch.autograd.Function):
             dx, domega = _projection_grads(ctx, x, omega, torch.cat([g, u], dim=1).contiguous(),
                                            torch.cat([t, tt], dim=1))
         du = ops["pair"](x, omega, g, m_true) if ctx.needs_input_grad[2] else None
-        return dx, domega, du, None, None
+        return dx, domega, du, None, None, None
 
 
-def _t_ref(x, omega, u, m_true):
-    return rff_t_matvec_ref(x, omega, u, m_true=m_true)
+def _t_ref(x, omega, u, m_true, *, precision="fp32"):
+    return rff_t_matvec_ref(x, omega, u, m_true=m_true, precision=precision)
 
 
-def _pair_ref(x, omega, u, m_true):
-    return rff_pair_ref(x, omega, u, m_true=m_true)
+def _pair_ref(x, omega, u, m_true, *, precision="fp32"):
+    return rff_pair_ref(x, omega, u, m_true=m_true, precision=precision)
 
 
 _PLAIN_OPS = dict(mv=rff_matvec_ref, t=_t_ref, pair=_pair_ref, bwd=rff_bwd_ref)
 
 
-def plain_rff_matvec(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def plain_rff_matvec(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *,
+                     precision: str = "fp32") -> torch.Tensor:
     """The differentiable Φ̃(x) @ w with the plain versions in place of the
     kernels, on any device and dtype: what CPU tensors take, and the yardstick
     of the kernels' gradients on the card."""
-    return _RFFMatvecFn.apply(x, omega, w, _PLAIN_OPS)
+    return _RFFMatvecFn.apply(x, omega, w, _PLAIN_OPS, precision)
 
 
 def plain_rff_t_matvec(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                       m_true=None) -> torch.Tensor:
+                       m_true=None, precision: str = "fp32") -> torch.Tensor:
     """The differentiable Φ̃(x)ᵀ @ u on the plain versions (see
     :func:`plain_rff_matvec`)."""
-    return _RFFTMatvecFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS)
+    return _RFFTMatvecFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS, precision)
 
 
 def plain_rff_pair(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                   m_true=None) -> torch.Tensor:
+                   m_true=None, precision: str = "fp32") -> torch.Tensor:
     """The differentiable Φ̃(Φ̃ᵀu) on the plain versions (see
     :func:`plain_rff_matvec`)."""
-    return _RFFPairFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS)
+    return _RFFPairFn.apply(x, omega, u, _m_true(omega, m_true), _PLAIN_OPS, precision)
 
 
 def _check_rff(name, x, omega, u):
@@ -325,29 +337,29 @@ def _m_true(omega, m_true):
     return m_true
 
 
-class RFFMatvec:
-    """The wrapper of the fused RFF matvec kernel. ``launches`` counts the
-    kernel launches it made (never the plain version's calls)."""
+class RFFMatvec(LaunchCounts):
+    """The wrapper of the fused RFF matvec kernels, fp32 and bf16. Its
+    ``LaunchCounts`` count the launches it made (never the plain version's
+    calls)."""
 
     name = "rff_matvec"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
-    def __call__(self, x: torch.Tensor, omega: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *,
+                 precision: str = "fp32") -> torch.Tensor:
         """x:(n,d) ω:(m,d) w:(2m,s) → (n,s)."""
+        check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, omega, w)):
-            return plain_rff_matvec(x, omega, w)
-        return _RFFMatvecFn.apply(x, omega, w, _KERNEL_OPS)
+            return plain_rff_matvec(x, omega, w, precision=precision)
+        return _RFFMatvecFn.apply(x, omega, w, _KERNEL_OPS, precision)
 
     @staticmethod
-    def smem_bytes(d: int, s: int) -> int:
+    def smem_bytes(d: int, s: int, precision: str = "fp32") -> int:
         """Dynamic shared memory per CTA of a launch at these d and s (either
         orientation)."""
-        return _build.library().repro_rff_matvec_smem_bytes(d, rff_plan(1, 1, d, s).width)
+        return getattr(_build.library(), f"repro_rff_matvec_smem_bytes{_SUFFIX[precision]}")(
+            d, rff_plan(1, 1, d, s).width)
 
-    def _launch(self, x, omega, w):
+    def _launch(self, x, omega, w, *, precision="fp32"):
         check_operands(self.name, x, omega, w)
         (n, d), (m, dw), (mw, s) = x.shape, omega.shape, w.shape
         if dw != d or mw != 2 * m:
@@ -367,16 +379,16 @@ class RFFMatvec:
         ws = torch.empty(plan.mv_workspace_floats(n, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_rff_matvec_f32(
+            err = getattr(_build.library(), f"repro_rff_matvec_{_ENTRY[precision]}")(
                 x.data_ptr(), omega.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(),
                 n, m, d, s, plan.width, plan.freq_chunk, stream,
             )
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 
-class RFFTMatvec:
+class RFFTMatvec(LaunchCounts):
     """The wrapper of the transposed RFF kernel (``repro_rff_t_matvec_f32``:
     ``rff_plan``'s row chunks into a partial-sum workspace, then a
     fixed-order sum). ``launches`` counts the launches it made (never the
@@ -384,19 +396,16 @@ class RFFTMatvec:
 
     name = "rff_t_matvec"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                 m_true=None) -> torch.Tensor:
+                 m_true=None, precision: str = "fp32") -> torch.Tensor:
         """x:(n,d) ω:(m,d) u:(n,s) → (2m,s), sin rows then cos rows; rows of
         frequencies ≥ ``m_true`` (default m) zeroed."""
+        check_precision(precision)
         m_true = _m_true(omega, m_true)
-        if all(t.device.type == "cpu" for t in (x, omega, u)):
-            return _RFFTMatvecFn.apply(x, omega, u, m_true, _PLAIN_OPS)
-        return _RFFTMatvecFn.apply(x, omega, u, m_true, _KERNEL_OPS)
+        ops = _PLAIN_OPS if all(t.device.type == "cpu" for t in (x, omega, u)) else _KERNEL_OPS
+        return _RFFTMatvecFn.apply(x, omega, u, m_true, ops, precision)
 
-    def _launch(self, x, omega, u, m_true):
+    def _launch(self, x, omega, u, m_true, *, precision="fp32"):
         check_operands(self.name, x, omega, u)
         _check_rff(self.name, x, omega, u)
         (n, d), m, s = x.shape, omega.shape[0], u.shape[1]
@@ -409,16 +418,16 @@ class RFFTMatvec:
         ws = torch.empty(plan.t_workspace_floats(m, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_rff_t_matvec_f32(
+            err = getattr(_build.library(), f"repro_rff_t_matvec_{_ENTRY[precision]}")(
                 x.data_ptr(), omega.data_ptr(), u.data_ptr(), ws.data_ptr(),
                 out.data_ptr(), n, m, d, s, m_true, plan.width, plan.row_chunk, stream,
             )
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 
-class RFFPair:
+class RFFPair(LaunchCounts):
     """The wrapper of the fused regulariser pair (``repro_rff_pair_f32``: the
     kernel's Φ̃ᵀu orientation and its fixed-order sum into a (2m, s) buffer,
     masked to ``m_true``, then its Φ̃W orientation on it; three or four
@@ -428,18 +437,15 @@ class RFFPair:
 
     name = "rff_pair"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                 m_true=None) -> torch.Tensor:
+                 m_true=None, precision: str = "fp32") -> torch.Tensor:
         """x:(n,d) ω:(m,d) u:(n,s) → Φ̃(Φ̃ᵀu) (n,s), Φ̃ = √(1/m)[sin | cos]."""
+        check_precision(precision)
         m_true = _m_true(omega, m_true)
-        if all(t.device.type == "cpu" for t in (x, omega, u)):
-            return _RFFPairFn.apply(x, omega, u, m_true, _PLAIN_OPS)
-        return _RFFPairFn.apply(x, omega, u, m_true, _KERNEL_OPS)
+        ops = _PLAIN_OPS if all(t.device.type == "cpu" for t in (x, omega, u)) else _KERNEL_OPS
+        return _RFFPairFn.apply(x, omega, u, m_true, ops, precision)
 
-    def _launch(self, x, omega, u, m_true):
+    def _launch(self, x, omega, u, m_true, *, precision="fp32"):
         check_operands(self.name, x, omega, u)
         _check_rff(self.name, x, omega, u)
         (n, d), m, s = x.shape, omega.shape[0], u.shape[1]
@@ -452,13 +458,13 @@ class RFFPair:
         t, ws = buf[:2 * m * s], buf[2 * m * s:]  # t first: 16-byte aligned
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_rff_pair_f32(
+            err = getattr(_build.library(), f"repro_rff_pair_{_ENTRY[precision]}")(
                 x.data_ptr(), omega.data_ptr(), u.data_ptr(), ws.data_ptr(),
                 t.data_ptr(), out.data_ptr(), n, m, d, s, m_true, plan.width,
                 plan.row_chunk, plan.freq_chunk, stream,
             )
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 

@@ -914,3 +914,169 @@ def test_sgpr_iterative_and_inducing_on_card_follow_the_launch_identities(card):
     assert rff_matvec.launches == 2 and f.shape == (64, 4)
     assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
     assert ops.FEATURE_TRACE_COUNTS["features"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tiles: each kernel against its bf16 plain version (the same cast
+# points, fp32 sums: one bf16 ulp of a panel entry now and then flips with
+# the summation order) and within the reference's bf16-vs-fp32 bound of its
+# fp32 launch; the stochastic solvers' launch identities in bf16
+# ---------------------------------------------------------------------------
+
+#: one bf16 ulp of a single panel entry; the reference's bf16-vs-fp32 bounds
+#: (tests/test_pair_and_precision.py:164,174, and :209-221 for a solve)
+BF16_TOL, BF16_FP32_TOL, BF16_SOLVE_TOL = 2e-3, 5e-2, 8e-2
+
+
+def _bf16_err(got, plain, fp32):
+    """max|Δ| of a bf16 launch against its bf16 plain version and against the
+    fp32 launch, each over its own max(1, scale)."""
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+    return rel(got, plain), rel(got, fp32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m,d,s", [
+    (1000, 1000, 9, 65), (1000, 777, 3, 17), (777, 1000, 9, 1), (999, 1001, 1, 101),
+    (333, 517, 128, 129), (130, 20_000, 9, 17), (34_000, 512, 9, 65),
+])
+def test_bf16_gram_kernel_matches_plain_on_card(card, kind, n, m, d, s):
+    x = _normal(1, n, d, scale=0.6)
+    z = x if n == m else _normal(2, m, d, scale=0.6)
+    v = _normal(3, m, s)
+    before = (gram_matvec.launches, gram_matvec.bf16_launches)
+    out = gram_matvec(x, z, v, kind=kind, precision="bf16")
+    assert (gram_matvec.launches, gram_matvec.bf16_launches) == (before[0], before[1] + 1)
+    plain, fp32 = gram_matvec_ref(x, z, v, kind=kind, precision="bf16"), gram_matvec(x, z, v,
+                                                                                     kind=kind)
+    e_plain, e_fp32 = _bf16_err(out, plain, fp32)
+    assert e_plain <= BF16_TOL and e_fp32 <= BF16_FP32_TOL
+    assert torch.equal(out, gram_matvec(x, z, v, kind=kind, precision="bf16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["se", "matern32"])
+def test_bf16_gram_kernel_columns_are_the_same_at_every_width_on_card(card, kind):
+    # a column's bf16 result depends on its own P row and v column alone:
+    # the same bits beside 7, 63 or 100 other columns (one chunk at n = 8,192)
+    x = _normal(1, 8192, 9, scale=0.6)
+    v = _normal(2, 8192, 101)
+    wide = gram_matvec(x, x, v, kind=kind, precision="bf16")
+    for s in (1, 8, 64):
+        assert torch.equal(gram_matvec(x, x, v[:, :s].contiguous(), kind=kind,
+                                       precision="bf16"), wide[:, :s])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,p,p_true,s", [(3000, 70, 63, 5), (3000, 512, 505, 65),
+                                           (45_730, 512, 505, 65)])
+def test_bf16_gram_rows_kernels_match_plain_on_card(card, kind, n, p, p_true, s):
+    x = _normal(1, n, 9, scale=0.6)
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, n, size=p)).cuda()
+    xi, look, b = x[idx].contiguous(), _normal(3, n, s), _normal(4, p, s)
+    before = (gram_rows_pair.bf16_launches, gram_rows_matvec.bf16_launches)
+    err, g = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true, precision="bf16")
+    mv = gram_rows_matvec(xi, x, look, kind=kind, precision="bf16")
+    assert (gram_rows_pair.bf16_launches, gram_rows_matvec.bf16_launches) == (before[0] + 1,
+                                                                              before[1] + 1)
+    want_e, want_g = gram_rows_pair_ref(xi, x, look, b, kind=kind, p_true=p_true,
+                                        precision="bf16")
+    e32, g32 = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true)
+    for got, plain, fp32 in ((err, want_e, e32), (g, want_g, g32),
+                             (mv, gram_rows_matvec_ref(xi, x, look, kind=kind, precision="bf16"),
+                              gram_rows_matvec(xi, x, look, kind=kind))):
+        e_plain, e_fp32 = _bf16_err(got, plain, fp32)
+        assert e_plain <= BF16_TOL and e_fp32 <= BF16_FP32_TOL
+    assert bool((err[p_true:] == 0).all())
+    again = gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true, precision="bf16")
+    assert torch.equal(again[0], err) and torch.equal(again[1], g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d,s,m_true", [
+    (45_730, 100, 9, 65, 100), (45_730, 100, 9, 65, 93), (1001, 77, 5, 33, 70),
+    (4097, 100, 9, 130, 100), (45_730, 512, 9, 8, 512), (63, 1, 3, 1, 1),
+])
+def test_bf16_rff_kernels_match_plain_on_card(card, n, m, d, s, m_true):
+    x, u, w = _normal(1, n, d, scale=1.5 / d ** 0.5), _normal(2, n, s), _normal(4, 2 * m, s)
+    omega = _normal(3, m, d, scale=0.8)
+    omega[m_true:] = 0.0
+    kernels = (rff_matvec, rff_t_matvec, rff_pair)
+    before = tuple(k.bf16_launches for k in kernels)
+    got = (rff_matvec(x, omega, w, precision="bf16"),
+           rff_t_matvec(x, omega, u, m_true=m_true, precision="bf16"),
+           rff_pair(x, omega, u, m_true=m_true, precision="bf16"))
+    assert tuple(k.bf16_launches for k in kernels) == tuple(b0 + 1 for b0 in before)
+    plain = (rff_matvec_ref(x, omega, w, precision="bf16"),
+             rff_t_matvec_ref(x, omega, u, m_true=m_true, precision="bf16"),
+             rff_pair_ref(x, omega, u, m_true=m_true, precision="bf16"))
+    fp32 = (rff_matvec(x, omega, w), rff_t_matvec(x, omega, u, m_true=m_true),
+            rff_pair(x, omega, u, m_true=m_true))
+    for a, b, c in zip(got, plain, fp32):
+        e_plain, e_fp32 = _bf16_err(a, b, c)
+        assert e_plain <= BF16_TOL and e_fp32 <= BF16_FP32_TOL
+    assert torch.equal(got[2], rff_pair(x, omega, u, m_true=m_true, precision="bf16"))
+
+
+@pytest.mark.gpu
+def test_bf16_backward_and_flash_inputs_raise_on_card(card):
+    # not ported yet (ROADMAP queue 1 item 15): nothing runs in fp32 instead
+    x = _normal(1, 100, 3).requires_grad_()
+    v = _normal(2, 100, 2)
+    out = gram_matvec(x, x, v, kind="se", precision="bf16")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        out.sum().backward()
+    omega = _normal(3, 8, 3)
+    out = rff_pair(x, omega, v, precision="bf16")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        out.sum().backward()
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sgd", "sdd", "ap"])
+def test_bf16_stochastic_solvers_on_card_follow_the_launch_identities(card, name):
+    # 50 bf16 steps on the card on injected draws: every row panel and feature
+    # pair a bf16 kernel launch (pair = feature pair = steps for SGD, rows =
+    # steps for SDD, Gram = steps for AP, and finalize's Gram matvec for SGD
+    # and SDD), no fp32 launch and no plain dispatch; the solution
+    # within the route tolerance of the same bf16 steps on the kernels' plain
+    # versions (backend "cuda" on the CPU: the same cast points), and within
+    # the reference's bf16-vs-fp32 bound of the fp32 solve
+    params, x, b = _toy_card_problem()
+    gen = torch.Generator().manual_seed(0)
+    if name == "sgd":
+        spec = SGD(num_steps=50, batch_size=64, num_features=32, precision="bf16")
+        draws = draw_sgd(Gram(x=x, params=params), 50, 64, 32, generator=gen)
+        card_draws = SGDDraws(idx=draws.idx.cuda(), omega=draws.omega.cuda())
+    else:
+        spec = (SDD(num_steps=50, batch_size=64, step_size_times_n=1.0, averaging=0.05,
+                    precision="bf16")
+                if name == "sdd"
+                else AP(num_steps=50, block_size=64, precision="bf16"))
+        draws = RowDraws(idx=torch.randint(0, 600, (50, 64), generator=gen))
+        card_draws = RowDraws(idx=draws.idx.cuda())
+    on_cpu = solve(Gram(x=x, params=params), b, dataclasses.replace(spec, backend="cuda"),
+                   draws=draws)
+    gop = Gram(x=x.cuda(), params=map_params(torch.Tensor.cuda, params))
+    fp32 = solve(gop, b.cuda(), dataclasses.replace(spec, precision=None), draws=card_draws)
+    ops.reset_matvec_trace_counts()
+    ops.reset_feature_trace_counts()
+    kernels = (gram_rows_pair, gram_rows_matvec, rff_pair, gram_matvec)
+    before = tuple((k.launches, k.bf16_launches) for k in kernels)
+    on_card = solve(gop, b.cuda(), spec, draws=card_draws)
+    launched = tuple(k.bf16_launches - b0[1] for k, b0 in zip(kernels, before))
+    assert launched == {"sgd": (50, 0, 50, 1), "sdd": (0, 50, 0, 1), "ap": (0, 0, 0, 50)}[name]
+    assert all(k.launches == b0[0] for k, b0 in zip(kernels, before))  # no fp32 launch
+    assert ops.MATVEC_TRACE_COUNTS["chunked"] == ops.MATVEC_TRACE_COUNTS["dense"] == 0
+    assert ops.FEATURE_TRACE_COUNTS["features"] == 0
+    torch.testing.assert_close(on_card.solution.cpu(), on_cpu.solution, rtol=ROUTE_TOL,
+                               atol=ROUTE_TOL)
+    scale = max(1.0, fp32.solution.abs().max().item())
+    assert (on_card.solution - fp32.solution).abs().max().item() <= BF16_SOLVE_TOL * scale
+    assert not torch.equal(on_card.solution, fp32.solution)
