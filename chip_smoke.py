@@ -42,11 +42,18 @@ on the protein-shaped problem at full n through those kernels:
 * LM serving, ``repro_torch.launch.serve.generate`` on llama3-8b at full width
   and depth (random fp32 weights from a seed): prefill's causal attention
   through the flash-attention kernel, greedy decode, held against the plain
-  attention route and against ``forward_train`` at one more position.
+  attention route and against ``forward_train`` at one more position; then
+  the same model cast to bf16 in place and served again, its prefill
+  through the bf16 flash kernel, held against the fp32 run.
 
 The training path's θ-gradients are held against the plain autograd Function
-in float64 at a reduced n, one CG column's bits are held at widths 8 and 64,
-and one Gram matvec runs at 3droad's n, where K could not be held.
+in float64 at a reduced n, and the gradients at ``precision="bf16"`` through
+the reference's differentiable kernel entry points (the pins ``ops.
+gram_matvec``, ``rff_matvec``, ``rff_t_matvec``, and ``gram_mv``,
+``gram_rows_pair``, ``rff_pair_mv``) at protein's full n, on bf16 backward
+launches alone, against the plain bf16 route and the fp32 kernels; one CG
+column's bits are held at widths 8 and 64, and one Gram matvec runs at
+3droad's n, where K could not be held.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its result lines. Without a CUDA device, or outside a checkout
@@ -55,6 +62,7 @@ kernels' record and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -225,9 +233,11 @@ LKGP_REF_GAP, LKGP_BUDGET_RATIO = 0.3276, 1.5
 #: 64, on the first CG_WIDTH_N protein rows at the main path's θ and tol
 CG_WIDTH_N = 8192
 #: the kernels' records on the last lines, in order: the fp32 kernels, then
-#: the bf16 tiles of the forward GP kernels (``[bf16]``), each its own record
+#: the bf16 tiles of the GP kernels and flash attention's bf16 inputs
+#: (``[bf16]``), each its own record
 BF16_RECORDS = ("gram_matvec[bf16]", "gram_rows_pair[bf16]", "rff_matvec[bf16]",
-                "rff_t_matvec[bf16]", "rff_pair[bf16]")
+                "rff_t_matvec[bf16]", "rff_pair[bf16]", "gram_matvec_bwd[bf16]",
+                "rff_bwd[bf16]", "flash_attention[bf16]")
 FP32_RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
                 "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
 RECORDS = FP32_RECORDS + BF16_RECORDS
@@ -249,6 +259,29 @@ BF16_TOL, BF16_FP32_TOL, BF16_SOLVE_TOL = 2e-3, 5e-2, 8e-2
 AP_REF_GAP, AP_REF_RATIO = 0.2343, 1.5
 #: bf16 on the tensor cores, dense (H100 SXM, 700 W)
 PEAK_BF16_FLOPS = 989e12
+#: flash attention on bf16 inputs against its bf16 plain version (both round
+#: their outputs to bf16, and p is rounded against the running max in the
+#: kernel, the final one in the plain version: a bf16 ulp of an output is
+#: 2^-8 of it) and against the fp32 kernel on the same bf16-valued inputs
+#: (the reference's own bf16 tolerance, tests/test_kernels_pallas.py:84),
+#: each of max(1, scale)
+FLASH_BF16_TOL, FLASH_BF16_FP32_TOL = 1e-2, 3e-2
+#: a bf16 backward kernel or gradient against its bf16 plain version run in
+#: float64 (the cast points exactly, the sums exact): within BF16_GRAD_TOL,
+#: or BF16_PLAIN_RATIO × the plain version's own error run in fp32, if larger
+#: (d² from the identity on rounded points loses ~1e-7 of |x|² to fp32
+#: rounding, which κ' amplifies at small distances: 2e-3 of the Gram
+#: gradient's scale on the CPU at n = 3,000); against the fp32 kernels'
+#: gradient within BF16_GRAD_RATIO × the plain bf16 route's own gap from
+#: fp32 or BF16_FP32_TOL, if larger (bf16's error is the reference's design:
+#: dx = 2(x ΣW − W z) rounds W z, not x ΣW). Gradients by relative norm
+#: errors, kernels by max(1, scale)
+BF16_GRAD_TOL, BF16_PLAIN_RATIO, BF16_GRAD_RATIO = 2e-3, 2.0, 1.5
+#: LM serving in bf16: the bf16 prefill's last-position logits against the
+#: fp32 run's, of max(1, max|fp32 logits|); a greedy token is held to the
+#: fp32 run's where the fp32 top-2 margin exceeds LM_BF16_MARGIN × the
+#: measured logit difference (no larger difference can reorder the two)
+LM_BF16_LOGIT_TOL, LM_BF16_MARGIN = 1e-1, 2.0
 
 _T0 = time.perf_counter()
 
@@ -313,7 +346,9 @@ def _bf16_path_launches(bf16: dict) -> dict:
             "gram_rows_pair[bf16]": bf16["gram_rows_pair"] + bf16["gram_rows_matvec"],
             "rff_matvec[bf16]": bf16["rff_matvec"] + bf16["rff_pair"],
             "rff_t_matvec[bf16]": bf16["rff_t_matvec"] + bf16["rff_pair"],
-            "rff_pair[bf16]": bf16["rff_pair"]}
+            "rff_pair[bf16]": bf16["rff_pair"],
+            "gram_matvec_bwd[bf16]": bf16["gram_matvec_bwd"], "rff_bwd[bf16]": bf16["rff_bwd"],
+            "flash_attention[bf16]": bf16["flash_attention"]}
 
 
 def _path_launches(launches: dict) -> dict:
@@ -362,7 +397,7 @@ def main() -> int:
     build_phase()
     kernels = kernels_phase(torch)
     oracle = main_path_phase(torch, kernels)
-    grad_phase(torch)
+    grad_phase(torch, kernels)
     trained = train_phase(torch, kernels)
     precond_phase(torch, kernels, oracle, trained)
     robust_phase(torch, kernels)
@@ -725,6 +760,9 @@ def kernels_phase(torch) -> dict:
     flash_cases(torch, gen, rec, paths)
     paths.update(sgd_bf16={}, sdd_bf16={}, ap_bf16={})
     bf16_kernel_cases(torch, x, xs, rff_omega, gen, rec, paths)
+    paths.update(grad_bf16={}, lm_serve_bf16={})
+    bf16_backward_cases(torch, x, xtr, rff_omega, gen, rec, paths)
+    flash_bf16_cases(torch, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "sfu_floor_ms", "tc_split_bound_ms")
@@ -738,7 +776,8 @@ def kernels_phase(torch) -> dict:
                 rff_bwd="thompson", flash_attention="lm_serve",
                 **{"gram_matvec[bf16]": "ap_bf16", "gram_rows_pair[bf16]": "sgd_bf16",
                    "rff_matvec[bf16]": "sgd_bf16", "rff_t_matvec[bf16]": "sgd_bf16",
-                   "rff_pair[bf16]": "sgd_bf16"})
+                   "rff_pair[bf16]": "sgd_bf16", "gram_matvec_bwd[bf16]": "grad_bf16",
+                   "rff_bwd[bf16]": "grad_bf16", "flash_attention[bf16]": "lm_serve_bf16"})
     for key in rec:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -995,13 +1034,15 @@ def _bf16_bound(entries, per_entry, nbytes) -> dict:
                 flops_bf16=flops, bytes=nbytes)
 
 
-def _bf16_line(torch, rec, key, case, got, plain, fp32, fn, plain_fn, **fields) -> dict:
+def _bf16_line(torch, rec, key, case, got, plain, fp32, fn, plain_fn, *, tol=BF16_TOL,
+               tol_fp32=BF16_FP32_TOL, library_fn=None, **fields) -> dict:
     """One bf16 kernel case: its largest error against its bf16 plain version
     and against the fp32 kernel, over its outputs, absolute (``max_abs_err``,
     ``err_vs_fp32_kernel``) and of max(1, scale) (``rel_err``,
-    ``rel_err_vs_fp32_kernel``, checked against BF16_TOL and BF16_FP32_TOL),
+    ``rel_err_vs_fp32_kernel``, checked against ``tol`` and ``tol_fp32``),
     and its CUDA-event time over 20 warm launches beside the plain version's
-    over 3."""
+    over 3 (and ``library_fn``'s over 20, where one PyTorch call computes the
+    same function)."""
     def errs(outs, refs):
         pairs = [((a.double() - b.double()).abs().max().item(),
                   max(1.0, b.abs().max().item())) for a, b in zip(outs, refs)]
@@ -1009,13 +1050,13 @@ def _bf16_line(torch, rec, key, case, got, plain, fp32, fn, plain_fn, **fields) 
 
     (e_plain, r_plain), (e_fp32, r_fp32) = errs(got, plain), errs(got, fp32)
     line = dict(kernel=key, case=case, precision="bf16", **fields, max_abs_err=e_plain,
-                rel_err=r_plain, tol=BF16_TOL, err_vs_fp32_kernel=e_fp32,
-                rel_err_vs_fp32_kernel=r_fp32, tol_vs_fp32=BF16_FP32_TOL,
+                rel_err=r_plain, tol=tol, err_vs_fp32_kernel=e_fp32,
+                rel_err_vs_fp32_kernel=r_fp32, tol_vs_fp32=tol_fp32,
                 ms=_events_ms(torch, fn, 20), plain_ms=_events_ms(torch, plain_fn, 3),
-                library_ms=None)
+                library_ms=None if library_fn is None else _events_ms(torch, library_fn, 20))
     emit("kernels", **line)
-    check(r_plain <= BF16_TOL, f"{key} {case}: {r_plain} from its bf16 plain version")
-    check(r_fp32 <= BF16_FP32_TOL, f"{key} {case}: {r_fp32} from the fp32 kernel")
+    check(r_plain <= tol, f"{key} {case}: {r_plain} from its bf16 plain version")
+    check(r_fp32 <= tol_fp32, f"{key} {case}: {r_fp32} from the fp32 kernel")
     rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], e_plain)
     return line
 
@@ -1149,6 +1190,155 @@ def bf16_kernel_cases(torch, x, xs, rff_omega, gen, rec, paths) -> None:
         _path_shape(paths, "sgd_bf16", "rff_matvec[bf16]", line)
         if label == "sgd_phase2":
             paths["sgd_bf16"]["rff_matvec[bf16]"] = line
+
+
+def _bf16_record(rec, key, src, replaces) -> None:
+    rec[key] = dict(name=key, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                    replaces=replaces, max_abs_err=0.0)
+
+
+def bf16_backward_cases(torch, x, xtr, rff_omega, gen, rec, paths) -> None:
+    """The backward kernels' bf16 tiles, each against its bf16 plain version
+    run in float64 on the first CHECK_ROWS output rows (the bf16 cast points
+    exactly, the sums exact) and against the fp32 launch: the Gram backward at
+    training's 45,730², d = 9, Matérn-3/2, s = 8 (the grad phase's shape) and
+    at the Thompson ascent's 400 × 50,000, s = 100; the RFF backward at 400
+    rows × 512 frequencies, d = 8, s = 100, at the engine's 16 rows × 1,024,
+    d = 9, s = 8, and at the grad phase's 45,730 × 512, d = 9, s = 8; against
+    the fp32 launch within BF16_GRAD_RATIO × the bf16 plain version's own gap
+    from it (or BF16_FP32_TOL): the bf16 projection of the Thompson shape's
+    large frequencies is ~10% of scale from fp32 by the reference's design
+    (x and ω rounded before sin and cos). Each
+    line gives the kernel's ms beside the bf16 bound (``bound_ms``: its
+    products at the bf16 tensor-core rate, or its bytes), the fp32 record's
+    bound on the same shape (``bound_fp32_ms``), the bytes' time
+    (``bytes_ms``), the SFU floor and the CTAs."""
+    from repro_torch.core.kernels_fn import make_params, spectral_sample
+    from repro_torch.kernels.gram_matvec import gram_bwd_plan, gram_matvec_bwd
+    from repro_torch.kernels.ref import gram_matvec_bwd_ref, rff_bwd_ref
+    from repro_torch.kernels.rff_matvec import rff_bwd, rff_bwd_plan
+
+    _bf16_record(rec, "gram_matvec_bwd[bf16]", "gram_matvec_bwd_bf16.cu",
+                 "src/repro/kernels/gram_matvec.py:250")
+    _bf16_record(rec, "rff_bwd[bf16]", "rff_bwd_bf16.cu", "src/repro/kernels/rff_matvec.py:252")
+    dev, bf = xtr.device, dict(precision="bf16")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def gram(rows, cols, s, kind, label):
+        (n, d), m = rows.shape, cols.shape[0]
+        rowv, colv = randn(n, s), randn(m, s)
+        k = min(n, CHECK_ROWS)
+        plan = gram_bwd_plan(n, m, d, s, precision="bf16")
+        ref64 = gram_matvec_bwd_ref(rows[:k].double(), cols.double(), rowv[:k].double(),
+                                    colv.double(), kind=kind, row_chunk=256, **bf)
+        plain32 = _scaled_err(gram_matvec_bwd_ref(rows[:k], cols, rowv[:k], colv, kind=kind,
+                                                  **bf), ref64)
+        fp32 = gram_matvec_bwd(rows, cols, rowv, colv, kind=kind)[:k]
+        gap = _scaled_err(ref64, fp32)
+        fp32_bound, flops, nbytes = _gram_bwd_bound_ms(n, m, d, s)
+        return _bf16_line(
+            torch, rec, "gram_matvec_bwd[bf16]", label,
+            [gram_matvec_bwd(rows, cols, rowv, colv, kind=kind, **bf)[:k]], [ref64], [fp32],
+            lambda: gram_matvec_bwd(rows, cols, rowv, colv, kind=kind, **bf),
+            lambda: gram_matvec_bwd_ref(rows, cols, rowv, colv, kind=kind, **bf),
+            tol=max(BF16_GRAD_TOL, BF16_PLAIN_RATIO * plain32), plain_fp32_rel_err=plain32,
+            tol_fp32=max(BF16_FP32_TOL, BF16_GRAD_RATIO * gap), plain_bf16_vs_fp32=gap,
+            kind=kind, n=n, m=m, d=d, s=s, checked_rows=k, ctas=plan.ctas,
+            chunks=plan.chunks, width=plan.width,
+            smem_bytes=gram_matvec_bwd.smem_bytes(d, s, precision="bf16"),
+            sfu_floor_ms=1e3 * n * m * SFU_OPS_BWD[kind] / SFU_OPS_PER_S,
+            bound_fp32_ms=fp32_bound, bytes_ms=1e3 * nbytes / PEAK_BYTES,
+            **_bf16_bound(n * m, 4 * d + 2 * s, nbytes))
+
+    paths["grad_bf16"]["gram_matvec_bwd[bf16]"] = gram(xtr, xtr, 8, "matern32", "train")
+    t = THOMPSON
+    xq = (torch.rand((t["num_top"] * t["acq_batch"], t["d"]), generator=gen, device=dev)
+          / t["lengthscale"]).contiguous()
+    xo = (torch.rand((t["n0"], t["d"]), generator=gen, device=dev)
+          / t["lengthscale"]).contiguous()
+    gram(xq, xo, t["acq_batch"], t["kind"], "thompson")
+    del xo
+
+    def rff(r, c, s, label):
+        (rows, d), cols = r.shape, c.shape[0]
+        p, q1, q2 = randn(rows, s), randn(cols, s), randn(cols, s)
+        scale = math.sqrt(1.0 / cols)
+        k = min(rows, CHECK_ROWS)
+        plan = rff_bwd_plan(rows, cols, d, s, precision="bf16")
+        ref64 = rff_bwd_ref(r[:k].double(), c.double(), p[:k].double(), p[:k].double(),
+                            q1.double(), q2.double(), scale=scale, **bf)
+        plain32 = _scaled_err(rff_bwd_ref(r[:k], c, p[:k], p[:k], q1, q2, scale=scale, **bf),
+                              ref64)
+        fp32 = rff_bwd(r, c, p, p, q1, q2, scale=scale)[:k]
+        gap = _scaled_err(ref64, fp32)
+        fp32_bound, flops, nbytes = _rff_bwd_bound_ms(
+            rows, cols, d, s, plan.workspace_floats(rows, d), (r, c, p, q1, q2))
+        return _bf16_line(
+            torch, rec, "rff_bwd[bf16]", label,
+            [rff_bwd(r, c, p, p, q1, q2, scale=scale, **bf)[:k]], [ref64], [fp32],
+            lambda: rff_bwd(r, c, p, p, q1, q2, scale=scale, **bf),
+            lambda: rff_bwd_ref(r, c, p, p, q1, q2, scale=scale, **bf),
+            tol=max(BF16_GRAD_TOL, BF16_PLAIN_RATIO * plain32), plain_fp32_rel_err=plain32,
+            tol_fp32=max(BF16_FP32_TOL, BF16_GRAD_RATIO * gap), plain_bf16_vs_fp32=gap,
+            rows=rows, cols=cols, d=d, s=s, checked_rows=k, ctas=plan.ctas,
+            chunks=plan.chunks, slices=plan.slices, width=plan.width,
+            smem_bytes=rff_bwd.smem_bytes(d, s, precision="bf16"),
+            sfu_floor_ms=1e3 * rows * cols * SFU_OPS_RFF / SFU_OPS_PER_S,
+            bound_fp32_ms=fp32_bound, bytes_ms=1e3 * nbytes / PEAK_BYTES,
+            **_bf16_bound(rows * cols, 4 * d + 4 * s, nbytes))
+
+    t_omega = spectral_sample(make_params(t["kind"], lengthscale=t["lengthscale"], d=t["d"],
+                                          device=dev), 512, t["d"], generator=gen)
+    rff(torch.rand((400, t["d"]), generator=gen, device=dev), t_omega, t["acq_batch"],
+        "thompson")
+    d = x.shape[1]
+    rff(torch.rand((ENGINE_ASCENT_ROWS, d), generator=gen, device=dev),
+        rff_omega(math.sqrt(d) * 0.5, 1024), 8, "engine_ascent")
+    paths["grad_bf16"]["rff_bwd[bf16]"] = rff(
+        x, rff_omega(TRAIN_HYPERS["lengthscale"], 512), 8, "grad_dx")
+
+
+def flash_bf16_cases(torch, gen, rec, paths) -> None:
+    """Flash attention on bf16 q, k and v (``csrc/flash_attention_bf16.cu``)
+    at FLASH_CASES' lm_serve and ragged shapes, against its bf16 plain
+    version (FLASH_BF16_TOL) and against the fp32 kernel on the same
+    bf16-valued inputs (FLASH_BF16_FP32_TOL), beside SDPA on the same bf16
+    tensors (``enable_gqa``, (b, h, s, d) copies made beforehand) as the
+    library's time. The bound counts the products at the bf16 tensor-core
+    rate and bf16 bytes; ``tc_split_bound_ms`` is the fp32 kernel's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import BLOCK, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    _bf16_record(rec, "flash_attention[bf16]", "flash_attention_bf16.cu",
+                 "src/repro/kernels/flash_attention.py:72")
+    dev = torch.device("cuda")
+    for label, b, s, hq, hkv, d, causal in FLASH_CASES[:2]:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+                   for h in (hq, hkv, hkv))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        fp32_bound, flops, nbytes = _flash_bound_ms(b, s, hq, hkv, d, causal)
+        floors = _flash_floors(b, s, hq, d, causal)
+        line = _bf16_line(
+            torch, rec, "flash_attention[bf16]", label,
+            [flash_attention(q, k, v, causal=causal)],
+            [flash_attention_ref(q, k, v, causal=causal)],
+            [flash_attention(q.float(), k.float(), v.float(), causal=causal)],
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: flash_attention_ref(q, k, v, causal=causal),
+            tol=FLASH_BF16_TOL, tol_fp32=FLASH_BF16_FP32_TOL,
+            library_fn=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal, ctas=b * hq * -(-s // BLOCK),
+            smem_bytes=flash_attention.smem_bytes(d, "bf16"),
+            sfu_floor_ms=floors["sfu_floor_ms"], tc_split_bound_ms=floors["tc_split_bound_ms"],
+            bound_fp32_ms=fp32_bound, bytes_ms=1e3 * (nbytes / 2) / PEAK_BYTES,
+            **_bf16_bound(flops, 1, nbytes // 2))
+        if label == "lm_serve":
+            paths["lm_serve_bf16"]["flash_attention[bf16]"] = line
 
 
 def _rff_bwd_bound_ms(rows, cols, d, s, ws_floats, operands):
@@ -1529,13 +1719,14 @@ def _test_metrics(torch, mean, var, y_test) -> tuple:
     return rmse, nll
 
 
-def grad_phase(torch) -> None:
+def grad_phase(torch, kernels: dict) -> None:
     """∇θ of the MLL estimator's quadratic forms (``mll._quad``: the fit term
     at s = 1, the trace term at s = 8) through the kernels, against the same
     forms through the plain autograd Function in float64 on the card, at
     GRAD_N protein rows and θ₀ of the training path. u and w are held fixed:
     the solutions v_y and α of one ``mll_grad`` there. The trace term's w
-    also requires grad, so dv runs the forward kernel on swapped operands."""
+    also requires grad, so dv runs the forward kernel on swapped operands.
+    Then the bf16 gradients at protein's full n (``grad_bf16_phase``)."""
     from repro_torch.core import CG, mll_grad
     from repro_torch.core.kernels_fn import make_params, map_params
     from repro_torch.core.mll import _quad
@@ -1587,6 +1778,198 @@ def grad_phase(torch) -> None:
         check(launched == (3, 4), f"2 forward + 1 dv Gram launches and 4 backward, got {launched}")
         for k, e in rel.items():
             check(e <= GRAD_TOL, f"grad {kind} {k}: relative error {e}")
+    grad_bf16_phase(torch, kernels)
+
+
+#: the kernel ops that the plain route replaces, by the plain Function of each
+_PLAIN_ROUTE = {"_gram_kernel": "plain_gram_matvec", "_pair_kernel": "plain_gram_rows_pair",
+                "_rff_kernel": "plain_rff_matvec", "_rff_t_kernel": "plain_rff_t_matvec",
+                "_rff_pair_kernel": "plain_rff_pair"}
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """``kernels.ops`` with the plain autograd Functions in place of the
+    kernel wrappers, on the same card tensors: the reference's VJPs on the
+    plain versions, at the same tile precision."""
+    from repro_torch.kernels import gram_matvec as gm, ops, rff_matvec as rm
+
+    saved = {name: getattr(ops, name) for name in _PLAIN_ROUTE}
+    for name, plain in _PLAIN_ROUTE.items():
+        setattr(ops, name, getattr(gm, plain, None) or getattr(rm, plain))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def _plain_calls():
+    """Counts, by name, the calls of the plain versions (``kernels/ref.py``)
+    that the kernel wrappers and their autograd Functions can reach: their
+    module-level names and the plain ops tables. Yields the counts."""
+    from repro_torch.kernels import gram_matvec as gm, rff_matvec as rm
+
+    calls, saved = {}, []
+
+    def spy(name, fn):
+        def counted(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return counted
+
+    for mod in (gm, rm):
+        for name in [n for n in vars(mod) if n.endswith("_ref")]:
+            saved.append((vars(mod), name, getattr(mod, name)))
+            setattr(mod, name, spy(name, getattr(mod, name)))
+    for table in (gm._PLAIN_PAIR_OPS, rm._PLAIN_OPS):
+        for name, fn in list(table.items()):
+            saved.append((table, name, fn))
+            table[name] = spy(f"plain_{name}", fn)
+    try:
+        yield calls
+    finally:
+        for table, name, fn in saved:
+            table[name] = fn
+
+
+def _rel(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float64."""
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def grad_bf16_phase(torch, kernels: dict) -> None:
+    """Gradients at ``precision="bf16"`` at protein's n = 45,730 through the
+    reference's differentiable kernel entry points: the pins
+    ``ops.gram_matvec`` (K(x, x) v), ``ops.rff_matvec`` and
+    ``ops.rff_t_matvec`` (512 frequencies at θ₀'s ℓ), ``ops.gram_mv`` on the
+    cross operator K(x*, x), ``ops.gram_rows_pair`` (p = 512 rows) and
+    ``ops.rff_pair_mv``, 8 columns, Matérn-3/2 at θ₀, each leaf's gradient
+    of a random linear functional. Three routes on the same inputs: the
+    kernels at bf16 (every launch counted, every backward launch a bf16
+    launch, no fp32 launch and no call to a plain version), the plain
+    Functions at bf16 on the card (``_plain_route``) on the fp32 inputs and
+    on the same inputs in float64, and the kernels at fp32. Each leaf's bf16
+    kernel gradient is held within BF16_GRAD_TOL (or BF16_PLAIN_RATIO × the
+    fp32 plain route's own error) of the float64 plain bf16 route's, and
+    within BF16_GRAD_RATIO × the plain bf16 route's own gap from fp32 (or
+    BF16_FP32_TOL) of the fp32 kernels'."""
+    from repro_torch.core.kernels_fn import make_params, map_params, spectral_sample
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    data = regression_dataset("protein", seed=SEED)
+    x0 = torch.as_tensor(data["x"], device=dev)
+    xt0 = torch.as_tensor(data["x_test"], device=dev)
+    (n, d), nt, s, p, m = x0.shape, xt0.shape[0], 8, 512, 512
+    params0 = make_params("matern32", d=d, device=dev, **TRAIN_HYPERS)
+    omega0 = spectral_sample(params0, m, d, generator=gen)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    idx = torch.randint(0, n, (p,), generator=gen, device=dev)
+    operands = dict(v=randn(n, s), vt=randn(nt, s), look=randn(n, s), b=randn(p, s),
+                    w=randn(2 * m, s), u=randn(n, s))
+    cot = dict(gram_matvec=randn(n, s), gram_mv=randn(n, s), err=randn(p, s), g=randn(n, s),
+               rff_matvec=randn(n, s), rff_t_matvec=randn(2 * m, s), rff_pair_mv=randn(n, s))
+
+    def leaves(dt):
+        prm = map_params(lambda t: t.detach().to(dt).requires_grad_(), params0)
+        ins = {k: t.detach().to(dt).requires_grad_()
+               for k, t in dict(operands, x=x0, xt=xt0, omega=omega0).items()}
+        sig = params0.signal.detach().to(dt).requires_grad_()
+        return prm, ins, sig
+
+    def dot(key, out):
+        return torch.sum(cot[key].to(out.dtype) * out)
+
+    def fns(prec):
+        bf = dict(precision=prec)
+
+        def gram_pin(prm, i, sig):
+            out = ops.gram_matvec(prm, i["x"], i["v"], **bf)
+            return dot("gram_matvec", out), [prm.log_lengthscale, prm.log_signal, i["x"], i["v"]]
+
+        def gram_cross(prm, i, sig):
+            out = ops.gram_mv(prm, i["x"], i["vt"], z=i["xt"], backend="cuda", **bf)
+            return dot("gram_mv", out), [prm.log_lengthscale, prm.log_signal, i["x"], i["xt"],
+                                         i["vt"]]
+
+        def rows_pair(prm, i, sig):
+            err, g = ops.gram_rows_pair(prm, i["x"], idx, i["look"], i["b"], backend="cuda", **bf)
+            return (dot("err", err) + dot("g", g),
+                    [prm.log_lengthscale, prm.log_signal, i["x"], i["look"], i["b"]])
+
+        def rff_pin(prm, i, sig):
+            out = ops.rff_matvec(i["x"], i["omega"], i["w"], signal=sig, **bf)
+            return dot("rff_matvec", out), [i["x"], i["omega"], i["w"], sig]
+
+        def rff_t_pin(prm, i, sig):
+            out = ops.rff_t_matvec(i["x"], i["omega"], i["u"], signal=sig, **bf)
+            return dot("rff_t_matvec", out), [i["x"], i["omega"], i["u"], sig]
+
+        def rff_pair(prm, i, sig):
+            out = ops.rff_pair_mv(i["x"], i["omega"], i["u"], signal=sig, backend="cuda", **bf)
+            return dot("rff_pair_mv", out), [i["x"], i["omega"], i["u"], sig]
+
+        return dict(gram_matvec=gram_pin, gram_mv=gram_cross, gram_rows_pair=rows_pair,
+                    rff_matvec=rff_pin, rff_t_matvec=rff_t_pin, rff_pair_mv=rff_pair)
+
+    def run(name, prec, dt=torch.float32):
+        prm, ins, sig = leaves(dt)
+        loss, wrt = fns(prec)[name](prm, ins, sig)
+        grads = torch.autograd.grad(loss, wrt)
+        torch.cuda.synchronize()
+        return grads
+
+    leaf_names = dict(gram_matvec=("log_lengthscale", "log_signal", "x", "v"),
+                      gram_mv=("log_lengthscale", "log_signal", "x", "x_test", "v"),
+                      gram_rows_pair=("log_lengthscale", "log_signal", "x", "look", "b"),
+                      rff_matvec=("x", "omega", "w", "signal"),
+                      rff_t_matvec=("x", "omega", "u", "signal"),
+                      rff_pair_mv=("x", "omega", "u", "signal"))
+    total, total_bf16 = {}, {}
+    for name in leaf_names:
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        with _plain_calls() as plain_calls:
+            g_bf16 = run(name, "bf16")
+        seconds = time.perf_counter() - t0
+        launches, bf16 = _read_counts()[0], _read_bf16_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in bf16.items():
+            total_bf16[k] = total_bf16.get(k, 0) + v
+        with _plain_route():
+            g_plain = run(name, "bf16")
+            g_plain64 = run(name, "bf16", torch.float64)
+        g_fp32 = run(name, "fp32")
+        errs = {}
+        for leaf, a, b, b64, c in zip(leaf_names[name], g_bf16, g_plain, g_plain64, g_fp32):
+            gap_plain, plain32 = _rel(b, c), _rel(b, b64)
+            errs[leaf] = dict(vs_plain_bf16=_rel(a, b64), vs_fp32=_rel(a, c),
+                              plain_fp32_vs_plain64=plain32, plain_bf16_vs_fp32=gap_plain,
+                              tol_vs_plain_bf16=max(BF16_GRAD_TOL, BF16_PLAIN_RATIO * plain32),
+                              tol_vs_fp32=max(BF16_FP32_TOL, BF16_GRAD_RATIO * gap_plain),
+                              finite=bool(torch.isfinite(a).all()))
+        bwd = dict(gram_matvec_bwd=bf16["gram_matvec_bwd"], rff_bwd=bf16["rff_bwd"])
+        emit("grad_bf16", function=name, n=n, n_test=nt, p=p, m=m, d=d, s=s,
+             kind="matern32", seconds=seconds, fp32_launches=launches,
+             bf16_launches=bf16, plain_calls=dict(plain_calls), errors=errs)
+        check(not any(launches.values()), f"grad_bf16 {name}: no fp32 launch: {launches}")
+        check(not plain_calls, f"grad_bf16 {name}: no plain version called: {plain_calls}")
+        check(sum(bwd.values()) > 0, f"grad_bf16 {name}: bf16 backward launches {bwd}")
+        for leaf, e in errs.items():
+            check(e["finite"], f"grad_bf16 {name} {leaf}: finite")
+            check(e["vs_plain_bf16"] <= e["tol_vs_plain_bf16"],
+                  f"grad_bf16 {name} {leaf}: {e['vs_plain_bf16']} from the plain bf16 route")
+            check(e["vs_fp32"] <= e["tol_vs_fp32"],
+                  f"grad_bf16 {name} {leaf}: {e['vs_fp32']} from fp32 > {e['tol_vs_fp32']}")
+    _record_path(kernels, "grad_bf16", total, total_bf16)
 
 
 def train_phase(torch, kernels: dict) -> None:
@@ -3039,10 +3422,18 @@ def lm_serve_phase(torch, kernels: dict) -> None:
     each held equal where its top-2 margin exceeds LM_MARGIN × the measured
     logit difference, row by row until the first position that is not; and
     ``forward_train`` on prompt + first token against prefill + decode_step at
-    the reference's tolerances. Last, one prefill and PROFILE_DECODE_STEPS
-    decode steps under the profiler: device time by kernel, idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the reference's tolerances. Then the same model is cast to bf16 in place
+    (``cast_model_``, stack by stack: the fp32 and bf16 weights are never
+    both held) and served again by ``generate`` on the same tokens
+    (``lm_serve_bf16``): every prefill layer one bf16 flash launch, no fp32
+    flash launch and no plain attention; its last-position prefill logits
+    within LM_BF16_LOGIT_TOL of the fp32 run's, of max(1, max|fp32 logits|);
+    its greedy tokens equal to the fp32 run's where the fp32 plain route's
+    top-2 margin exceeds LM_BF16_MARGIN × the measured logit difference, row
+    by row until the first position that does not. Last, one prefill and PROFILE_DECODE_STEPS decode steps under
+    the profiler, on the bf16 weights and then on the same weights cast back
+    to fp32 (the fp32 run's shapes and kernels; its times do not depend on
+    the values): device time by kernel, idle share."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import token_batch
     from repro_torch.kernels import ops
@@ -3107,13 +3498,11 @@ def lm_serve_phase(torch, kernels: dict) -> None:
         # the reference's prefill/decode consistency at one more position
         ext = torch.cat([tokens, toks[:, :1]], dim=1)
         full = model_lib.forward_train(cfg, model, {"tokens": ext})
-        logits_d, _ = model_lib.decode_step(cfg, model, toks[:, :1], cache, prompt)
-        consist = {}
-        for name, got, want in (("prefill", logits_k, full[:, -2]),
-                                ("decode", logits_d[:, -1], full[:, -1])):
-            consist[name] = dict(
-                max_abs_diff=(got - want).abs().max().item(),
-                excess=((got - want).abs() - CONSIST_RTOL * want.abs()).max().item())
+        logits_d = model_lib.decode_step(cfg, model, toks[:, :1], cache, prompt)[0]
+        consist = {name: dict(max_abs_diff=(got - want).abs().max().item(),
+                              excess=((got - want).abs() - CONSIST_RTOL * want.abs()).max().item())
+                   for name, got, want in (("prefill", logits_k, full[:, -2]),
+                                           ("decode", logits_d[:, -1], full[:, -1]))}
         del full
     emit("lm_route_parity", logit_max_abs_diff=diff, logit_scale=scale,
          tol=LM_LOGIT_TOL * scale, margin_factor=LM_MARGIN, positions=b * gen_n,
@@ -3127,32 +3516,122 @@ def lm_serve_phase(torch, kernels: dict) -> None:
         check(line["excess"] <= CONSIST_ATOL,
               f"{name} logits against forward_train: {line['excess']} > {CONSIST_ATOL}")
 
+    fp32_run = dict(prefill_s=timings["prefill_s"],
+                    ms_per_decode_step=1e3 * timings["decode_s"] / (gen_n - 1),
+                    max_memory_allocated_gb=peak_gb, weights_gb=weights_gb)
+    del cache
+    _lm_serve_bf16(torch, kernels, cfg, model, tokens, toks, logits_k, margins, fp32_run)
     with torch.no_grad():
-        for window in ("prefill", "decode"):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if window == "prefill":
-                    model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
-                else:
-                    tok = toks[:, :1]
-                    for i in range(PROFILE_DECODE_STEPS):
-                        logits, cache = model_lib.decode_step(cfg, model, tok, cache, prompt + i)
-                        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            by_name = _device_ms_by_kernel(prof)
-            device_ms = sum(by_name.values())
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            emit("lm_profile", window=window,
-                 decode_steps=PROFILE_DECODE_STEPS if window == "decode" else 0,
-                 wall_ms=wall * 1e3, device_ms=device_ms,
-                 idle_share=1.0 - device_ms / (wall * 1e3),
-                 flash_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
-                 top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
-            check(0 < device_ms <= wall * 1e3, f"{window}: device time within the wall time")
+        cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+        _lm_profile(torch, cfg, model, tokens, toks, cache, "_bf16")
+        model_lib.cast_model_(model, torch.float32)
+        torch.cuda.empty_cache()
+        _lm_profile(torch, cfg, model, tokens, toks, cache, "")
     del model, cache
     torch.cuda.empty_cache()
+
+
+def _lm_serve_bf16(torch, kernels, cfg, model, tokens, toks, logits_fp32, margins,
+                   fp32_run) -> None:
+    """``lm_serve_phase``'s bf16 run: ``model`` cast to bf16 in place, then
+    ``generate`` and one more prefill on the same tokens, held to the fp32
+    run's logits and greedy tokens (``toks``, with the fp32 plain route's
+    top-2 ``margins``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+
+    b, gen_n = toks.shape
+    prompt = tokens.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_lib.cast_model_(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    cast_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()), "every weight is bf16")
+
+    _reset_counts(torch)
+    toks16, timings = generate(cfg, model, tokens, prompt + gen_n, gen_n)
+    launches, bf16 = _read_counts()[0], _read_bf16_counts()
+    attention = dict(ops.ATTENTION_TRACE_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decoded = b * (gen_n - 1)
+    _record_path(kernels, "lm_serve_bf16", launches, bf16)
+    with torch.no_grad():
+        cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+        logits16 = model_lib.prefill(cfg, model, {"tokens": tokens}, cache)[0][:, -1]
+    diff = (logits16.double() - logits_fp32.double()).abs().max().item()
+    scale = max(1.0, logits_fp32.abs().max().item())
+    tol = LM_BF16_LOGIT_TOL * scale
+    checked = mismatched = 0
+    for row in range(b):
+        for i in range(gen_n):
+            if margins[row, i].item() <= LM_BF16_MARGIN * diff:
+                break  # below the margin, and past it the two contexts may differ
+            checked += 1
+            mismatched += int(toks16[row, i].item() != toks[row, i].item())
+    emit("lm_serve_bf16", arch=cfg.name, layers=cfg.num_layers, batch=b, prompt=prompt,
+         gen=gen_n, cast_s=cast_s, cast_peak_gb=cast_peak_gb, weights_gb=weights_gb,
+         prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
+         prefill_tok_per_s=b * prompt / timings["prefill_s"],
+         decode_tok_per_s=decoded / timings["decode_s"],
+         ms_per_decode_step=1e3 * timings["decode_s"] / (gen_n - 1),
+         max_memory_allocated_gb=peak_gb, fp32=fp32_run, fp32_launches=launches,
+         bf16_launches=bf16, attention_dispatches=attention,
+         logit_max_abs_diff_vs_fp32=diff, logit_scale=scale, tol=tol,
+         margin_factor=LM_BF16_MARGIN, positions=b * gen_n, positions_checked=checked, positions_mismatched=mismatched,
+         tokens_equal_everywhere=bool(torch.equal(toks16, toks)), tokens_row0=toks16[0].tolist())
+    check(toks16.shape == (b, gen_n), f"bf16 tokens of shape {(b, gen_n)}: {toks16.shape}")
+    check(bf16["flash_attention"] == cfg.num_layers,
+          f"bf16 flash launches {bf16['flash_attention']} == {cfg.num_layers} layers")
+    check(not any(launches.values()), f"no fp32 kernel on the bf16 LM path: {launches}")
+    check(all(n == 0 for k, n in bf16.items() if k != "flash_attention"),
+          f"no GP kernel on the bf16 LM path: {bf16}")
+    check(attention == {"cuda": cfg.num_layers, "plain": 0},
+          f"bf16 prefill's attention on the kernel route only: {attention}")
+    check(bool(torch.isfinite(logits16).all()), "bf16 prefill logits finite")
+    check(torch.equal(torch.argmax(logits16, dim=-1), toks16[:, 0]),
+          "a second bf16 prefill gives generate's first tokens")
+    check(diff <= tol, f"bf16 prefill logits within {LM_BF16_LOGIT_TOL} of fp32: {diff}")
+    check(mismatched == 0, f"{mismatched} bf16 greedy tokens differ above the margin")
+
+
+def _lm_profile(torch, cfg, model, tokens, toks, cache, suffix: str) -> None:
+    """One prefill and PROFILE_DECODE_STEPS decode steps of ``model`` under
+    the profiler (windows ``prefill`` and ``decode``, with ``suffix``):
+    device time by kernel, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as model_lib
+
+    prompt = tokens.shape[1]
+    for window in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if window == "prefill":
+                model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+            else:
+                tok = toks[:, :1]
+                for i in range(PROFILE_DECODE_STEPS):
+                    logits, cache = model_lib.decode_step(cfg, model, tok, cache, prompt + i)
+                    tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = _device_ms_by_kernel(prof)
+        device_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        emit("lm_profile", window=window + suffix,
+             decode_steps=PROFILE_DECODE_STEPS if window == "decode" else 0,
+             wall_ms=wall * 1e3, device_ms=device_ms,
+             idle_share=1.0 - device_ms / (wall * 1e3),
+             flash_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
+             top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+        check(0 < device_ms <= wall * 1e3, f"{window}{suffix}: device time within the wall time")
 
 
 def _device_ms_by_kernel(prof) -> dict:

@@ -7,8 +7,8 @@ Builds the ``repro_torch`` package under DIR (default: this checkout's
 ``src``) and runs each fp32 kernel entry once on fixed inputs made from a
 seed at the main paths' shapes (protein's n = 45,730, d = 9): the Gram
 matvec at s = 65 and 9 and as the cross-covariance, the row-panel pair and
-rows matvec, Φ̃W, Φ̃ᵀu and the feature pair, the Gram and RFF backward and
-flash attention. Prints one JSON line: the SHA-256 of each output's bytes,
+rows matvec, Φ̃W, Φ̃ᵀu and the feature pair, the Gram backward (its FMA and
+tensor-core variants) and RFF backward, and flash attention. Prints one JSON line: the SHA-256 of each output's bytes,
 and the card's name and power limit. Two checkouts whose lines agree give
 the same bits from every fp32 kernel on these inputs (a change that adds
 kernels beside them, or moves shared code between their sources, is held to
@@ -60,6 +60,9 @@ def main() -> int:
     om100, om1024 = normal(100, d, scale=0.8), normal(1024, d, scale=0.8)
     w8, rowv, colv = normal(2048, 8), normal(n, 8), normal(n, 8)
     q, k = normal(4, 1024, 32, 128), normal(4, 1024, 8, 128)
+    # the Gram backward's tensor-core variants: G (slices past 16 columns)
+    # and stage 2 (d past 16)
+    x32, r100, c100 = normal(3000, 32, scale=0.3), normal(400, 100), normal(3000, 100)
     cases = {
         "gram_s65": lambda: gram_matvec(x, x, v65, kind="matern32"),
         "gram_s9_se": lambda: gram_matvec(x, x, v9, kind="se"),
@@ -72,6 +75,10 @@ def main() -> int:
         "rff_t_m100_s65": lambda: rff_t_matvec(x, om100, look),
         "rff_pair_m100_s65": lambda: rff_pair(x, om100, look),
         "gram_bwd_s8": lambda: gram_matvec_bwd(x, x, rowv, colv, kind="matern32"),
+        "gram_bwd_s100": lambda: gram_matvec_bwd(x[:400].contiguous(), x[:3000].contiguous(),
+                                                 r100, c100, kind="matern52"),
+        "gram_bwd_d32_s100": lambda: gram_matvec_bwd(x32[:400].contiguous(), x32, r100, c100,
+                                                     kind="se"),
         "rff_bwd": lambda: rff_bwd(x[:400].contiguous(), om1024[:512].contiguous(),
                                    rowv[:400].contiguous(), rowv[:400].contiguous(),
                                    colv[:512].contiguous(), colv[512:1024].contiguous(),

@@ -209,21 +209,32 @@ def thompson_state_from_numpy(x, y, *, device: DeviceLike = None) -> ThompsonSta
     return ThompsonState(x=x, y=y, best=float(torch.max(y)))
 
 
+def _lm_t(a, device: torch.device) -> torch.Tensor:
+    """A weight in its own dtype: bfloat16 arrays (``ml_dtypes``' type, which
+    JAX gives) carried across bit for bit (bf16 → fp32 → bf16 is exact),
+    everything else as float32."""
+    if np.asarray(a).dtype.name == "bfloat16":
+        return _t(np.asarray(a, dtype=np.float32), device).to(torch.bfloat16)
+    return _t(a, device)
+
+
 def lm_params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Transformer:
     """The reference's LM params pytree as numpy arrays (``embed.tok`` and
     ``embed.unembed``, ``final_norm``, and ``layers.*`` stacked with a leading
     layer axis) → the port's :class:`Transformer`, its layers unstacked. The
     weights keep their (in, out) orientation: both packages compute h @ W, and
-    no weight goes into an ``nn.Linear`` (which would want Wᵀ)."""
+    no weight goes into an ``nn.Linear`` (which would want Wᵀ). bf16 weights
+    stay bf16, bit for bit; all others become float32."""
     dev = resolve_device(device)
-    return Transformer(cfg, tree_map(lambda a: _t(a, dev), tree))
+    return Transformer(cfg, tree_map(lambda a: _lm_t(a, dev), tree))
 
 
 def lm_params_to_numpy(model: Transformer) -> dict:
     """:func:`lm_params_from_numpy`'s inverse: the reference's params pytree,
     layers stacked again."""
-    def arrays(pd):
-        return {k: p.detach().cpu().numpy() for k, p in pd.items()}
+    def arrays(pd):  # bf16 weights as float32 arrays, exactly
+        return {k: p.detach().cpu().float().numpy() if p.dtype == torch.bfloat16
+                else p.detach().cpu().numpy() for k, p in pd.items()}
 
     per_layer = [{name: arrays(pd) for name, pd in blk.named_children()} for blk in model.layers]
     layers = {name: {k: np.stack([lay[name][k] for lay in per_layer]) for k in group}

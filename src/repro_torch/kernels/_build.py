@@ -51,6 +51,8 @@ SIGNATURES = {
     # stage2_tc, stream
     "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _P),
+    # the same with bf16 tiles, no stage2_tc (gram_matvec_bwd_bf16.cu)
+    "repro_gram_matvec_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, omega, w, workspace, out, n, m, d, s, width, freq_chunk, stream
     "repro_rff_matvec_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xi, x, look, b, workspace, err, g, p, n, d, s, kind, p_true, width,
@@ -72,20 +74,28 @@ SIGNATURES = {
     # chunk, products_tc, stream
     "repro_rff_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                           _P),
+    # the same with bf16 tiles, no products_tc (rff_bwd_bf16.cu)
+    "repro_rff_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, out, b, s, hq, hkv, d, causal, scale, stream
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # the same on bf16 tensors (flash_attention_bf16.cu)
+    "repro_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # d -> dynamic shared memory per CTA in bytes
     "repro_flash_attention_smem_bytes": (_I,),
+    "repro_flash_attention_smem_bytes_bf16": (_I,),
     # d, width, rows_per_cta -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_smem_bytes": (_I, _I, _I),
     "repro_gram_matvec_smem_bytes_bf16": (_I, _I, _I),
     # d, width, stage2_tc -> dynamic shared memory per CTA in bytes
     "repro_gram_matvec_bwd_smem_bytes": (_I, _I, _I),
+    # d, width -> dynamic shared memory per CTA of a bf16 backward in bytes
+    "repro_gram_matvec_bwd_smem_bytes_bf16": (_I, _I),
     # d, width -> dynamic shared memory per CTA in bytes
     "repro_rff_matvec_smem_bytes": (_I, _I),
     "repro_rff_matvec_smem_bytes_bf16": (_I, _I),
     # d, width, products_tc -> dynamic shared memory per CTA in bytes
     "repro_rff_bwd_smem_bytes": (_I, _I, _I),
+    "repro_rff_bwd_smem_bytes_bf16": (_I, _I),
 }
 
 

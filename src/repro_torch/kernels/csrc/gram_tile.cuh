@@ -1,12 +1,13 @@
 // The tile primitives of the tensor-core kernels (gram_matvec_kernel.cuh,
-// gram_matvec_bwd.cu, rff_matvec_kernel.cuh, rff_bwd.cu, flash_attention.cu):
-// 4- and 16-byte cp.async with zero fill, the m16n8k8 TF32 tensor-core
-// product with fp32 accumulation, and the three-way TF32 split of its
-// operands; the m16n8k16 bf16 product with fp32 accumulation and the
-// rounding to bf16; and the pair-weight tiles that the two backward kernels (gram_matvec_bwd.cu,
-// rff_bwd.cu) share: a factor product rowv . colv^T over a slice, into a
+// gram_matvec_bwd_kernel.cuh, rff_matvec_kernel.cuh, rff_bwd_kernel.cuh,
+// flash_attention.cu): 4- and 16-byte cp.async with zero fill, the m16n8k8
+// TF32 tensor-core product with fp32 accumulation, and the three-way TF32
+// split of its operands; the m16n8k16 bf16 product with fp32 accumulation and
+// the rounding to bf16; and the pair-weight tiles that the two backward
+// kernels share: a factor product rowv . colv^T over a slice, into a
 // micro-tile in the MMA C-fragment layout, and the weights contracted with a
-// split column tile on the tensor cores.
+// column tile on the tensor cores, each in the TF32 split (fp32 instances)
+// and in bf16 (bf16 instances).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -258,5 +259,111 @@ __device__ __forceinline__ void pair_contract_tc(float (&acc)[2 * N * 4],
 
 // Row stride of a split (64, 8 n) B tile of pair_contract_tc.
 __host__ __device__ constexpr int contract_stride(int n) { return 8 * n + 4; }
+
+// The bf16 instances' tiles. A factor tile (64 rows by a slice of columns,
+// padded with zeros to k-steps of 16) holds two bf16 of a row in a .b32
+// word, the lower column in the low half, at a row stride of bf16_words
+// words: kp16 / 2 + 4, which is 4 mod 8, so the fragment reads (row g, word
+// t) of a warp hit 32 distinct banks.
+__host__ __device__ inline int bf16_words(int width) { return ((width + 15) & ~15) / 2 + 4; }
+
+// Row stride, in words, of a transposed column tile: one row a feature k,
+// the tile's 64 columns two to a word (kBf16Stride bf16).
+constexpr int kTWords = kBf16Stride / 2;
+
+// dst (64 rows, `words` a row) <- src (rows x live fp32 at row stride ss),
+// rounded to bf16; rows >= rows and columns >= live (up to kp16) are 0.
+__device__ __forceinline__ void fill_bf16_rows(unsigned* __restrict__ dst,
+                                               const float* __restrict__ src, int ss,
+                                               int rows, int live, int kp16, int words) {
+  const int wpr = kp16 / 2;
+  for (int i = threadIdx.x; i < 64 * wpr; i += blockDim.x) {
+    const int r = i / wpr, c = 2 * (i - r * wpr);
+    const float lo = r < rows && c < live ? src[r * ss + c] : 0.0f;
+    const float hi = r < rows && c + 1 < live ? src[r * ss + c + 1] : 0.0f;
+    dst[r * words + c / 2] = pack_bf16x2(lo, hi);
+  }
+}
+
+// dst (8 N rows of kTWords words) <- the (64, d) tile src at row stride sp,
+// transposed and rounded to bf16: row k holds feature k of the 64 columns,
+// two to a word; features k >= d are 0.
+template <int N>
+__device__ __forceinline__ void fill_bf16_transposed(unsigned* __restrict__ dst,
+                                                     const float* __restrict__ src,
+                                                     int sp, int d) {
+  for (int i = threadIdx.x; i < 8 * N * 32; i += blockDim.x) {
+    const int k = i >> 5, jp = i & 31;
+    const float lo = k < d ? src[(2 * jp) * sp + k] : 0.0f;
+    const float hi = k < d ? src[(2 * jp + 1) * sp + k] : 0.0f;
+    dst[k * kTWords + jp] = pack_bf16x2(lo, hi);
+  }
+}
+
+// w += rows . cols^T over kp16 columns (a multiple of 16) of two bf16 factor
+// tiles at row stride `words`: one mma.sync m16n8k16 a k-step and fragment
+// pair, its sum added to w by FADD, in the C layout of pair_product_tc.
+__device__ __forceinline__ void pair_product_bf16(float (&w)[2][2][4],
+                                                  const unsigned* __restrict__ rt,
+                                                  const unsigned* __restrict__ ct,
+                                                  int words, int kp16, int rg, int cb,
+                                                  int g, int t4) {
+  for (int k0 = 0; k0 < kp16; k0 += 16) {
+    unsigned a[2][4], b[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const unsigned* pr = rt + (rg + 16 * mt + g) * words + k0 / 2 + t4;
+      a[mt][0] = pr[0];
+      a[mt][1] = pr[8 * words];
+      a[mt][2] = pr[4];
+      a[mt][3] = pr[8 * words + 4];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const unsigned* pc = ct + (cb + 8 * nt + g) * words + k0 / 2 + t4;
+      b[nt][0] = pc[0];
+      b[nt][1] = pc[4];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(f, a[mt], b[nt]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[mt][nt][e] += f[e];
+      }
+  }
+}
+
+// acc[(mt N + n) 4 + e] += W B over the warp's 16 columns of the tile, W the
+// micro-tile w rounded to bf16 and B a transposed bf16 column tile (N
+// n-tiles of features): the warp's 16 columns are one k-step of m16n8k16,
+// and a thread's W entries of n-tiles 0 and 1, row by row, are its A
+// fragment (a[0] row g columns 2 t4, 2 t4 + 1 of n-tile 0, a[2] the same of
+// n-tile 1, a[1] and a[3] row g + 8), so W is rounded in registers and never
+// staged. Each product is added to acc by FADD.
+template <int N>
+__device__ __forceinline__ void pair_contract_bf16(float (&acc)[2 * N * 4],
+                                                   const float (&w)[2][2][4],
+                                                   const unsigned* __restrict__ bt,
+                                                   int cb, int g, int t4) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const unsigned a[4] = {pack_bf16x2(w[mt][0][0], w[mt][0][1]),
+                           pack_bf16x2(w[mt][0][2], w[mt][0][3]),
+                           pack_bf16x2(w[mt][1][0], w[mt][1][1]),
+                           pack_bf16x2(w[mt][1][2], w[mt][1][3])};
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const unsigned* pb = bt + (8 * n + g) * kTWords + cb / 2 + t4;
+      const unsigned b[2] = {pb[0], pb[4]};
+      float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(f, a, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[(mt * N + n) * 4 + e] += f[e];
+    }
+  }
+}
 
 }  // namespace repro_torch

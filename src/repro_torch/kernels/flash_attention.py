@@ -1,11 +1,15 @@
-"""Causal flash attention — the CUDA kernel ``csrc/flash_attention.cu`` and its
+"""Causal flash attention — the CUDA kernels ``csrc/flash_attention.cu`` (fp32
+q, k, v) and ``csrc/flash_attention_bf16.cu`` (bf16 q, k, v) and their
 wrapper, twin of ``repro.kernels.flash_attention.flash_attention_pallas``
 behind ``repro.kernels.ops.flash_attention``.
 
 ``flash_attention(q, k, v, causal=...)`` takes q (b, s, hq, d) and k, v
 (b, s, hkv, d) with hq a multiple of hkv (grouped-query heads) and returns
 (b, s, hq, d). The kernel reads the tensors in that layout and maps the heads
-itself: nothing is gathered, transposed or padded first.
+itself: nothing is gathered, transposed or padded first. q, k and v share one
+dtype, float32 or bfloat16 (the reference kernel's casts on bf16 inputs: fp32
+logits, max and normaliser, p rounded to bf16 for p·v, a bf16 output); a mix
+raises.
 
 A CUDA tensor launches the kernel or raises, inside ``_FlashAttentionFn``: the
 kernel has no backward (nor has the reference's, which defines no VJP), so the
@@ -20,6 +24,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .gram_matvec import _ENTRY, LaunchCounts
 from .ref import flash_attention_ref
 
 #: head dimensions the kernel is instantiated for (the reduced configs', llama3-8b's)
@@ -27,6 +32,17 @@ HEAD_DIMS = (64, 128)
 #: query rows of a CTA, and keys of a tile (``kBlock``); a CTA per (batch ×
 #: query head, block), the blocks along grid.y
 BLOCK = 64
+#: the dtypes the kernels take, by the tile precision they count launches as
+DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def check_dtypes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The tile precision of q, k and v: one dtype of DTYPES for all three,
+    or a TypeError."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
+        raise TypeError(f"{name}: q, k and v must share one dtype of "
+                        f"{tuple(DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    return DTYPES[q.dtype]
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -53,33 +69,32 @@ class _FlashAttentionFn(torch.autograd.Function):
         return (*(next(grads) if t.requires_grad else None for t in ins), None, None)
 
 
-class FlashAttention:
-    """The wrapper of the flash-attention kernel. ``launches`` counts the
-    kernel launches it made (never the plain version's calls)."""
+class FlashAttention(LaunchCounts):
+    """The wrapper of the flash-attention kernels. Its ``LaunchCounts`` count
+    the launches it made, fp32 in ``launches`` and bf16 in ``bf16_launches``
+    (never the plain version's calls)."""
 
     name = "flash_attention"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True) -> torch.Tensor:
+        check_dtypes(self.name, q, k, v)
         if all(t.device.type == "cpu" for t in (q, k, v)):
             return flash_attention_ref(q, k, v, causal=causal)
         return _FlashAttentionFn.apply(q, k, v, causal, self._launch)
 
     @staticmethod
-    def smem_bytes(d: int) -> int:
+    def smem_bytes(d: int, precision: str = "fp32") -> int:
         """Dynamic shared memory per CTA of a launch at head dimension d."""
-        return _build.library().repro_flash_attention_smem_bytes(d)
+        suffix = "_bf16" if precision == "bf16" else ""
+        return getattr(_build.library(), f"repro_flash_attention_smem_bytes{suffix}")(d)
 
     def _launch(self, q, k, v, *, causal):
         dev = q.device
+        precision = check_dtypes(self.name, q, k, v)
         for t in (q, k, v):
             if t.device != dev or dev.type != "cuda":
                 raise ValueError(f"{self.name}: q, k and v must be on one CUDA device")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{self.name}: operands must be float32, got {t.dtype}")
             if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{self.name}: operands must be contiguous, 16-byte "
                                  f"aligned (b, s, heads, d) tensors")
@@ -98,12 +113,12 @@ class FlashAttention:
             return out
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _build.library().repro_flash_attention_f32(
+            err = getattr(_build.library(), f"repro_flash_attention_{_ENTRY[precision]}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, s, hq, hkv, d, int(causal), d ** -0.5, stream,
             )
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 

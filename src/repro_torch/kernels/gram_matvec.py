@@ -25,8 +25,9 @@ among them).
 Every forward takes the reference's tile ``precision``: ``"fp32"``, or
 ``"bf16"``, bfloat16 contraction operands with fp32 accumulation
 (``csrc/gram_matvec_bf16.cu``, the Gram kernel's own casts, which the row
-panel and the pair run too). The backward of a bf16 forward is not ported
-(its kernel's bf16 branch, ROADMAP queue 1 item 15) and raises.
+panel and the pair run too). A bf16 forward's backward runs at the same
+precision, as the reference's VJPs do: its matvecs on the bf16 tiles and dx,
+dz on the backward kernel's (``csrc/gram_matvec_bwd_bf16.cu``).
 """
 from __future__ import annotations
 
@@ -185,29 +186,59 @@ class GramBwdPlan:
         return self.parts * n * (d + 1) if self.parts > 1 else 0
 
 
-def gram_bwd_plan(n: int, m: int, d: int, s: int, stage2=None) -> GramBwdPlan:
+#: the widest d at which two CTAs of the bf16 backward are resident on an SM
+#: (its launch bounds: four z n-tiles)
+BF16_BWD_TWO_CTAS_DIM = 32
+#: The widest slice of rowv/colv (or P and Q) a bf16 backward launch takes,
+#: by the largest d it takes (the shared memory of its bf16 and staging
+#: tiles). The reference rounds the weights W over all s columns at once, so
+#: a bf16 launch runs every column up to this width in one slice (the SGD
+#: pair's 2s = 130, the Thompson ascent's s = 100); wider factors are cut
+#: into slices, each of whose weights is rounded apart.
+BF16_BWD_SLICE_COLS = {64: 136, MAX_DIM: 64}
+
+
+def bf16_bwd_columns(d: int) -> int:
+    """The widest one-slice bf16 backward launch at feature dimension d."""
+    return next(w for dmax, w in BF16_BWD_SLICE_COLS.items() if d <= dmax)
+
+
+def gram_bwd_plan(n: int, m: int, d: int, s: int, stage2=None,
+                  precision: str = "fp32") -> GramBwdPlan:
     """The launch plan of the Gram backward for x (n, d), z (m, d), rowv (n, s),
-    colv (m, s), s ≤ MAX_BWD_COLUMNS (the wrapper slices wider ones): a plain
+    colv (m, s), s ≤ MAX_BWD_COLUMNS (bf16: ``bf16_bwd_columns(d)``; the
+    wrapper slices wider ones): a plain
     function of the shapes, so every run of a shape is cut the same way. Few
     row blocks × slices cut the column loop into ``round_chunks``' chunks (at
     least MIN_CHUNK_TILES tiles each). ``stage2`` (``"tc"`` or ``"fma"``)
-    overrides the variant, to time both."""
+    overrides the variant, to time both. The bf16 tiles run both products on
+    the tensor cores (stage 2 ``"tc"``), two CTAs to an SM up to
+    BF16_BWD_TWO_CTAS_DIM."""
+    check_precision(precision)
     if stage2 is None:
-        stage2 = "fma" if d <= FMA_STAGE2_DIM else "tc"
-    if stage2 not in BWD_STAGE2 or (stage2 == "fma" and d > FMA_STAGE2_DIM):
-        raise ValueError(f"stage 2 {stage2!r} does not take d = {d}")
-    slice_cols = BWD_SLICE_COLS >> (0 if d <= 32 else 1 if d <= 64 else 2)
+        stage2 = "fma" if d <= FMA_STAGE2_DIM and precision == "fp32" else "tc"
+    if (stage2 not in BWD_STAGE2 or (stage2 == "fma" and d > FMA_STAGE2_DIM)
+            or (stage2 == "fma" and precision == "bf16")):
+        raise ValueError(f"stage 2 {stage2!r} does not take d = {d} at {precision}")
+    if precision == "bf16":
+        slice_cols = bf16_bwd_columns(d)
+    else:
+        slice_cols = BWD_SLICE_COLS >> (0 if d <= 32 else 1 if d <= 64 else 2)
     row_blocks, tiles = _cdiv(n, TILE_ROWS), _cdiv(m, TILE_COLS)
     width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
     slices = _cdiv(s, width)
-    per = round_chunks(tiles, row_blocks * slices, 1 if width > NARROW_G else 2,
-                       MIN_CHUNK_TILES)
+    if precision == "bf16":
+        resident = 2 if d <= BF16_BWD_TWO_CTAS_DIM else 1
+    else:
+        resident = 1 if width > NARROW_G else 2
+    per = round_chunks(tiles, row_blocks * slices, resident, MIN_CHUNK_TILES)
     return GramBwdPlan(row_blocks=row_blocks, chunks=_cdiv(tiles, per), chunk=per * TILE_COLS,
                        slices=slices, width=width, stage2=stage2)
 
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:
-    """Device, dtype, rank and contiguity checks shared by the kernel wrappers."""
+    """Device, dtype, rank and contiguity checks shared by the kernel wrappers
+    (the bf16 tiles' operands are float32 too: the kernels round them)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -229,16 +260,6 @@ def _check_chain(name, x, z, v):
         )
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"{name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
-
-
-def no_bf16_backward(precision: str) -> None:
-    """The backward of a bf16 forward would need the backward kernels' bf16
-    branch, which is not ported: it raises, and never runs in fp32 instead."""
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"the backward of a precision={precision!r} forward is not ported yet "
-            f"(the bf16 branch of the backward kernels): ROADMAP queue 1 item 15"
-        )
 
 
 def check_kind(kind: str) -> None:
@@ -268,8 +289,8 @@ class LaunchCounts:
 class _GramMatvecFn(torch.autograd.Function):
     """K̃(x, z) @ v with the reference's fused VJP (``gram_matvec.py:317-327``
     there). ``fwd`` and ``bwd`` are the forward and backward implementations:
-    the kernels' wrappers, or the plain versions, ``fwd`` at the forward's
-    tile ``precision`` (a bf16 forward's backward raises)."""
+    the kernels' wrappers, or the plain versions, ``fwd`` bound to the
+    forward's tile ``precision``, at which ``bwd`` runs too."""
 
     @staticmethod
     def forward(ctx, x, z, v, kind, fwd, bwd, precision="fp32"):
@@ -280,12 +301,12 @@ class _GramMatvecFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        no_bf16_backward(ctx.precision)
         x, z, v = ctx.saved_tensors
         g = grad.contiguous()
         need_x, need_z, need_v = ctx.needs_input_grad[:3]
-        dx = ctx.bwd(x, z, g, v, kind=ctx.kind) if need_x else None
-        dz = ctx.bwd(z, x, v, g, kind=ctx.kind) if need_z else None
+        bwd = _at(ctx.bwd, ctx.precision)
+        dx = bwd(x, z, g, v, kind=ctx.kind) if need_x else None
+        dz = bwd(z, x, v, g, kind=ctx.kind) if need_z else None
         dv = ctx.fwd(z, x, g, kind=ctx.kind) if need_v else None
         return dx, dz, dv, None, None, None, None
 
@@ -307,7 +328,7 @@ _SUFFIX = {"fp32": "", "bf16": "_bf16"}
 
 
 def _at(fn, precision: str):
-    """``fn`` at the tile precision: a forward, bound to it."""
+    """``fn`` (a forward or a backward) bound to the tile precision."""
     return fn if precision == "fp32" else functools.partial(fn, precision=precision)
 
 
@@ -364,34 +385,37 @@ def _launch_matvec(name, x, z, v, kind, precision="fp32"):
     return out
 
 
-class GramMatvecBwd:
-    """The wrapper of the Gram matvec's backward kernel. ``launches`` counts the
-    kernel launches it made (never the plain version's calls)."""
+class GramMatvecBwd(LaunchCounts):
+    """The wrapper of the Gram matvec's backward kernels, fp32 and bf16. Its
+    ``LaunchCounts`` count the calls of the C entries it made, one a call of
+    at most MAX_BWD_COLUMNS columns (bf16: ``bf16_bwd_columns(d)``; never
+    the plain version's calls)."""
 
     name = "gram_matvec_bwd"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, x: torch.Tensor, z: torch.Tensor, rowv: torch.Tensor,
-                 colv: torch.Tensor, *, kind: str = "se") -> torch.Tensor:
+                 colv: torch.Tensor, *, kind: str = "se",
+                 precision: str = "fp32") -> torch.Tensor:
         """dx (n,d) of v ↦ K̃(x, z) @ v at ḡ = rowv (n,s), v = colv (m,s),
         inputs pre-scaled by 1/ℓ; with (z, x, colv, rowv) it gives dz."""
         check_kind(kind)
+        check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, z, rowv, colv)):
-            return gram_matvec_bwd_ref(x, z, rowv, colv, kind=kind)
-        return self._launch(x, z, rowv, colv, kind)
+            return gram_matvec_bwd_ref(x, z, rowv, colv, kind=kind, precision=precision)
+        return self._launch(x, z, rowv, colv, kind, precision=precision)
 
     @staticmethod
-    def smem_bytes(d: int, s: int, stage2=None) -> int:
+    def smem_bytes(d: int, s: int, stage2=None, precision: str = "fp32") -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        plan = gram_bwd_plan(1, 1, d, s, stage2)
+        plan = gram_bwd_plan(1, 1, d, s, stage2, precision)
+        if precision == "bf16":
+            return _build.library().repro_gram_matvec_bwd_smem_bytes_bf16(d, plan.width)
         return _build.library().repro_gram_matvec_bwd_smem_bytes(
             d, plan.width, int(plan.stage2 == "tc"))
 
-    def _launch(self, x, z, rowv, colv, kind, stage2=None):
-        """The launch on ``gram_bwd_plan``'s geometry; ``stage2`` overrides
-        its stage-2 variant (to time both)."""
+    def _launch(self, x, z, rowv, colv, kind, stage2=None, precision="fp32"):
+        """The launch on ``gram_bwd_plan``'s geometry at the tile precision;
+        ``stage2`` overrides its fp32 stage-2 variant (to time both)."""
         check_operands(self.name, x, z, rowv, colv)
         (n, d), (m, dz), (nr, s), (mc, sc) = x.shape, z.shape, rowv.shape, colv.shape
         if dz != d or nr != n or mc != m or sc != s:
@@ -401,28 +425,31 @@ class GramMatvecBwd:
             )
         if not 1 <= d <= MAX_DIM:
             raise ValueError(f"{self.name}: needs 1 <= d <= {MAX_DIM}, got d={d}")
-        if s > MAX_BWD_COLUMNS:  # dx is linear in the rank-s product rowv colvᵀ
+        cols = MAX_BWD_COLUMNS if precision == "fp32" else bf16_bwd_columns(d)
+        if s > cols:  # dx is linear in the rank-s product rowv colvᵀ
             return sum(
-                self._launch(x, z, rowv[:, c:c + MAX_BWD_COLUMNS].contiguous(),
-                             colv[:, c:c + MAX_BWD_COLUMNS].contiguous(), kind, stage2)
-                for c in range(0, s, MAX_BWD_COLUMNS)
+                self._launch(x, z, rowv[:, c:c + cols].contiguous(),
+                             colv[:, c:c + cols].contiguous(), kind, stage2, precision)
+                for c in range(0, s, cols)
             )
         out = torch.empty((n, d), dtype=torch.float32, device=x.device)
         if n == 0:
             return out
         if m == 0 or s == 0:
             return out.zero_()
-        plan = gram_bwd_plan(n, m, d, s, stage2)
+        plan = gram_bwd_plan(n, m, d, s, stage2, precision)
         ws = torch.empty(plan.workspace_floats(n, d), dtype=torch.float32, device=x.device)
+        args = (x.data_ptr(), z.data_ptr(), rowv.data_ptr(), colv.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), n, m, d, s, CUDA_KINDS.index(kind), plan.width, plan.chunk)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _build.library().repro_gram_matvec_bwd_f32(
-                x.data_ptr(), z.data_ptr(), rowv.data_ptr(), colv.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), n, m, d, s, CUDA_KINDS.index(kind), plan.width, plan.chunk,
-                int(plan.stage2 == "tc"), stream,
-            )
+            if precision == "bf16":
+                err = _build.library().repro_gram_matvec_bwd_bf16(*args, stream)
+            else:
+                err = _build.library().repro_gram_matvec_bwd_f32(
+                    *args, int(plan.stage2 == "tc"), stream)
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 
@@ -457,8 +484,7 @@ class _GramRowsPairFn(torch.autograd.Function):
     ê = ē + A ḡ masked like err, dlook = Aᵀ ê, db = −ê, and dA = ê lookᵀ + err ḡᵀ,
     a rank-2s product the Gram backward takes on the concatenated factors.
     ``ops`` holds the implementations: the kernels' wrappers, or the plain
-    versions, ``ops["pair"]`` at the forward's tile ``precision`` (a bf16
-    forward's backward raises)."""
+    versions, each bound to the forward's tile ``precision``."""
 
     @staticmethod
     def forward(ctx, xi, x, look, b, kind, p_true, ops, precision="fp32"):
@@ -470,7 +496,6 @@ class _GramRowsPairFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, e_bar, g_bar):
-        no_bf16_backward(ctx.precision)
         xi, x, look, err = ctx.saved_tensors
         ops, kind = ctx.ops, ctx.kind
         e_bar = torch.zeros_like(err) if e_bar is None else e_bar.contiguous()
@@ -494,6 +519,17 @@ _PLAIN_PAIR_OPS = dict(pair=gram_rows_pair_ref, rows=gram_rows_matvec_ref,
                        mv=gram_matvec_ref, bwd=gram_matvec_bwd_ref)
 
 
+def plain_gram_rows_pair(xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor,
+                         b: torch.Tensor, *, kind: str = "se", p_true=None,
+                         precision: str = "fp32") -> tuple:
+    """The differentiable pair with the plain versions in place of the
+    kernels, on any device and dtype: what CPU tensors take, and the
+    yardstick of the kernels' gradients on the card."""
+    p_true = xi.shape[0] if p_true is None else int(p_true)
+    ops = {name: _at(fn, precision) for name, fn in _PLAIN_PAIR_OPS.items()}
+    return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops, precision)
+
+
 class GramRowsPair(LaunchCounts):
     """The wrapper of the fused pair step (``repro_gram_rows_pair_f32``, or
     ``_bf16``: the row panel's matvec, the chunk sum minus b, then the Gram
@@ -510,13 +546,13 @@ class GramRowsPair(LaunchCounts):
         pre-scaled by 1/ℓ; err rows ≥ ``p_true`` (default p) are zeroed."""
         check_kind(kind)
         check_precision(precision)
-        p_true = xi.shape[0] if p_true is None else int(p_true)
         if all(t.device.type == "cpu" for t in (xi, x, look, b)):
-            ops = _PLAIN_PAIR_OPS
-        else:
-            ops = dict(pair=self._launch, rows=gram_rows_matvec._launch,
-                       mv=gram_matvec._launch, bwd=gram_matvec_bwd)
-        ops = dict(ops, pair=_at(ops["pair"], precision))
+            return plain_gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true,
+                                        precision=precision)
+        p_true = xi.shape[0] if p_true is None else int(p_true)
+        ops = dict(pair=self._launch, rows=gram_rows_matvec._launch, mv=gram_matvec._launch,
+                   bwd=gram_matvec_bwd)
+        ops = {name: _at(fn, precision) for name, fn in ops.items()}
         return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops, precision)
 
     def _launch(self, xi, x, look, b, *, kind, p_true, precision="fp32"):

@@ -39,8 +39,13 @@ fp32), and ``gram_mv`` on ``chunked``/``dense`` ignores it, as the
 reference's does.
 
 Causal attention goes through :func:`flash_attention` on ``"cuda"`` (the flash
-kernel, ``flash_attention.py``) or ``"plain"`` (materialised logits); bf16
-inputs are not ported.
+kernels, ``flash_attention.py``, fp32 or bf16 inputs) or ``"plain"``
+(materialised logits, with the kernels' casts on bf16 inputs).
+
+:func:`gram_matvec`, :func:`rff_matvec` and :func:`rff_t_matvec` are the
+reference's pins of the fused kernels (``ops.py:303,360,384`` there): the
+conventional names of the kernel tests and benches, each ``backend="cuda"``,
+differentiable through the kernels' VJPs at the tile ``precision``.
 
 ``MATVEC_TRACE_COUNTS`` / ``FEATURE_TRACE_COUNTS`` count the matvecs each
 backend dispatched, ``ATTENTION_TRACE_COUNTS`` the attention calls (every call
@@ -51,12 +56,15 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention import check_dtypes, flash_attention as _flash_kernel
 from .gram_matvec import (
-    CUDA_KINDS, gram_matvec, gram_rows_matvec as _rows_kernel, gram_rows_pair as _pair_kernel,
+    CUDA_KINDS, gram_matvec as _gram_kernel, gram_rows_matvec as _rows_kernel,
+    gram_rows_pair as _pair_kernel,
 )
 from .ref import PRECISIONS, check_precision, flash_attention_ref, tile_cast
-from .rff_matvec import rff_matvec, rff_pair, rff_t_matvec
+from .rff_matvec import (
+    rff_matvec as _rff_kernel, rff_pair as _rff_pair_kernel, rff_t_matvec as _rff_t_kernel,
+)
 
 BACKENDS = ("auto", "cuda", "chunked", "dense")
 FEATURE_BACKENDS = ("auto", "cuda", "features")
@@ -149,8 +157,8 @@ def gram_mv(
         ls = params.lengthscale
         xs = (x / ls).contiguous()
         zs = xs if z is None else (z / ls).contiguous()
-        out = params.signal * gram_matvec(xs, zs, v2.contiguous(), kind=params.kind,
-                                          precision=precision)
+        out = params.signal * _gram_kernel(xs, zs, v2.contiguous(), kind=params.kind,
+                                           precision=precision)
     elif bk == "chunked":  # the plain backends ignore precision, as the reference's
         out = matvec(params, x, v2, z=z, row_chunk=row_chunk)
     else:
@@ -282,7 +290,7 @@ def rff_mv(
     w2 = w[:, None] if squeeze else w
     if bk == "cuda":
         # the kernel carries √(1/m); σ_f² is folded in here, outside it
-        out = torch.sqrt(signal) * rff_matvec(
+        out = torch.sqrt(signal) * _rff_kernel(
             x.contiguous(), omega.contiguous(), w2.contiguous(), precision=precision
         )
     else:
@@ -308,7 +316,7 @@ def rff_t_mv(
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
-        out = torch.sqrt(signal) * rff_t_matvec(
+        out = torch.sqrt(signal) * _rff_t_kernel(
             x.contiguous(), omega.contiguous(), u2.contiguous(), precision=precision
         )
     else:
@@ -338,7 +346,7 @@ def rff_pair_mv(
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
         # the core's two √(1/m) factors give 1/m; σ_f² is applied here
-        out = signal * rff_pair(x.contiguous(), omega.contiguous(), u2.contiguous(),
+        out = signal * _rff_pair_kernel(x.contiguous(), omega.contiguous(), u2.contiguous(),
                                 precision=precision)
     else:
         feats = materialised_features(x, omega, signal)  # built once, used twice
@@ -356,12 +364,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _no_pallas(backend)
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
-    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
-        raise NotImplementedError(
-            "bf16 inputs to flash attention are not ported yet: ROADMAP queue 1 item 15"
-        )
+    check_dtypes("flash_attention", q, k, v)
     bk = ("cuda" if q.device.type == "cuda" else "plain") if backend == "auto" else backend
     ATTENTION_TRACE_COUNTS[bk] += 1
     if bk == "cuda":
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return flash_attention_ref(q, k, v, causal=causal)
+
+
+def gram_matvec(params, x: torch.Tensor, v: torch.Tensor, z=None, *, jitter=None,
+                precision: str = "fp32") -> torch.Tensor:
+    """(σ_f² k(x, z) + jitter·I) @ v — the fused Gram kernel, the reference's
+    ``backend="pallas"`` pin over :func:`gram_mv` (its ``ops.gram_matvec``):
+    σ_f², 1/ℓ and the jitter applied outside the core, differentiable in x,
+    z, v and the hyperparameters. CPU tensors take the kernel's plain
+    version."""
+    return gram_mv(params, x, v, z=z, jitter=jitter, backend="cuda", precision=precision)
+
+
+def rff_matvec(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *, signal=1.0,
+               precision: str = "fp32") -> torch.Tensor:
+    """Φ(x) @ w (paired sin/cos RFF) by the fused kernel — the reference's
+    ``ops.rff_matvec`` pin, :func:`rff_mv` on ``"cuda"``: w (2m, s), sin rows
+    first; differentiable in x, ω, w and ``signal`` (σ_f², outside the core).
+    The reference pads ω to its block and rescales by √(m_pad/m); the port's
+    kernel masks the feature edge, so nothing is padded. Counted among the
+    feature matvecs (the reference's pin passes its counter by)."""
+    return rff_mv(x, omega, w, signal=signal, backend="cuda", precision=precision)
+
+
+def rff_t_matvec(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *, signal=1.0,
+                 precision: str = "fp32") -> torch.Tensor:
+    """Φ(x)ᵀ @ u (paired sin/cos RFF) → (2m, s) by the fused kernel — the
+    reference's ``ops.rff_t_matvec`` pin, :func:`rff_t_mv` on ``"cuda"``
+    (see :func:`rff_matvec`)."""
+    return rff_t_mv(x, omega, u, signal=signal, backend="cuda", precision=precision)

@@ -7,13 +7,15 @@ and ``chip_smoke.py`` and the card tests hold each CUDA kernel against them.
 also run at the sizes the kernels are checked at on the card, where K itself
 would not fit.
 
-The forward matvecs take the reference kernels' tile ``precision``. With
-``"bf16"`` they round to bfloat16 (to nearest even) exactly where the Pallas
-kernels cast (``_cast_mxu``, ``repro/kernels/gram_matvec.py:53-82`` and
-``rff_matvec.py:40-47``): the points before the distance or projection, whose
-norms and inner products are then summed from the rounded values; the
-covariance tile or the sin/cos tile before its contraction, and the
-contraction's other operand. Everything else stays in the inputs' dtype, and
+The matvecs and their backward take the reference kernels' tile
+``precision``. With ``"bf16"`` they round to bfloat16 (to nearest even)
+exactly where the Pallas kernels cast (``_cast_mxu``,
+``repro/kernels/gram_matvec.py:53-82,200-246`` and
+``rff_matvec.py:40-47,216-247``): the points before the distance or
+projection, whose norms and inner products are then summed from the rounded
+values; the covariance tile, the sin/cos tile or the backward's weights
+before their contraction, and the contraction's other operand; the
+backward's factors before their outer product. Everything else stays in the inputs' dtype, and
 every product of rounded operands is taken in that dtype, so a product of two
 bfloat16 values is exact and only its sum rounds: the fp32 accumulation of
 the tensor cores, with no TF32 and no bfloat16 matmul (which would round its
@@ -125,6 +127,7 @@ def gram_matvec_bwd_ref(
     *,
     kind: str = "se",
     row_chunk: int = 1024,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """dx = 2·(x ⊙ Σⱼ W − W z), W_ij = κ'(d²_ij)·mask_ij·(rowv_i·colv_j): the
     input cotangent of v ↦ k(x, z) @ v at ḡ = rowv (n, s), v = colv (m, s), as
@@ -138,7 +141,16 @@ def gram_matvec_bwd_ref(
     diagonal would become weights of ~1e8 through Matérn-1/2's κ'), and never
     negative, so the reference's clamp and its below-zero mask have nothing to
     do here.
+
+    With ``"bf16"``, ``gram_matvec_bwd_pallas``'s casts: d² from the matmul
+    identity on the rounded x and z (``_pair_dists``, as the bf16 forward),
+    clamped for κ' and masked from its raw value; rowv·colvᵀ on rounded
+    factors; Σⱼ W from the unrounded W; W z on the rounded W and z; the flush
+    on the unrounded x.
     """
+    check_precision(precision)
+    if precision == "bf16":
+        return _gram_matvec_bwd_bf16(x, z, rowv, colv, kind, row_chunk)
     out = []
     for i in range(0, x.shape[0], row_chunk):
         xc = x[i:i + row_chunk]
@@ -148,6 +160,22 @@ def gram_matvec_bwd_ref(
             mask = mask + 0.5 * (raw == 0).to(raw.dtype)
         w = dcov_map(raw, kind) * mask * (rowv[i:i + row_chunk] @ colv.T)
         out.append(2.0 * (xc * torch.sum(w, dim=1, keepdim=True) - w @ z))
+    return torch.cat(out) if out else x.new_zeros((0, x.shape[1]))
+
+
+def _gram_matvec_bwd_bf16(x, z, rowv, colv, kind, row_chunk):
+    xr, zr, rv, cv = (tile_cast(a, "bf16") for a in (x, z, rowv, colv))
+    zn = torch.sum(zr * zr, dim=-1)[None, :]
+    out = []
+    for i in range(0, x.shape[0], row_chunk):
+        xc = xr[i:i + row_chunk]
+        raw = torch.sum(xc * xc, dim=-1)[:, None] + zn - 2.0 * (xc @ zr.T)
+        mask = (raw > 0).to(raw.dtype)
+        if kind != "matern12":
+            mask = mask + 0.5 * (raw == 0).to(raw.dtype)
+        w = dcov_map(torch.clamp(raw, min=0.0), kind) * mask * (rv[i:i + row_chunk] @ cv.T)
+        out.append(2.0 * (x[i:i + row_chunk] * torch.sum(w, dim=1, keepdim=True)
+                          - tile_cast(w, "bf16") @ zr))
     return torch.cat(out) if out else x.new_zeros((0, x.shape[1]))
 
 
@@ -240,18 +268,24 @@ def rff_bwd_ref(
     *,
     scale: float,
     row_chunk: int = 256,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """dR = scale·(cos(RCᵀ) ⊙ P₁Q₁ᵀ − sin(RCᵀ) ⊙ P₂Q₂ᵀ) @ C: the input
     cotangent of the projection RCᵀ, as ``rff_bwd_pallas`` computes it. With
     (x, ω, ḡ, ḡ, w_sin, w_cos) it is ∂x of Φ̃w, with (ω, x, w_sin, w_cos, ḡ, ḡ)
     its ∂ω. r:(rows,d) c:(cols,d) p1,p2:(rows,s) q1,q2:(cols,s) → (rows,d);
-    in row chunks, so that the (rows, cols) weights are never whole."""
+    in row chunks, so that the (rows, cols) weights are never whole. With
+    ``"bf16"``, its casts: R and C before the projection (and C in W C), the
+    four factors before their products, W (computed unrounded) before W C;
+    the scale applied to the sum."""
+    check_precision(precision)
+    r, c, p1, p2, q1, q2 = (tile_cast(a, precision) for a in (r, c, p1, p2, q1, q2))
     out = []
     for i in range(0, r.shape[0], row_chunk):
         proj = r[i:i + row_chunk] @ c.T
         w = (torch.cos(proj) * (p1[i:i + row_chunk] @ q1.T)
              - torch.sin(proj) * (p2[i:i + row_chunk] @ q2.T))
-        out.append(scale * (w @ c))
+        out.append(scale * (tile_cast(w, precision) @ c))
     return torch.cat(out) if out else r.new_zeros((0, r.shape[1]))
 
 
@@ -270,13 +304,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """Attention with materialised logits, ``flash_attention_pallas``'s
     semantics: q (b, s, hq, d), k and v (b, s, hkv, d) with hq % hkv == 0,
-    query head h reading key/value head h // (hq / hkv) → (b, s, hq, d)."""
+    query head h reading key/value head h // (hq / hkv) → (b, s, hq, d).
+
+    On bfloat16 inputs, the kernel's casts there: fp32 logits from the bf16 q
+    and k, scaled after the product; the max and the normaliser l in fp32, l
+    summing the unrounded p; p rounded to bf16 for p·v alone, accumulated in
+    fp32; the output rounded to bf16."""
     hq, hkv = q.shape[2], k.shape[2]
     head_map = torch.arange(hq, device=q.device) // (hq // hkv)
     k, v = k[:, :, head_map], v[:, :, head_map]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
     if causal:
         s_q, s_k = q.shape[1], k.shape[1]
         mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device).tril(s_k - s_q)
         logits = logits.masked_fill(~mask, float("-inf"))
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    if not bf16:
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", tile_cast(p, "bf16"), v.float())
+    return (out / p.sum(dim=-1).transpose(1, 2)[..., None]).to(torch.bfloat16)

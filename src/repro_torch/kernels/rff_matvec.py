@@ -34,9 +34,10 @@ yardstick of the kernels' gradients on the card.
 The three matvecs take the reference's tile ``precision``: ``"fp32"``, or
 ``"bf16"``, bfloat16 contraction operands (x and ω before the projection, the
 sin/cos tiles, the operand; the pair's second phase its scaled intermediate)
-with fp32 accumulation, in ``csrc/rff_matvec_bf16.cu``. The backward of a
-bf16 forward is not ported (the RFF backward kernel's bf16 branch, ROADMAP
-queue 1 item 15) and raises.
+with fp32 accumulation, in ``csrc/rff_matvec_bf16.cu``. A bf16 forward's
+backward runs at the same precision, as the reference's VJPs do: its matvecs
+on the bf16 tiles and ∂x, ∂ω on the backward kernel's
+(``csrc/rff_bwd_bf16.cu``).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from torch.autograd.function import once_differentiable
 from . import _build
 from .gram_matvec import (
     _ENTRY, _SUFFIX, GRID_Y, MAX_DIM, NARROW_G, SLICE_COLS, TILE_COLS, TILE_ROWS, WIDE_DIM,
-    LaunchCounts, _at, _cdiv, check_operands, no_bf16_backward, round_chunks,
+    LaunchCounts, _at, _cdiv, bf16_bwd_columns, check_operands, round_chunks,
 )
 from .ref import check_precision, rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 
@@ -173,22 +174,41 @@ class RFFBwdPlan:
         return self.parts * rows * d if self.parts > 1 else 0
 
 
+#: two CTAs of the bf16 backward are resident on an SM up to d =
+#: RFF_BF16_BWD_TWO_CTAS_DIM (its launch bounds: two C n-tiles) and slices of
+#: RFF_BF16_BWD_TWO_CTAS_WIDTH columns (its shared memory)
+RFF_BF16_BWD_TWO_CTAS_DIM, RFF_BF16_BWD_TWO_CTAS_WIDTH = 16, 72
+
+
 @functools.lru_cache(maxsize=None)
-def rff_bwd_plan(rows: int, cols: int, d: int, s: int, products=None) -> RFFBwdPlan:
+def rff_bwd_plan(rows: int, cols: int, d: int, s: int, products=None,
+                 precision: str = "fp32") -> RFFBwdPlan:
     """The launch plan of the RFF backward for R (rows, d), C (cols, d), P
     (rows, s), Q (cols, s), any s: a plain function of the shapes, so every
     run of a shape is cut the same way (and its fixed-order sum gives the same
     bits); memoised, since every launch asks for it. ``products`` (``"tc"``
-    or ``"fma"``) overrides the plan's variant, to time both."""
-    slice_cols = next(w for dmax, w in RFF_BWD_SLICE_COLS.items() if d <= dmax)
+    or ``"fma"``) overrides the plan's variant, to time both. The bf16 tiles
+    run the products on the tensor cores, on slices of up to
+    ``bf16_bwd_columns(d)`` columns (the reference rounds W over all s at
+    once)."""
+    check_precision(precision)
+    if precision == "bf16":
+        slice_cols = bf16_bwd_columns(d)
+    else:
+        slice_cols = next(w for dmax, w in RFF_BWD_SLICE_COLS.items() if d <= dmax)
     width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
     slices = _cdiv(s, width)
     if products is None:
-        products = "fma" if width <= NARROW_G else "tc"
-    if products not in ("tc", "fma"):
-        raise ValueError(f"no factor-product variant {products!r}")
+        products = "fma" if width <= NARROW_G and precision == "fp32" else "tc"
+    if products not in ("tc", "fma") or (products == "fma" and precision == "bf16"):
+        raise ValueError(f"no factor-product variant {products!r} at {precision}")
     row_blocks, tiles = _cdiv(rows, TILE_ROWS), _cdiv(cols, TILE_COLS)
-    per = round_chunks(tiles, row_blocks * slices, 1 if products == "tc" else 2, 1)
+    if precision == "bf16":
+        two = d <= RFF_BF16_BWD_TWO_CTAS_DIM and width <= RFF_BF16_BWD_TWO_CTAS_WIDTH
+        resident = 2 if two else 1
+    else:
+        resident = 1 if products == "tc" else 2
+    per = round_chunks(tiles, row_blocks * slices, resident, 1)
     return RFFBwdPlan(row_blocks=row_blocks, chunks=_cdiv(tiles, per), chunk=per * TILE_COLS,
                       slices=slices, width=width, products=products)
 
@@ -203,7 +223,7 @@ def _projection_grads(ctx, x, omega, p, q):
     m = omega.shape[0]
     q_sin, q_cos = q[:m].contiguous(), q[m:].contiguous()
     scale = math.sqrt(1.0 / m)
-    bwd = ctx.ops["bwd"]
+    bwd = _at(ctx.ops["bwd"], ctx.precision)
     return (bwd(x, omega, p, p, q_sin, q_cos, scale=scale) if need_x else None,
             bwd(omega, x, q_sin, q_cos, p, p, scale=scale) if need_omega else None)
 
@@ -211,8 +231,8 @@ def _projection_grads(ctx, x, omega, p, q):
 class _RFFMatvecFn(torch.autograd.Function):
     """Φ̃(x) @ w with the reference's fused VJP: the cotangent of Φ̃ is ḡwᵀ, so
     dx and dω are ``_projection_grads`` of (ḡ, w), and dw = Φ̃ᵀḡ. ``ops`` holds
-    the implementations: the kernels' wrappers, or the plain versions, the
-    forward's at its tile ``precision`` (a bf16 forward's backward raises)."""
+    the implementations: the kernels' wrappers, or the plain versions, each
+    run at the forward's tile ``precision``."""
 
     @staticmethod
     def forward(ctx, x, omega, w, ops, precision="fp32"):
@@ -223,11 +243,11 @@ class _RFFMatvecFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        no_bf16_backward(ctx.precision)
         x, omega, w = ctx.saved_tensors
         g = grad.contiguous()
         dx, domega = _projection_grads(ctx, x, omega, g, w)
-        dw = ctx.ops["t"](x, omega, g, omega.shape[0]) if ctx.needs_input_grad[2] else None
+        t = _at(ctx.ops["t"], ctx.precision)
+        dw = t(x, omega, g, omega.shape[0]) if ctx.needs_input_grad[2] else None
         return dx, domega, dw, None, None
 
 
@@ -245,13 +265,13 @@ class _RFFTMatvecFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        no_bf16_backward(ctx.precision)
         x, omega, u = ctx.saved_tensors
         m = omega.shape[0]
         keep = (torch.arange(2 * m, device=x.device) % m < ctx.m_true)[:, None]
         g = torch.where(keep, grad, torch.zeros_like(grad)).contiguous()
         dx, domega = _projection_grads(ctx, x, omega, u, g)
-        du = ctx.ops["mv"](x, omega, g) if ctx.needs_input_grad[2] else None
+        mv = _at(ctx.ops["mv"], ctx.precision)
+        du = mv(x, omega, g) if ctx.needs_input_grad[2] else None
         return dx, domega, du, None, None, None
 
 
@@ -270,16 +290,16 @@ class _RFFPairFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        no_bf16_backward(ctx.precision)
         x, omega, u = ctx.saved_tensors
-        ops, g, m_true = ctx.ops, grad.contiguous(), ctx.m_true
+        g, m_true = grad.contiguous(), ctx.m_true
+        t_mv, pair = (_at(ctx.ops[k], ctx.precision) for k in ("t", "pair"))
         dx = domega = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            t = ops["t"](x, omega, u, m_true)  # masked to m_true, like the forward's
-            tt = ops["t"](x, omega, g, m_true)
+            t = t_mv(x, omega, u, m_true)  # masked to m_true, like the forward's
+            tt = t_mv(x, omega, g, m_true)
             dx, domega = _projection_grads(ctx, x, omega, torch.cat([g, u], dim=1).contiguous(),
                                            torch.cat([t, tt], dim=1))
-        du = ops["pair"](x, omega, g, m_true) if ctx.needs_input_grad[2] else None
+        du = pair(x, omega, g, m_true) if ctx.needs_input_grad[2] else None
         return dx, domega, du, None, None, None
 
 
@@ -468,37 +488,38 @@ class RFFPair(LaunchCounts):
         return out
 
 
-class RFFBwd:
-    """The wrapper of the RFF backward kernel (``repro_rff_bwd_f32`` on
-    ``rff_bwd_plan``'s geometry: with more than one (chunk, slice) part, a
-    partial-sum workspace, then a fixed-order sum). ``launches`` counts the
-    calls of the C entry it made, one a call at every s (never the plain
-    version's calls)."""
+class RFFBwd(LaunchCounts):
+    """The wrapper of the RFF backward kernels (``repro_rff_bwd_f32`` or
+    ``_bf16`` on ``rff_bwd_plan``'s geometry: with more than one (chunk,
+    slice) part, a partial-sum workspace, then a fixed-order sum). Its
+    ``LaunchCounts`` count the calls of the C entries it made, one a call at
+    every s (never the plain version's calls)."""
 
     name = "rff_bwd"
 
-    def __init__(self) -> None:
-        self.launches = 0
-
     def __call__(self, r: torch.Tensor, c: torch.Tensor, p1: torch.Tensor,
                  p2: torch.Tensor, q1: torch.Tensor, q2: torch.Tensor, *,
-                 scale: float) -> torch.Tensor:
+                 scale: float, precision: str = "fp32") -> torch.Tensor:
         """r:(rows,d) c:(cols,d) p1,p2:(rows,s) q1,q2:(cols,s) → (rows,d) =
         scale·(cos(rcᵀ)⊙p1q1ᵀ − sin(rcᵀ)⊙p2q2ᵀ)·c."""
+        check_precision(precision)
         if all(t.device.type == "cpu" for t in (r, c, p1, p2, q1, q2)):
-            return rff_bwd_ref(r, c, p1, p2, q1, q2, scale=scale)
-        return self._launch(r, c, p1, p2, q1, q2, float(scale))
+            return rff_bwd_ref(r, c, p1, p2, q1, q2, scale=scale, precision=precision)
+        return self._launch(r, c, p1, p2, q1, q2, float(scale), precision=precision)
 
     @staticmethod
-    def smem_bytes(d: int, s: int, products=None) -> int:
+    def smem_bytes(d: int, s: int, products=None, precision: str = "fp32") -> int:
         """Dynamic shared memory per CTA of a launch at these d and s."""
-        plan = rff_bwd_plan(1, 1, d, s, products)
+        plan = rff_bwd_plan(1, 1, d, s, products, precision)
+        if precision == "bf16":
+            return _build.library().repro_rff_bwd_smem_bytes_bf16(d, plan.width)
         return _build.library().repro_rff_bwd_smem_bytes(d, plan.width,
                                                          int(plan.products == "tc"))
 
-    def _launch(self, r, c, p1, p2, q1, q2, scale, products=None):
-        """The launch on ``rff_bwd_plan``'s geometry; ``products`` overrides
-        its factor-product variant (to time both)."""
+    def _launch(self, r, c, p1, p2, q1, q2, scale, products=None, precision="fp32"):
+        """The launch on ``rff_bwd_plan``'s geometry at the tile precision;
+        ``products`` overrides its fp32 factor-product variant (to time
+        both)."""
         check_operands(self.name, r, c, p1, p2, q1, q2)
         (rows, d), (cols, dc), s = r.shape, c.shape, p1.shape[1]
         if (dc != d or tuple(p2.shape) != (rows, s)
@@ -516,20 +537,22 @@ class RFFBwd:
             return out
         if cols == 0 or s == 0:
             return out.zero_()
-        plan = rff_bwd_plan(rows, cols, d, s, products)
+        plan = rff_bwd_plan(rows, cols, d, s, products, precision)
         if plan.slices > GRID_Y:
             raise ValueError(f"{self.name}: {plan.slices} slices exceed grid.z's {GRID_Y}")
         ws = torch.empty(plan.workspace_floats(rows, d), dtype=torch.float32, device=r.device)
+        args = (r.data_ptr(), c.data_ptr(), p1.data_ptr(), p2.data_ptr(), q1.data_ptr(),
+                q2.data_ptr(), ws.data_ptr(), out.data_ptr(), rows, cols, d, s, scale,
+                plan.width, plan.chunk)
         with torch.cuda.device(r.device):
             stream = torch.cuda.current_stream(r.device).cuda_stream
-            err = _build.library().repro_rff_bwd_f32(
-                r.data_ptr(), c.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-                q1.data_ptr(), q2.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                rows, cols, d, s, scale, plan.width, plan.chunk,
-                int(plan.products == "tc"), stream,
-            )
+            if precision == "bf16":
+                err = _build.library().repro_rff_bwd_bf16(*args, stream)
+            else:
+                err = _build.library().repro_rff_bwd_f32(
+                    *args, int(plan.products == "tc"), stream)
         _build.check(err, self.name)
-        self.launches += 1
+        self._count(precision)
         return out
 
 

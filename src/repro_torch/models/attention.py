@@ -11,8 +11,10 @@ query row to a cache masked by ``kv_len``, which the kernel does not compute
 
 The cache is written in place (the reference returns an updated copy): a
 serving cache is the largest buffer after the weights, and nothing reads the
-old one. MLA, cross-attention and M-RoPE are not ported: ROADMAP queue 1
-item 14.
+old one. It keeps its own dtype (fp32 in ``launch/serve.generate``, as in the
+reference), and a bf16 model's decode attends with JAX's promotion: its bf16
+query against the fp32 cache is an fp32 product, and so is what follows.
+MLA, cross-attention and M-RoPE are not ported: ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope
+from .layers import apply_rope, matmul
 from .param import P
 
 #: the reference's mask value; −inf would make a fully masked row's max − max NaN
@@ -33,11 +35,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kv_len: int) -> 
     ``causal=False``: q (b, sq, h, dh) against the cache k, v (b, sk, hkv, dh),
     h % hkv == 0, entries from ``kv_len`` on masked; fp32 softmax. (The
     reference's causal mode and its 512-row query blocks serve train and
-    prefill, which the port sends to ``ops.flash_attention``.)"""
+    prefill, which the port sends to ``ops.flash_attention``.) A bf16 q
+    against an fp32 cache is promoted, as the reference's einsum promotes it.
+    """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, hkv, h // hkv, dh)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (dh ** -0.5)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, sq, hkv, h // hkv, dh).to(dt)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(dt)).float() * (dh ** -0.5)
     logits = torch.where(torch.arange(sk, device=q.device) < kv_len, logits, _NEG)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
@@ -90,9 +95,9 @@ def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
                                   f"item 14")
     b, s, _ = h.shape
     nh, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope((h @ p["wq"]).reshape(b, s, nh, dh), positions, cfg.rope_theta)
-    k = apply_rope((h @ p["wk"]).reshape(b, s, kv, dh), positions, cfg.rope_theta)
-    v = (h @ p["wv"]).reshape(b, s, kv, dh)
+    q = apply_rope(matmul(h, p["wq"]).reshape(b, s, nh, dh), positions, cfg.rope_theta)
+    k = apply_rope(matmul(h, p["wk"]).reshape(b, s, kv, dh), positions, cfg.rope_theta)
+    v = matmul(h, p["wv"]).reshape(b, s, kv, dh)
     if mode in ("train", "prefill"):
         out = ops.flash_attention(q, k, v, causal=True, backend=backend)
         if mode == "prefill":
@@ -104,4 +109,4 @@ def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
         out = _sdpa(q, cache["k"], cache["v"], kv_len=cache_index + 1)
     else:
         raise ValueError(mode)
-    return out.reshape(b, s, nh * dh) @ p["wo"], cache
+    return matmul(out.reshape(b, s, nh * dh), p["wo"]), cache

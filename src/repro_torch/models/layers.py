@@ -2,6 +2,12 @@
 OLMo's non-parametric), RoPE, the SwiGLU MLP, embeddings. Plain functions over
 dicts of tensors (a ``ParameterDict`` serves), schemas declared with ``P``.
 
+Each keeps the reference's dtypes at every cast point: RMSNorm and RoPE work
+in fp32 and return their input's dtype, the logits are fp32, and a product of
+a bf16 and an fp32 operand is fp32 (:func:`matmul`, JAX's promotion, where
+torch's ``@`` refuses the mix), as a bf16 model's decode meets it against the
+fp32 cache.
+
 M-RoPE (``apply_mrope``, qwen2-vl) is not ported: ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
@@ -51,6 +57,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with JAX's type promotion, the reference's ``@`` on mixed dtypes:
+    both operands in ``torch.promote_types`` of theirs (a bf16 activation
+    against an fp32 weight, or the reverse, is an fp32 product)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 # ----------------------------------------------------------------- MLP -------
 
 
@@ -66,7 +80,7 @@ def mlp_params(cfg, d_ff: Optional[int] = None):
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) ⊙ x W_up) W_down, weights in (in, out) layout."""
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return matmul(F.silu(matmul(x, p["gate"])) * matmul(x, p["up"]), p["down"])
 
 
 # ----------------------------------------------------------- embeddings ------

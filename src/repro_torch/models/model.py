@@ -179,6 +179,24 @@ def init_model_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.
     return Transformer(cfg, init_params(param_schema(cfg), generator, dtype, device))
 
 
+@torch.no_grad()
+def cast_model_(model: Transformer, dtype: torch.dtype) -> Transformer:
+    """Cast every weight of ``model`` to ``dtype`` in place (the reference's
+    params tree cast leaf by leaf). A layer's weights are views of stacked
+    tensors, so the casts go stack by stack: each stack's old storage is free
+    once its last view is re-pointed, before the next stack is cast, and the
+    model is never held whole in both dtypes."""
+    stacks: dict = {}
+    for mod in model.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            stacks.setdefault(p.untyped_storage().data_ptr(), []).append(p)
+    for views in stacks.values():
+        for p in views:
+            p.data = p.data.to(dtype)
+        views.clear()
+    return model
+
+
 # --------------------------------------------------------------- caches ------
 
 

@@ -28,6 +28,7 @@ from repro_torch.core.solvers import AP, SDD, SGD, RowDraws, SGDDraws, solve
 from repro_torch.core.solvers.sgd import draw_sgd
 from repro_torch.kernels.gram_matvec import (
     gram_matvec, gram_matvec_bwd, gram_rows_matvec, gram_rows_pair, plain_gram_matvec,
+    plain_gram_rows_pair,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (
@@ -691,8 +692,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
         flash_attention(q, _normal(6, 1, 64, 3, 64), _normal(7, 1, 64, 3, 64))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2), k, k)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    # bf16 inputs are taken (csrc/flash_attention_bf16.cu), a mix of dtypes is not
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.flash_attention(q.bfloat16(), k, k.bfloat16())
 
 
 @pytest.mark.gpu
@@ -1023,19 +1025,194 @@ def test_bf16_rff_kernels_match_plain_on_card(card, n, m, d, s, m_true):
 
 @pytest.mark.gpu
 def test_bf16_backward_and_flash_inputs_raise_on_card(card):
-    # not ported yet (ROADMAP queue 1 item 15): nothing runs in fp32 instead
-    x = _normal(1, 100, 3).requires_grad_()
+    # the bf16 branches are ported: a bf16 forward's gradient runs on bf16
+    # backward launches alone (no fp32 launch), within _bf16_grad_tol of the
+    # plain bf16 Functions', and bf16 flash inputs run the bf16 kernel
+    x = _normal(1, 100, 3)
     v = _normal(2, 100, 2)
-    out = gram_matvec(x, x, v, kind="se", precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        out.sum().backward()
     omega = _normal(3, 8, 3)
-    out = rff_pair(x, omega, v, precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        out.sum().backward()
-    q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        ops.flash_attention(q, q, q)
+    for kernel_fn, plain_fn, ins in (
+            (lambda a, b: gram_matvec(a, a, b, kind="se", precision="bf16"),
+             lambda a, b: plain_gram_matvec(a, a, b, kind="se", precision="bf16"), (x, v)),
+            (lambda a, w, b: rff_pair(a, w, b, precision="bf16"),
+             lambda a, w, b: plain_rff_pair(a, w, b, precision="bf16"), (x, omega, v))):
+        before = (gram_matvec_bwd.launches, rff_bwd.launches,
+                  gram_matvec_bwd.bf16_launches + rff_bwd.bf16_launches)
+        grads = _grads(kernel_fn, ins)
+        assert (gram_matvec_bwd.launches, rff_bwd.launches) == before[:2]
+        assert gram_matvec_bwd.bf16_launches + rff_bwd.bf16_launches > before[2]
+        _check_bf16_grads(grads, _grads(plain_fn, ins), _grads(plain_fn, ins, torch.float64))
+    q = _normal(4, 1, 64, 2, 64).bfloat16()
+    before = flash_attention.bf16_launches
+    out = ops.flash_attention(q, q, q)
+    assert out.dtype == torch.bfloat16 and flash_attention.bf16_launches == before + 1
+    ref = flash_attention_ref(q, q, q)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_BF16_TOL * max(
+        1.0, ref.float().abs().max().item())
+
+
+#: flash attention on bf16 inputs against its bf16 plain version and against
+#: the fp32 kernel on the same bf16-valued inputs (the reference's bf16
+#: tolerance, tests/test_kernels_pallas.py:84), each of max(1, scale)
+FLASH_BF16_TOL, FLASH_BF16_FP32_TOL = 1e-2, 3e-2
+#: a bf16 backward kernel or gradient against its plain version run in
+#: float64 (the bf16 cast points exactly): within BF16_TOL, or
+#: BF16_PLAIN_RATIO × the plain version's own error run in fp32, if larger
+#: (d² from the identity on rounded points loses ~1e-7 of |x|² to fp32
+#: rounding, which κ' amplifies at small distances), of max(1, scale)
+BF16_PLAIN_RATIO = 2.0
+
+
+def _scaled(a, b):
+    return (a.double() - b.double()).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def _bf16_bwd_tol(plain32, plain64):
+    return max(BF16_TOL, BF16_PLAIN_RATIO * _scaled(plain32, plain64))
+
+
+def _grads(fn, ins, dt=torch.float32):
+    """Gradients of Σ ḡ ⊙ fn(*ins) (ḡ from a seed) with respect to every
+    input, the inputs cast to ``dt``."""
+    leaves = [t.detach().to(dt).requires_grad_() for t in ins]
+    out = fn(*leaves)
+    gbar = torch.ones_like(out) if out.dim() == 0 else _normal(9, *out.shape).to(dt)
+    return torch.autograd.grad(torch.sum(gbar * out), leaves)
+
+
+def _check_bf16_grads(kernel, plain32, plain64):
+    for a, b, b64 in zip(kernel, plain32, plain64):
+        assert bool(torch.isfinite(a).all())
+        assert _scaled(a, b64) <= _bf16_bwd_tol(b, b64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m,d,s", [
+    (1000, 1000, 9, 8), (400, 50_000, 8, 100), (777, 1001, 3, 17), (130, 2000, 9, 1),
+    (333, 517, 64, 129), (200, 300, 128, 33), (45_730, 2000, 9, 8),
+])
+def test_bf16_gram_bwd_kernel_matches_plain_on_card(card, kind, n, m, d, s):
+    # the bf16 tiles of the Gram backward against their plain version in
+    # float64 (the bf16 cast points exactly) and against the fp32 launch; the
+    # wrapper's launches are bf16 launches alone
+    x, z = _normal(1, n, d, scale=0.6), _normal(2, m, d, scale=0.6)
+    rowv, colv = _normal(3, n, s), _normal(4, m, s)
+    before = (gram_matvec_bwd.launches, gram_matvec_bwd.bf16_launches)
+    got = gram_matvec_bwd(x, z, rowv, colv, kind=kind, precision="bf16")
+    assert gram_matvec_bwd.launches == before[0]
+    assert gram_matvec_bwd.bf16_launches > before[1]
+    k = min(n, 2048)
+    plain = gram_matvec_bwd_ref(x[:k].double(), z.double(), rowv[:k].double(), colv.double(),
+                                kind=kind, precision="bf16")
+    plain32 = gram_matvec_bwd_ref(x[:k], z, rowv[:k], colv, kind=kind, precision="bf16")
+    e_plain, e_fp32 = _bf16_err(got[:k].double(), plain,
+                                gram_matvec_bwd(x, z, rowv, colv, kind=kind)[:k].double())
+    assert bool(torch.isfinite(got).all())
+    assert e_plain <= _bf16_bwd_tol(plain32, plain) and e_fp32 <= BF16_FP32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,d,s", [
+    (400, 512, 8, 100), (16, 1024, 9, 8), (45_730, 512, 9, 8), (512, 45_730, 9, 8),
+    (100, 130, 3, 17), (300, 200, 40, 65), (130, 257, 128, 9),
+])
+def test_bf16_rff_bwd_kernel_matches_plain_on_card(card, rows, cols, d, s):
+    r, c = _normal(1, rows, d, scale=0.7), _normal(2, cols, d, scale=0.7)
+    p1, p2, q1, q2 = _normal(3, rows, s), _normal(4, rows, s), _normal(5, cols, s), _normal(6, cols, s)
+    sc = (1.0 / cols) ** 0.5
+    before = (rff_bwd.launches, rff_bwd.bf16_launches)
+    got = rff_bwd(r, c, p1, p2, q1, q2, scale=sc, precision="bf16")
+    assert (rff_bwd.launches, rff_bwd.bf16_launches) == (before[0], before[1] + 1)
+    k = min(rows, 2048)
+    plain = rff_bwd_ref(r[:k].double(), c.double(), p1[:k].double(), p2[:k].double(),
+                        q1.double(), q2.double(), scale=sc, precision="bf16")
+    plain32 = rff_bwd_ref(r[:k], c, p1[:k], p2[:k], q1, q2, scale=sc, precision="bf16")
+    e_plain, e_fp32 = _bf16_err(got[:k].double(), plain,
+                                rff_bwd(r, c, p1, p2, q1, q2, scale=sc)[:k].double())
+    assert bool(torch.isfinite(got).all())
+    assert e_plain <= _bf16_bwd_tol(plain32, plain) and e_fp32 <= BF16_FP32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gram_matvec", "gram_rows_pair", "rff_matvec",
+                                  "rff_t_matvec", "rff_pair"])
+def test_bf16_function_gradients_match_plain_on_card(card, name):
+    # every bf16 VJP through the kernels against the plain Functions at bf16
+    # on the same card tensors in float64 (_check_bf16_grads): the backward's
+    # matvecs and dx, dz at bf16
+    n, m, p, d, s = 3000, 100, 256, 9, 8
+    x = _normal(1, n, d, scale=0.6)
+    omega = _normal(2, m, d, scale=0.8)
+    bf = dict(precision="bf16")
+    cases = {
+        "gram_matvec": ((x, x, _normal(3, n, s)), gram_matvec, plain_gram_matvec,
+                        dict(kind="matern32")),
+        "gram_rows_pair": ((x[:p].contiguous(), x, _normal(3, n, s), _normal(4, p, s)),
+                           gram_rows_pair, plain_gram_rows_pair,
+                           dict(kind="matern32", p_true=p - 5)),
+        "rff_matvec": ((x, omega, _normal(3, 2 * m, s)), rff_matvec, plain_rff_matvec, {}),
+        "rff_t_matvec": ((x, omega, _normal(3, n, s)), rff_t_matvec, plain_rff_t_matvec,
+                         dict(m_true=93)),
+        "rff_pair": ((x, omega, _normal(3, n, s)), rff_pair, plain_rff_pair, dict(m_true=93)),
+    }
+    ins, kernel, plain, kw = cases[name]
+
+    def call(fn):
+        def f(*a):
+            out = fn(*a, **kw, **bf)
+            return sum(t.sum() for t in out) if isinstance(out, tuple) else out
+        return f
+
+    _check_bf16_grads(_grads(call(kernel), ins), _grads(call(plain), ins),
+                      _grads(call(plain), ins, torch.float64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 1024, 32, 8, 128), (4, 1000, 32, 8, 128),
+                                          (2, 130, 4, 2, 64), (1, 37, 2, 1, 64),
+                                          (2, 256, 4, 4, 128)])
+def test_bf16_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d):
+    q = _normal(1, b, s, hq, d).bfloat16()
+    k, v = _normal(2, b, s, hkv, d).bfloat16(), _normal(3, b, s, hkv, d).bfloat16()
+    before = (flash_attention.launches, flash_attention.bf16_launches)
+    out = flash_attention(q, k, v, causal=causal)
+    assert (flash_attention.launches, flash_attention.bf16_launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    plain = flash_attention_ref(q, k, v, causal=causal)
+    fp32 = flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    e_plain, e_fp32 = _bf16_err(out.float(), plain.float(), fp32)
+    assert e_plain <= FLASH_BF16_TOL and e_fp32 <= FLASH_BF16_FP32_TOL
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+def test_bf16_generate_on_card_runs_the_bf16_flash_kernel(card):
+    """A reduced llama3-8b cast to bf16 in place and served on the card:
+    prefill's attention one bf16 flash launch a layer, no fp32 launch, and
+    its last-position logits within 5e-2 of the fp32 model's scale."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = token_batch(0, 0, 3, 200, cfg.vocab_size)["tokens"]
+    with torch.no_grad():
+        ref, _ = model_lib.prefill(cfg, model, {"tokens": tokens},
+                                   model_lib.zero_cache(cfg, 3, 200))
+    model_lib.cast_model_(model, torch.bfloat16)
+    before = (flash_attention.launches, flash_attention.bf16_launches)
+    toks, _ = generate(cfg, model, tokens, 208, 8)
+    assert (flash_attention.launches, flash_attention.bf16_launches) == (
+        before[0], before[1] + cfg.num_layers)
+    assert toks.shape == (3, 8)
+    with torch.no_grad():
+        got, _ = model_lib.prefill(cfg, model, {"tokens": tokens},
+                                   model_lib.zero_cache(cfg, 3, 200))
+    assert (got - ref).abs().max().item() <= 5e-2 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.gpu

@@ -261,15 +261,19 @@ def test_phi_t_mv_and_phi_pair_mv_agree_across_backends():
     torch.testing.assert_close(pair, ff.phi_mv(x, tf, backend="features"),
                                rtol=PAIR_TOL, atol=PAIR_TOL)
     # the bf16 pair runs on both backends, within the reference's bf16-vs-fp32
-    # bound (tests/test_pair_and_precision.py:164-174); a backward through
-    # its kernel forward is not ported yet
+    # bound (tests/test_pair_and_precision.py:164-174), and so does the
+    # gradient through its kernel forward, which runs at bf16 too
     scale = max(1.0, float(pair.abs().max()))
     for backend in ("cuda", "features"):
         torch.testing.assert_close(ff.phi_pair_mv(x, v, backend=backend, precision="bf16"),
                                    pair, rtol=0, atol=5e-2 * scale)
-    xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        ff.phi_pair_mv(xg, v, backend="cuda", precision="bf16").sum().backward()
+    grads = {}
+    for precision in ("bf16", "fp32"):
+        xg = x.clone().requires_grad_()
+        ff.phi_pair_mv(xg, v, backend="cuda", precision=precision).sum().backward()
+        grads[precision] = xg.grad
+    gscale = max(1.0, float(grads["fp32"].abs().max()))
+    torch.testing.assert_close(grads["bf16"], grads["fp32"], rtol=0, atol=5e-2 * gscale)
 
 
 # ---------------------------------------------------------------------------
