@@ -44,7 +44,14 @@ on the protein-shaped problem at full n through those kernels:
   through the flash-attention kernel, greedy decode, held against the plain
   attention route and against ``forward_train`` at one more position; then
   the same model cast to bf16 in place and served again, its prefill
-  through the bf16 flash kernel, held against the fp32 run.
+  through the bf16 flash kernel, held against the fp32 run;
+* LM training, ``repro_torch.launch.train.main`` on olmo-1b at full width
+  and depth in fp32 (random weights from a seed, 20 AdamW steps on batches
+  of 8 × 1,024 tokens): every layer's forward attention through the flash
+  kernel, the loss falling; at full width with 2 layers, one step's loss
+  and gradients against the plain attention route in fp32 and in float64,
+  gradient accumulation over micro-batches, a bit-exact kill-and-resume
+  from a checkpoint, and int8 gradient compression with error feedback.
 
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and the gradients at ``precision="bf16"`` through
@@ -65,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -152,7 +160,26 @@ THOMPSON_SDD = dict(num_steps=3000, batch_size=128, step_size_times_n=2.0)
 #: reduced configs' d = 64
 LM = dict(arch="llama3-8b", batch=4, prompt=1024, gen=16)
 FLASH_CASES = (("lm_serve", 4, 1024, 32, 8, 128, True), ("ragged", 4, 1000, 32, 8, 128, True),
-               ("ragged_full", 4, 1000, 32, 8, 128, False), ("d64", 4, 1024, 4, 2, 64, True))
+               ("ragged_full", 4, 1000, 32, 8, 128, False), ("d64", 4, 1024, 4, 2, 64, True),
+               ("lm_train", 8, 1024, 16, 16, 128, True))
+#: LM training: olmo-1b (src/repro_torch/configs/olmo_1b.py: 16 layers,
+#: d_model 2,048, 16 heads of 128, d_ff 8,192, vocab 50,304, tied embeddings,
+#: 1.18e9 parameters) at full width and depth in fp32, batch 8 × 1,024
+#: planted-bigram tokens, 20 steps of the default AdamW (100 warm-up steps)
+#: at lr LM_TRAIN["lr"], then LM_TRAIN["profile_steps"] profiled; the loss
+#: must fall by LM_TRAIN_DROP between the means of the first and the last 5
+#: steps (tests/test_train.py:28's margin). At full width with 2 layers
+#: (LM_TRAIN_SMALL): the kernel route's loss and gradients within
+#: TRAIN_YARD_RATIO × the fp32 plain route's distance from the float64 plain
+#: route, or TRAIN_LOSS_FLOOR / TRAIN_GRAD_FLOOR if larger; micro_steps=2
+#: against 1 within MICRO_LOSS_RTOL (loss) and MICRO_GRAD_TOL (of each
+#: gradient leaf's scale); the bit-exact restart, a checkpoint every
+#: ``ckpt_every`` steps
+LM_TRAIN = dict(arch="olmo-1b", batch=8, seq=1024, steps=20, lr=2e-3, profile_steps=2)
+LM_TRAIN_DROP = 0.1
+LM_TRAIN_SMALL = dict(layers=2, batch=4, seq=512, steps=4, ckpt_every=2)
+TRAIN_YARD_RATIO, TRAIN_LOSS_FLOOR, TRAIN_GRAD_FLOOR = 1.5, 1e-5, 1e-4
+MICRO_LOSS_RTOL, MICRO_GRAD_TOL = 1e-6, 1e-5
 #: the reference's flash tolerance (tests/test_kernels_pallas.py:72); the
 #: kernel and plain routes' last-position logits; the reference's
 #: prefill/decode-vs-forward tolerances (tests/test_models.py:114,118); a
@@ -409,6 +436,7 @@ def main() -> int:
     sparse = sparse_phase(torch, kernels)
     lkgp = lkgp_phase(torch, kernels)
     lm_serve_phase(torch, kernels)
+    lm_train_phase(torch, kernels)
     profile_phase(torch, engine, sparse, lkgp)
     large_n_phase(torch)
 
@@ -752,7 +780,7 @@ def kernels_phase(torch) -> dict:
                                                "inducing_prior")
     lkgp_kernel_cases(torch, gram_case, rff_case, gen, paths)
 
-    paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={})
+    paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={}, lm_train={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
     rff_bwd_cases(torch, x, rff_omega, gen, rec)
     thompson_kernel_cases(torch, gen, rec, paths)
@@ -1595,7 +1623,8 @@ def _flash_floors(b, s, hq, d, causal) -> dict:
 def flash_cases(torch, gen, rec, paths) -> None:
     """The flash-attention kernel against its plain version in float64 on the
     card (FLASH_CASES): the serving path's shape, s = 1,000 causal and not
-    (the ragged last block masked by bounds) and d = 64. Times: the kernel
+    (the ragged last block masked by bounds), d = 64 and the training path's
+    shape (olmo-1b's 16 heads of 128, batch 8 × 1,024). Times: the kernel
     over 20 warm launches, the fp32 plain version over 3 calls, and SDPA
     (``scaled_dot_product_attention`` with ``enable_gqa``, on (b, h, s, d)
     copies made beforehand) over 20, by CUDA events. Both calls of the
@@ -1634,8 +1663,8 @@ def flash_cases(torch, gen, rec, paths) -> None:
         check(err <= FLASH_TOL * scale, f"flash_attention {label}: {err} > {FLASH_TOL * scale}")
         check(line["same_bits"], f"flash_attention {label}: the same bits on two launches")
         rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
-        if label == "lm_serve":
-            paths["lm_serve"]["flash_attention"] = line
+        if label in ("lm_serve", "lm_train"):
+            paths[label]["flash_attention"] = line
 
 
 def main_path_phase(torch, kernels: dict) -> dict:
@@ -3636,14 +3665,350 @@ def _lm_profile(torch, cfg, model, tokens, toks, cache, suffix: str) -> None:
 
 def _device_ms_by_kernel(prof) -> dict:
     """Device time by kernel name from a profile, device-side events only: a
-    host op's device time repeats its kernels'."""
+    host op's device time repeats its kernels', and so does the device-side
+    twin of a ``record_function`` range (a user annotation, or a name the
+    host side has too)."""
     from torch.autograd import DeviceType
 
+    events = prof.events()
+    host = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
     by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    for ev in events:
+        if (ev.device_type == DeviceType.CUDA and ev.name not in host
+                and not getattr(ev, "is_user_annotation", False) and ev.device_time_total > 0):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total / 1e3
     return by_name
+
+
+def _rel_dist(model, got: list, want: list) -> tuple:
+    """Gradients ``got`` against ``want`` (both in ``train.optim.leaves``'
+    order of ``model``), in float64: (‖got − want‖/‖want‖ over all leaves
+    together, the largest of the same over one leaf of the reference's
+    pytree, a stacked leaf's layers together)."""
+    from repro_torch.models.model import lm_leaves
+
+    pairs = iter(zip(got, want, strict=True))
+    num = den = worst = 0.0
+    for _, params in lm_leaves(model):
+        d2 = w2 = 0.0
+        for _ in params:
+            a, b = next(pairs)
+            d2 += (a.double() - b.double()).pow(2).sum().item()
+            w2 += b.double().pow(2).sum().item()
+        num, den = num + d2, den + w2
+        worst = max(worst, math.sqrt(d2 / max(w2, 1e-300)))
+    return math.sqrt(num / max(den, 1e-300)), worst
+
+
+def _range_ms(prof, pattern: str) -> float:
+    """Device ms of the profiled host ranges whose name holds ``pattern``
+    (a ``record_function`` range, or an autograd node's evaluation),
+    outermost ranges only, each with its children's kernels."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for ev in prof.events():
+        parent = ev.cpu_parent
+        if (ev.device_type == DeviceType.CPU and pattern in ev.name
+                and not (parent is not None and pattern in parent.name)):
+            total += ev.device_time_total / 1e3
+    return total
+
+
+def _train_counts(launches, attention, bf16, layers, micro, what) -> None:
+    check(launches["flash_attention"] == layers * micro,
+          f"{what}: flash launches {launches['flash_attention']} == {layers} layers × {micro}")
+    check(attention == {"cuda": layers * micro, "plain": 0},
+          f"{what}: attention on the kernel route only: {attention}")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"{what}: no GP kernel on the LM training path: {launches}")
+    check(not any(bf16.values()), f"{what}: no bf16 launch: {bf16}")
+
+
+def lm_train_phase(torch, kernels: dict) -> None:
+    """LM training at full width and depth: ``launch/train.main`` on olmo-1b
+    in fp32 (LM_TRAIN: batch 8 × 1,024 planted-bigram tokens, 20 steps of the
+    default AdamW, mu bf16 and nu fp32, at LM_TRAIN["lr"]), with the launch
+    counts read just around it: every step one fp32 flash launch a layer, no
+    plain attention, no bf16 and no GP launch. Every loss finite, and the
+    mean of the last 5 at least LM_TRAIN_DROP below the first 5's
+    (tests/test_train.py:28). Then, on a fresh model, one counted step and
+    LM_TRAIN["profile_steps"] steps under the profiler (device ms by kernel
+    and by range, idle share). Then at full width with 2 layers
+    (``_lm_train_checks``): the yardstick, the micro-steps, the restart and
+    the compression."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import AdamWConfig, init_opt_state
+
+    cfg = get_config(LM_TRAIN["arch"])
+    b, s, steps, lr = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"], LM_TRAIN["lr"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", cfg.name, "--steps", str(steps), "--batch", str(b), "--seq-len", str(s),
+            "--lr", str(lr), "--seed", str(SEED)]
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    tr = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bf16 = _read_counts()[0], _read_bf16_counts()
+    attention = dict(ops.ATTENTION_TRACE_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rep = tr.straggler_report()
+    losses, times = tr.losses, tr.step_times
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    med = sorted(times)[len(times) // 2]
+    emit("lm_train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         params=model_lib.count_params(cfg), batch=b, seq=s, steps=steps, lr=lr,
+         opt=dict(AdamWConfig(lr=lr)._asdict(), mu_dtype="bfloat16", nu_dtype="float32"),
+         wall_s=wall, step_s=times, median_step_s=med, first_step_s=times[0],
+         tok_per_s=b * s / med, max_memory_allocated_gb=peak_gb, losses=losses,
+         first5_mean=first, last5_mean=last, drop=first - last, min_drop=LM_TRAIN_DROP,
+         straggler=dict(median_s=rep.median_s, slow_steps=rep.slow_steps),
+         launches=launches, attention_dispatches=attention)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), "every loss finite")
+    check(first - last >= LM_TRAIN_DROP,
+          f"the loss falls by {LM_TRAIN_DROP}: first 5 {first}, last 5 {last}")
+    _train_counts(launches, attention, bf16, cfg.num_layers, steps, "lm_train")
+    _record_path(kernels, "lm_train", launches)
+    del tr
+
+    opt_cfg = AdamWConfig(lr=lr)
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    opt = init_opt_state(model, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    batch = token_batch(SEED, steps, b, s, cfg.vocab_size)
+    _reset_counts(torch)
+    model, opt, metrics = step_fn(model, opt, batch)
+    loss = float(metrics["loss"])
+    launches, bf16 = _read_counts()[0], _read_bf16_counts()
+    _train_counts(launches, attention=dict(ops.ATTENTION_TRACE_COUNTS), bf16=bf16,
+                  layers=cfg.num_layers, micro=1, what="one lm_train step")
+    check(math.isfinite(loss) and int(metrics["step"]) == 1, "the counted step's loss and step")
+    _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, steps + 1)
+    del model, opt
+    torch.cuda.empty_cache()
+    _lm_train_checks(torch, cfg, kernels)
+
+
+def _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, step0) -> None:
+    """LM_TRAIN["profile_steps"] train steps under the profiler: device ms by
+    kernel (the GEMMs by name: cuBLAS's ``nvjet``/``gemm`` kernels; the flash
+    forward), by range (the flash Function's backward, the plain attention
+    recomputed under autograd; ``train_step/adamw``), and the idle share."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import token_batch
+
+    n = LM_TRAIN["profile_steps"]
+    batches = [token_batch(SEED, step0 + i, b, s, cfg.vocab_size) for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            model, opt, metrics = step_fn(model, opt, batch)
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = _device_ms_by_kernel(prof)
+    device_ms = sum(by_name.values())
+    gemm_ms = sum(v for k, v in by_name.items() if re.search(r"gemm|nvjet|cutlass|xmma", k, re.I))
+    flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    line = dict(window="lm_train", steps=n, wall_ms=wall * 1e3, device_ms=device_ms,
+                idle_share=1.0 - device_ms / (wall * 1e3), gemm_ms=gemm_ms,
+                gemm_share=gemm_ms / max(device_ms, 1e-9), flash_fwd_ms=flash_ms,
+                attention_bwd_ms=_range_ms(prof, "FlashAttentionFnBackward"),
+                adamw_ms=_range_ms(prof, "train_step/adamw"),
+                top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+    emit("lm_profile", **line)
+    check(0 < device_ms <= wall * 1e3, "lm_train: device time within the wall time")
+    check(flash_ms > 0 and line["adamw_ms"] > 0, "lm_train: the profile saw flash and AdamW")
+
+
+def _lm_train_checks(torch, cfg, kernels) -> None:
+    """At full width with 2 layers (LM_TRAIN_SMALL), on one seed's weights
+    and batch: the kernel route's loss and gradients against the plain
+    attention route in fp32 and in float64 (the model cast to float64),
+    each within TRAIN_YARD_RATIO × the fp32 plain route's distance from
+    float64, or the floors TRAIN_LOSS_FLOOR (loss, relative) and
+    TRAIN_GRAD_FLOOR (gradients, relative norm over all leaves and over the
+    worst leaf), whichever is larger; ``micro_steps=2`` against 1 (the loss
+    within MICRO_LOSS_RTOL, each gradient leaf within MICRO_GRAD_TOL of its
+    scale), one flash launch a layer for each micro-batch; then the restart
+    and the compression."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import AdamWConfig, init_opt_state
+
+    small = LM_TRAIN_SMALL
+    cfg2 = dataclasses.replace(cfg, num_layers=small["layers"])
+    b, s = small["batch"], small["seq"]
+    model = model_lib.init_model_params(cfg2, torch.Generator(device="cuda").manual_seed(SEED))
+    model64 = model_lib.cast_model_(copy.deepcopy(model), torch.float64)
+    batch = token_batch(SEED, 0, b, s, cfg2.vocab_size)
+
+    _reset_counts(torch)
+    loss_k, grads_k = loss_and_grads(cfg2, model, batch)
+    torch.cuda.synchronize()
+    _train_counts(_read_counts()[0], dict(ops.ATTENTION_TRACE_COUNTS),
+                  _read_bf16_counts(), cfg2.num_layers, 1, "2-layer kernel route")
+    loss_p, grads_p = loss_and_grads(cfg2, model, batch, backend="plain")
+    loss_64, grads_64 = loss_and_grads(cfg2, model64, batch, backend="plain")
+    del model64
+    l64 = loss_64.item()
+    dist = {name: dict(loss=abs(l.item() - l64) / abs(l64),
+                       **dict(zip(("grad_rel_norm", "grad_worst_leaf"),
+                                  _rel_dist(model, g, grads_64))))
+            for name, l, g in (("kernel", loss_k, grads_k), ("plain_fp32", loss_p, grads_p))}
+    bounds = dict(loss=max(TRAIN_YARD_RATIO * dist["plain_fp32"]["loss"], TRAIN_LOSS_FLOOR),
+                  **{k: max(TRAIN_YARD_RATIO * dist["plain_fp32"][k], TRAIN_GRAD_FLOOR)
+                     for k in ("grad_rel_norm", "grad_worst_leaf")})
+
+    _reset_counts(torch)
+    loss_m, grads_m = loss_and_grads(cfg2, model, batch, micro_steps=2)
+    torch.cuda.synchronize()
+    micro_launches = _read_counts()[0]
+    _train_counts(micro_launches, dict(ops.ATTENTION_TRACE_COUNTS),
+                  _read_bf16_counts(), cfg2.num_layers, 2, "micro_steps=2")
+    micro = dict(loss_rel=abs(loss_m.item() - loss_k.item()) / abs(loss_k.item()),
+                 grad_worst_of_scale=max(((a - b_).abs().max() / b_.abs().max()).item()
+                                         for a, b_ in zip(grads_m, grads_k)))
+    del grads_p, grads_64, grads_m
+    # one whole step at micro_steps=2: the same launches
+    step2 = make_train_step(cfg2, AdamWConfig(lr=LM_TRAIN["lr"]), micro_steps=2)
+    opt = init_opt_state(model, AdamWConfig(lr=LM_TRAIN["lr"]))
+    _reset_counts(torch)
+    step2(model, opt, batch)
+    torch.cuda.synchronize()
+    _train_counts(_read_counts()[0], dict(ops.ATTENTION_TRACE_COUNTS),
+                  _read_bf16_counts(), cfg2.num_layers, 2, "a micro_steps=2 step")
+    del opt
+    emit("lm_train_parity", layers=cfg2.num_layers, batch=b, seq=s, loss_float64=l64,
+         distance_from_float64=dist, bounds=bounds, ratio=TRAIN_YARD_RATIO,
+         micro_steps_2=micro, micro_tols=dict(loss_rel=MICRO_LOSS_RTOL,
+                                              grad_of_scale=MICRO_GRAD_TOL))
+    for k, bound in bounds.items():
+        check(dist["kernel"][k] <= bound,
+              f"kernel route's {k} from float64 {dist['kernel'][k]} <= {bound}")
+    check(micro["loss_rel"] <= MICRO_LOSS_RTOL, f"micro-steps loss: {micro['loss_rel']}")
+    check(micro["grad_worst_of_scale"] <= MICRO_GRAD_TOL,
+          f"micro-steps gradients: {micro['grad_worst_of_scale']}")
+    _lm_train_compress(torch, model, grads_k)
+    del model, grads_k
+    torch.cuda.empty_cache()
+    _lm_train_restart(torch, cfg2)
+
+
+def _lm_train_compress(torch, model, grads) -> None:
+    """``tree_compress_with_feedback`` on one full-width gradient (the 2-layer
+    kernel route's, as the reference's pytree, layers stacked) from zero
+    error, its coins drawn on the card: every payload int8, |decompress − g|
+    within its leaf's scale (and an fp32 ulp of it), and the new error
+    exactly g − decompress."""
+    from repro_torch.models.model import leaf_tree
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.train import init_error_state, tree_compress_with_feedback, tree_decompress
+
+    tree = leaf_tree(model, grads)
+    errors = init_error_state(tree)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp, new_err = tree_compress_with_feedback(tree, errors, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dec = tree_decompress(comp, tree)
+    worst = 0.0
+    exact = int8 = True
+    for c, g, d, e in zip(tree_leaves(comp), tree_leaves(tree), tree_leaves(dec),
+                          tree_leaves(new_err), strict=True):
+        int8 &= c.q.dtype == torch.int8
+        worst = max(worst, ((d - g).abs().max() / c.scale).item())
+        exact &= bool(torch.equal(e, g.float() - d))
+    payload = sum(c.q.numel() for c in tree_leaves(comp))
+    emit("lm_train_compress", leaves=len(tree_leaves(tree)), entries=payload,
+         payload_bytes=payload, fp32_bytes=4 * payload, ms=ms,
+         max_err_over_scale=worst, error_exact=exact)
+    check(int8, "every payload is int8")
+    check(worst <= 1.0 + 1e-6, f"|decompress - g| within the scale: {worst}")
+    check(exact, "the new error is g - decompress exactly")
+
+
+def _lm_train_restart(torch, cfg2) -> None:
+    """Kill and resume at full width with 2 layers (LM_TRAIN_SMALL, batch
+    4 × 512): LM_TRAIN_SMALL["steps"] steps in one ``Trainer`` with a
+    checkpoint every ``ckpt_every``, and separately ``ckpt_every`` steps, then
+    a fresh ``Trainer`` resumed from that checkpoint to the same step: the
+    losses, the final parameters and the optimiser state bit-equal. The
+    checkpoints go to a temporary directory, removed afterwards; one
+    checkpoint's bytes, save and restore times are printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.train import (
+        AdamWConfig, Trainer, TrainerConfig, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.train.optim import leaves
+
+    small = LM_TRAIN_SMALL
+    tmp = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    try:
+        def trainer(steps, name):
+            return Trainer(cfg2, TrainerConfig(
+                batch=small["batch"], seq_len=small["seq"], num_steps=steps, seed=SEED,
+                ckpt_dir=os.path.join(tmp, name), ckpt_every=small["ckpt_every"],
+                keep_ckpts=1, log_every=0, opt=AdamWConfig(lr=LM_TRAIN["lr"])))
+
+        full = trainer(small["steps"], "full")
+        p_full, o_full = full.run()
+        shutil.rmtree(os.path.join(tmp, "full"))
+        trainer(small["ckpt_every"], "resume").run()
+        resumed = trainer(small["steps"], "resume")
+        p_res, o_res = resumed.run()
+        same = dict(
+            losses=resumed.losses == full.losses,
+            params=all(torch.equal(a, b) for a, b in zip(leaves(p_full), leaves(p_res))),
+            mu=all(torch.equal(a, b) for a, b in zip(leaves(o_full.mu), leaves(o_res.mu))),
+            nu=all(torch.equal(a, b) for a, b in zip(leaves(o_full.nu), leaves(o_res.nu))),
+            step=torch.equal(o_full.step, o_res.step))
+        del p_res, o_res
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "timed"), small["steps"],
+                               {"p": p_full, "o": o_full}, extra={"losses": full.losses})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        back, step, _ = restore_checkpoint(os.path.join(tmp, "timed"),
+                                           {"p": p_full, "o": o_full})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same["restored"] = step == small["steps"] and all(
+            torch.equal(a, b) for a, b in zip(leaves(back["p"]) + leaves(back["o"].mu),
+                                              leaves(p_full) + leaves(o_full.mu)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("lm_train_restart", layers=cfg2.num_layers, batch=small["batch"], seq=small["seq"],
+         steps=small["steps"], ckpt_every=small["ckpt_every"], losses=full.losses,
+         bit_equal=same, ckpt_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+         disk_free_gb=free_gb)
+    for k, ok in same.items():
+        check(ok, f"restart: {k} bit-equal")
 
 
 def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:

@@ -9,7 +9,9 @@ For each way of summing a column (``dim0``, the port's ``torch.sum`` over
 dim 0 of the (n, s) tensor, and three sums that give a column the same bits
 at every width: ``pad64``, the columns zero-padded to a multiple of 64;
 ``groups8``, each group of 8 columns summed as its own (n, 8) block; ``tree``,
-a pairwise tree of elementwise adds), it prints one JSON line with
+a pairwise tree of elementwise adds; ``rows``, the columns as the contiguous
+rows of the transpose, each summed over its last dimension), it prints one
+JSON line with
 
 * ``payload_gap``: the largest difference, over its scale, between one
   sample request's payload served by an engine with 8-column buckets and by
@@ -55,6 +57,10 @@ def _groups8(p):
     return p.view(n, -1, 8).transpose(0, 1).contiguous().sum(dim=1).reshape(-1)[:s]
 
 
+def _rows(p):
+    return p.T.contiguous().sum(dim=1)
+
+
 def _tree(p):
     n = p.shape[0]
     t = torch.nn.functional.pad(p, (0, 0, 0, (1 << max(0, (n - 1).bit_length())) - n))
@@ -63,7 +69,7 @@ def _tree(p):
     return t[0]
 
 
-SUMS = {"dim0": None, "pad64": _pad64, "groups8": _groups8, "tree": _tree}
+SUMS = {"dim0": None, "pad64": _pad64, "groups8": _groups8, "tree": _tree, "rows": _rows}
 ROOT = Path(__file__).resolve().parents[1]
 KNIFE_EDGE_TESTS = (
     "tests/test_torch_serve.py::test_row_and_column_buckets_do_not_change_payloads",
@@ -145,9 +151,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tests", action="store_true",
                     help="also run the knife-edge parity tests under each sum")
+    ap.add_argument("--sums", nargs="+", choices=list(SUMS), default=list(SUMS),
+                    help="the sums to try (default: all)")
     args = ap.parse_args()
     torch.set_num_threads(1)
-    for name in SUMS:
+    for name in args.sums:
         _use(name)
         line = dict(sum=name, payload_gap=payload_gap(), cg_iterations=cg_iterations())
         if args.tests:

@@ -1,6 +1,6 @@
 """Carry the JAX package's state across, as numpy arrays, into the port's objects
 (GP hyperparameters, features, posteriors, serving states, SVGP and LKGP
-states and draws; LM params).
+states and draws; LM params and optimiser states).
 
 The parity tests pull these arrays out of ``repro`` objects; the port itself
 never sees JAX. Every function takes the target ``device`` (the card unless
@@ -209,12 +209,28 @@ def thompson_state_from_numpy(x, y, *, device: DeviceLike = None) -> ThompsonSta
     return ThompsonState(x=x, y=y, best=float(torch.max(y)))
 
 
+def is_bf16_words(a) -> bool:
+    """Whether numpy array ``a`` holds bf16 values as raw 2-byte words: a
+    ``|V2`` array, what ``np.load`` gives back for the reference's bfloat16
+    arrays."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def bf16_to_words(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's raw 2-byte words as a ``|V2`` array, the form in which
+    ``np.savez`` stores the reference's bfloat16 leaves (numpy has no bf16,
+    and the port does not import ``ml_dtypes``)."""
+    return t.detach().cpu().view(torch.int16).numpy().view(np.dtype("V2"))
+
+
 def _lm_t(a, device: torch.device) -> torch.Tensor:
     """A weight in its own dtype: bfloat16 arrays (``ml_dtypes``' type, which
-    JAX gives) carried across bit for bit (bf16 → fp32 → bf16 is exact),
-    everything else as float32."""
-    if np.asarray(a).dtype.name == "bfloat16":
-        return _t(np.asarray(a, dtype=np.float32), device).to(torch.bfloat16)
+    JAX gives, or raw 2-byte words, :func:`is_bf16_words`) carried across bit
+    for bit, everything else as float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or is_bf16_words(a):
+        words = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16).to(device)
     return _t(a, device)
 
 
@@ -229,15 +245,43 @@ def lm_params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Transformer
     return Transformer(cfg, tree_map(lambda a: _lm_t(a, dev), tree))
 
 
-def lm_params_to_numpy(model: Transformer) -> dict:
+def lm_params_to_numpy(model: Transformer, *, bf16: str = "float32") -> dict:
     """:func:`lm_params_from_numpy`'s inverse: the reference's params pytree,
-    layers stacked again."""
-    def arrays(pd):  # bf16 weights as float32 arrays, exactly
-        return {k: p.detach().cpu().float().numpy() if p.dtype == torch.bfloat16
-                else p.detach().cpu().numpy() for k, p in pd.items()}
+    layers stacked again. bf16 weights become float32 arrays (exactly) or,
+    with ``bf16="words"``, their raw words (:func:`bf16_to_words`)."""
+    if bf16 not in ("float32", "words"):
+        raise ValueError(f"bf16={bf16!r}: 'float32' or 'words'")
 
-    per_layer = [{name: arrays(pd) for name, pd in blk.named_children()} for blk in model.layers]
+    def array(p):
+        if p.dtype != torch.bfloat16:
+            return p.detach().cpu().numpy()
+        return bf16_to_words(p) if bf16 == "words" else p.detach().cpu().float().numpy()
+
+    per_layer = [{name: {k: array(p) for k, p in pd.items()}
+                  for name, pd in blk.named_children()} for blk in model.layers]
     layers = {name: {k: np.stack([lay[name][k] for lay in per_layer]) for k in group}
               for name, group in per_layer[0].items()}
-    return {"embed": arrays(model.embed), "final_norm": arrays(model.final_norm),
+    return {"embed": {k: array(p) for k, p in model.embed.items()},
+            "final_norm": {k: array(p) for k, p in model.final_norm.items()},
             "layers": layers}
+
+
+def opt_state_from_numpy(cfg, mu, nu, step, *, device: DeviceLike = None):
+    """The reference's ``OptState(mu, nu, step)`` of an LM as numpy arrays →
+    the port's, its moments :class:`Transformer`s (bf16 ``mu`` carried bit for
+    bit, as ``ml_dtypes`` arrays or raw words)."""
+    from .train.optim import OptState  # the train package imports this module
+
+    dev = resolve_device(device)
+    return OptState(mu=lm_params_from_numpy(cfg, mu, device=dev),
+                    nu=lm_params_from_numpy(cfg, nu, device=dev),
+                    step=torch.as_tensor(np.array(step, dtype=np.int32), device=dev))
+
+
+def opt_state_to_numpy(opt) -> dict:
+    """:func:`opt_state_from_numpy`'s inverse: ``{"mu", "nu", "step"}``, the
+    moments stacked as the reference stores them, a bf16 moment as its raw
+    words, the step an int32 scalar."""
+    return {"mu": lm_params_to_numpy(opt.mu, bf16="words"),
+            "nu": lm_params_to_numpy(opt.nu, bf16="words"),
+            "step": np.asarray(opt.step.detach().cpu().numpy(), dtype=np.int32)}

@@ -360,12 +360,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (b, s, hq, d) — THE attention entry point, as the reference's. ``auto``
     is ``cuda`` for tensors on the card and ``plain`` for CPU tensors; the
     kernel maps the heads and masks the ragged edge itself, so nothing is
-    gathered or padded here."""
+    gathered or padded here. The plain route also takes float64 q, k and v,
+    the yardstick of a model cast to float64."""
     _no_pallas(backend)
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
-    check_dtypes("flash_attention", q, k, v)
     bk = ("cuda" if q.device.type == "cuda" else "plain") if backend == "auto" else backend
+    if not (bk == "plain" and q.dtype == k.dtype == v.dtype == torch.float64):
+        check_dtypes("flash_attention", q, k, v)
     ATTENTION_TRACE_COUNTS[bk] += 1
     if bk == "cuda":
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)

@@ -1,18 +1,132 @@
-"""Step functions driven by ``launch/serve.py`` — the serving half of
-``repro/launch/steps.py``:
+"""Step functions driven by ``launch/train.py`` and ``launch/serve.py`` — twin
+of ``repro/launch/steps.py``:
 
+    train_step(model, opt, batch)            → (model, opt, metrics)
     prefill_step(model, cache, batch)        → (logits, cache)
     serve_step(model, cache, token, index)   → (next_token, logits, cache)
 
-Decoding is greedy (``argmax``; ties go to the first index in both packages).
-The training step is not ported yet: ROADMAP queue 1 item 14.
+``input_specs(cfg, shape)`` returns meta-device stand-ins for every *data*
+input of the step the shape lowers (tokens/labels, stub frame/patch
+embeddings, decode token + cache index). Decoding is greedy (``argmax``; ties
+go to the first index in both packages).
+
+A train step attends through ``ops.flash_attention`` (on the card the flash
+kernel, one launch a layer for each micro-batch; its backward is autograd of
+the plain version, the gradient the reference takes through ``_sdpa``), and
+updates the model's parameters and the optimiser state in place.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model as model_lib
+from ..train.optim import AdamWConfig, OptState, adamw_update, leaves
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# ----------------------------------------------------------------- inputs -----
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=COMPUTE_DTYPE) -> dict:
+    """Abstract data inputs (``meta`` tensors) for the step this (arch ×
+    shape) cell lowers."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.mode == "train":
+        specs = {"tokens": spec((b, s)), "labels": spec((b, s))}
+    elif shape.mode == "prefill":
+        specs = {"tokens": spec((b, s))}
+    else:  # decode: one new token against a cache of seq_len
+        specs = {"token": spec((b, 1)), "cache_index": spec(())}
+    if cfg.is_encdec and shape.mode != "decode":
+        specs["frames"] = spec((b, cfg.encoder_seq, cfg.d_model), dtype)
+    if cfg.family == "vlm" and shape.mode != "decode":
+        specs["vision_embeds"] = spec((b, cfg.vision_tokens, cfg.d_model), dtype)
+    return specs
+
+
+# ------------------------------------------------------------------- loss -----
+
+
+def _next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy. logits (b, s, v) fp32, labels (b, s)."""
+    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = logits - lmax
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    lab = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - lab)
+
+
+# ------------------------------------------------------------------ steps -----
+
+
+def loss_and_grads(cfg: ModelConfig, model, batch: dict, *, micro_steps: int = 1,
+                   backend: str = "auto") -> tuple[torch.Tensor, list]:
+    """The train step's loss and its gradients, one per tensor of
+    ``train.optim.leaves(model)``. With ``micro_steps`` > 1 the batch is cut
+    into that many equal slices along its first axis, and their losses and
+    gradients summed in an fp32 accumulator, then divided by ``micro_steps``,
+    as the reference's ``lax.scan`` does. ``backend`` routes the attention
+    (``ops.flash_attention``)."""
+    params = leaves(model)
+
+    def one(mb):
+        logits = model_lib.forward_train(cfg, model, mb, backend=backend)
+        loss = _next_token_loss(cfg, logits, mb["labels"])
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            if micro_steps == 1:
+                loss, grads = one(batch)
+                return loss, list(grads)
+            b = batch["tokens"].shape[0]
+            if b % micro_steps:
+                raise ValueError(f"batch {b} does not split into {micro_steps} micro-steps")
+            m = b // micro_steps
+            acc_dt = [torch.promote_types(p.dtype, torch.float32) for p in params]
+            loss_sum = torch.zeros((), dtype=acc_dt[0], device=params[0].device)
+            acc = [torch.zeros(p.shape, dtype=dt, device=p.device)
+                   for p, dt in zip(params, acc_dt)]
+            for i in range(micro_steps):
+                l, g = one({k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+                loss_sum = loss_sum + l
+                for a, gi in zip(acc, g):
+                    a.add_(gi)
+                del g
+            return loss_sum / micro_steps, [a / micro_steps for a in acc]
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    micro_steps: int = 1, *, backend: str = "auto"):
+    """Fused fwd + bwd + AdamW step. micro_steps > 1 runs gradient
+    accumulation over batch slices: activation liveness drops ×micro_steps
+    at the cost of holding one fp32 gradient accumulator. The step updates
+    ``model`` and ``opt``'s moments in place and returns them with
+    ``{"loss", "step"}`` (device tensors)."""
+    model_lib.check_ported(cfg)
+
+    def train_step(model, opt: OptState, batch: dict):
+        with record_function("train_step/forward_backward"):
+            loss, grads = loss_and_grads(cfg, model, batch, micro_steps=micro_steps,
+                                         backend=backend)
+        with record_function("train_step/adamw"):
+            model, opt = adamw_update(model, grads, opt, opt_cfg)
+        return model, opt, {"loss": loss, "step": opt.step}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, backend: str = "auto"):
@@ -31,3 +145,4 @@ def make_serve_step(cfg: ModelConfig):
         return next_token, logits, cache
 
     return serve_step
+

@@ -6,7 +6,10 @@ Each keeps the reference's dtypes at every cast point: RMSNorm and RoPE work
 in fp32 and return their input's dtype, the logits are fp32, and a product of
 a bf16 and an fp32 operand is fp32 (:func:`matmul`, JAX's promotion, where
 torch's ``@`` refuses the mix), as a bf16 model's decode meets it against the
-fp32 cache.
+fp32 cache. Those fp32 cast points keep a float64 input float64
+(:func:`at_least_fp32`): nothing changes for fp32 and bf16 weights, and a
+model cast to float64 computes in float64 throughout, the yardstick the
+training checks measure fp32 routes against.
 
 M-RoPE (``apply_mrope``, qwen2-vl) is not ported: ROADMAP queue 1 item 14.
 """
@@ -20,6 +23,11 @@ import torch.nn.functional as F
 from .param import P
 
 
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32 (the reference's ``astype(float32)``), or as it is if float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm_params(cfg):
     if not cfg.parametric_norm:
         return {}
@@ -29,11 +37,11 @@ def rmsnorm_params(cfg):
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x / rms(x) (· scale), in fp32 whatever x's dtype; OLMo's empty ``p`` is
     the non-parametric form."""
-    x32 = x.float()
+    x32 = at_least_fp32(x)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     if "scale" in p:
-        y = y * p["scale"].float()
+        y = y * at_least_fp32(p["scale"])
     return y.to(x.dtype)
 
 
@@ -52,7 +60,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (d/2,)
     ang = positions[..., None].float() * freqs  # (b, s, d/2)
     cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]  # (b,s,1,d/2)
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = at_least_fp32(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -100,4 +108,4 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits; tied embeddings (no ``unembed``) use ``tok``ᵀ."""
     w = p["unembed"] if "unembed" in p else p["tok"].T
-    return h.float() @ w.float()
+    return at_least_fp32(h) @ at_least_fp32(w)

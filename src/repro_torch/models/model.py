@@ -171,6 +171,37 @@ class Transformer(nn.Module):
         return forward_train(self.cfg, self, {"tokens": tokens}, backend=backend)
 
 
+def lm_leaves(model: Transformer) -> list:
+    """The reference's params pytree as ``model`` holds it: ``(path, tensors)``
+    for each leaf in ``jax.tree.flatten``'s order (dict keys sorted), ``path``
+    its key path (``"embed/tok"``, ``"layers/mlp/up"``) and ``tensors`` the
+    leaf's parameters: one, or a stacked leaf's per-layer slices in layer
+    order."""
+    out = [(f"{group}/{k}", [getattr(model, group)[k]])
+           for group in ("embed", "final_norm") for k in sorted(getattr(model, group).keys())]
+    first = model.layers[0]
+    for name in sorted(n for n, _ in first.named_children()):
+        out += [(f"layers/{name}/{k}", [getattr(blk, name)[k] for blk in model.layers])
+                for k in sorted(getattr(first, name).keys())]
+    return out
+
+
+def leaf_tree(model: Transformer, flat: list) -> dict:
+    """``flat``, tensors in :func:`lm_leaves`' order (one per parameter, e.g.
+    a gradient's), as the reference's pytree: nested dicts by path, each
+    stacked leaf's slices stacked again along a leading layer axis."""
+    tree: dict = {}
+    it = iter(flat)
+    for path, params in lm_leaves(model):
+        parts = [next(it) for _ in params]
+        *keys, last = path.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = torch.stack(parts) if path.startswith("layers/") else parts[0]
+    return tree
+
+
 def init_model_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
                       device: DeviceLike = None) -> Transformer:
     """A :class:`Transformer` with weights drawn from ``generator`` (on

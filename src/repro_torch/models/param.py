@@ -54,6 +54,37 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def _is_node(tree: Any) -> bool:
+    """A container of the pytrees below: a dict, a list or a plain tuple (a
+    named tuple, such as a ``Compressed``, is a leaf)."""
+    return isinstance(tree, (dict, list)) or (isinstance(tree, tuple)
+                                              and not hasattr(tree, "_fields"))
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts, lists and tuples in ``jax.tree.leaves``'
+    order: dict keys sorted, sequences in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if _is_node(tree):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, flat: list) -> Any:
+    """:func:`tree_leaves`' inverse: ``flat`` put into the structure of ``like``."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if _is_node(t):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(like)
+
+
 def param_count(schema: Any) -> int:
     return sum(math.prod(p.shape) for _, p in leaves(schema))
 

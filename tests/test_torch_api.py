@@ -140,7 +140,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 10
     bad = [
         (str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
-        if mod.split(".")[0] in ("jax", "jaxlib", "repro")
+        if mod.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
     ]
     assert bad == []
 

@@ -1257,3 +1257,73 @@ def test_bf16_stochastic_solvers_on_card_follow_the_launch_identities(card, name
     scale = max(1.0, fp32.solution.abs().max().item())
     assert (on_card.solution - fp32.solution).abs().max().item() <= BF16_SOLVE_TOL * scale
     assert not torch.equal(on_card.solution, fp32.solution)
+
+
+def _train_cfg():
+    """A reduced olmo-1b (2 layers, d 256, 4 heads of 64, vocab 512)."""
+    from repro_torch.configs.base import get_config
+
+    return get_config("olmo-1b").reduced(num_layers=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("micro_steps", [1, 2])
+def test_train_step_on_card_matches_plain_route(card, micro_steps):
+    """One train step's loss and gradients on the kernel route against the
+    plain attention route on the card (the loss to 1e-5 relative, every
+    gradient leaf to 1e-4 of its scale); the step launches the fp32 flash
+    kernel once a layer for each micro-batch, and nothing else."""
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import AdamWConfig, init_opt_state
+
+    cfg = _train_cfg()
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = token_batch(0, 0, 4, 130, cfg.vocab_size)
+    out = {}
+    for backend in ("cuda", "plain"):
+        before = flash_attention.launches
+        out[backend] = loss_and_grads(cfg, model, batch, micro_steps=micro_steps,
+                                      backend=backend)
+        assert flash_attention.launches - before == (
+            cfg.num_layers * micro_steps if backend == "cuda" else 0)
+    (lk, gk), (lp, gp) = out["cuda"], out["plain"]
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for a, b in zip(gk, gp):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    opt = init_opt_state(model, AdamWConfig())
+    ops.reset_attention_trace_counts()
+    before = (flash_attention.launches, flash_attention.bf16_launches)
+    model, opt, metrics = make_train_step(cfg, AdamWConfig(), micro_steps)(model, opt, batch)
+    assert np.isfinite(metrics["loss"].item()) and int(metrics["step"]) == 1
+    assert (flash_attention.launches, flash_attention.bf16_launches) == (
+        before[0] + cfg.num_layers * micro_steps, before[1])
+    assert ops.ATTENTION_TRACE_COUNTS == {"cuda": cfg.num_layers * micro_steps, "plain": 0}
+    assert opt.mu.embed["tok"].dtype == torch.bfloat16 and opt.mu.embed["tok"].is_cuda
+
+
+@pytest.mark.gpu
+def test_train_resume_on_card_is_bit_exact(card, tmp_path):
+    """Kill and resume on the card: 6 steps with a checkpoint every 3, and 3
+    steps then a fresh Trainer resumed to 6, give the same losses,
+    parameters and optimiser state (bf16 mu) bit for bit."""
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.train.optim import leaves
+
+    cfg = _train_cfg()
+
+    def make(steps, name):
+        return Trainer(cfg, TrainerConfig(batch=4, seq_len=64, num_steps=steps, log_every=0,
+                                          ckpt_dir=str(tmp_path / name), ckpt_every=3,
+                                          opt=AdamWConfig(lr=1e-3, warmup_steps=2)))
+
+    full = make(6, "full")
+    p_full, o_full = full.run()
+    make(3, "resume").run()
+    resumed = make(6, "resume")
+    p_res, o_res = resumed.run()
+    assert resumed.losses == full.losses and len(full.losses) == 6
+    for a, b in zip(leaves(p_full) + leaves(o_full.mu) + leaves(o_full.nu) + [o_full.step],
+                    leaves(p_res) + leaves(o_res.mu) + leaves(o_res.nu) + [o_res.step]):
+        assert a.is_cuda and torch.equal(a, b)
