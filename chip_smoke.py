@@ -51,7 +51,16 @@ on the protein-shaped problem at full n through those kernels:
   kernel, the loss falling; at full width with 2 layers, one step's loss
   and gradients against the plain attention route in fp32 and in float64,
   gradient accumulation over micro-batches, a bit-exact kill-and-resume
-  from a checkpoint, and int8 gradient compression with error feedback.
+  from a checkpoint, and int8 gradient compression with error feedback;
+* the LM families, served by ``generate`` and trained, in fp32: mamba2-130m
+  at full width and depth (its chunked SSD held against the sequential
+  scan, 20 training steps with the loss falling), dbrx-132b and
+  deepseek-v2-236b at full width with 2 layers (dbrx's prefill through the
+  flash kernel against the plain attention route, deepseek's absorbed MLA
+  decode against the baseline, the MoE layers' dropped copies counted;
+  one reduced training step each), and jamba's hybrid period, reduced
+  (held to the training yardstick); every prefill against
+  ``forward_train``.
 
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and the gradients at ``precision="bf16"`` through
@@ -156,12 +165,17 @@ THOMPSON_SDD = dict(num_steps=3000, batch_size=128, step_size_times_n=2.0)
 #: LM serving: llama3-8b (src/repro_torch/configs/llama3_8b.py) at full width
 #: and depth, batch 4 × prompt 1,024 from the planted-bigram token batch, 16
 #: greedy tokens; the flash kernel's cases of the kernels phase (label, b, s,
-#: hq, hkv, d, causal): the path's shape, a ragged s causal and not, and the
-#: reduced configs' d = 64
+#: hq, hkv, d, causal): the path's shape, a ragged s causal and not, the
+#: reduced configs' d = 64, olmo-1b's training shape and dbrx-132b's 48 → 8
+#: heads
 LM = dict(arch="llama3-8b", batch=4, prompt=1024, gen=16)
 FLASH_CASES = (("lm_serve", 4, 1024, 32, 8, 128, True), ("ragged", 4, 1000, 32, 8, 128, True),
                ("ragged_full", 4, 1000, 32, 8, 128, False), ("d64", 4, 1024, 4, 2, 64, True),
-               ("lm_train", 8, 1024, 16, 16, 128, True))
+               ("lm_train", 8, 1024, 16, 16, 128, True), ("lm_dbrx", 4, 1024, 48, 8, 128, True))
+#: the flash cases that are a path's shape: the path each one's line goes to
+#: (d64 is the reduced jamba's attention layer at the families' batch)
+FLASH_PATHS = {"lm_serve": "lm_serve", "lm_train": "lm_train", "lm_dbrx": "lm_dbrx",
+               "d64": "lm_jamba"}
 #: LM training: olmo-1b (src/repro_torch/configs/olmo_1b.py: 16 layers,
 #: d_model 2,048, 16 heads of 128, d_ff 8,192, vocab 50,304, tied embeddings,
 #: 1.18e9 parameters) at full width and depth in fp32, batch 8 × 1,024
@@ -188,6 +202,40 @@ MICRO_LOSS_RTOL, MICRO_GRAD_TOL = 1e-6, 1e-5
 FLASH_TOL, LM_LOGIT_TOL, CONSIST_RTOL, CONSIST_ATOL, LM_MARGIN = 2e-3, 1e-3, 5e-2, 5e-3, 10.0
 #: decode steps of the profiled decode window
 PROFILE_DECODE_STEPS = 8
+#: The LM families (the lm_families phase), fp32: each served by ``generate``
+#: on LM_FAMILY_SERVE's batch of planted-bigram prompts, then freed before the
+#: next is built. mamba2-130m at full width and depth, dbrx-132b and
+#: deepseek-v2-236b at full width with 2 of their 40 and 60 layers (the
+#: reference's own consistency test runs them at num_layers=2,
+#: tests/test_models.py:96; the MoE configs are trained only reduced, one
+#: step: a full-width dbrx layer's weights, gradients and moments alone
+#: would fill the card), jamba-1.5-large-398b reduced (one period at full
+#: width is 4.51e10 parameters, 180 GB in fp32). Path names (``path``) key
+#: the kernels' records; ``trained`` says how each is trained
+#: (``_lm_family_train``); a prefill's flash launches are ``_flash_layers``
+LM_FAMILY_SERVE = dict(batch=4, prompt=1024, gen=16)
+LM_FAMILIES = (
+    dict(arch="mamba2-130m", path="lm_mamba2", layers=None, reduced=False, trained="full"),
+    dict(arch="dbrx-132b", path="lm_dbrx", layers=2, reduced=False, trained="reduced"),
+    dict(arch="deepseek-v2-236b", path="lm_deepseek", layers=2, reduced=False,
+         trained="reduced"),
+    dict(arch="jamba-1.5-large-398b", path="lm_jamba", layers=None, reduced=True,
+         trained="yardstick"),
+)
+#: mamba2-130m's full-size run: batch 8 × 1,024 planted-bigram tokens, 20
+#: steps of the default AdamW at ``lr`` (scripts/lm_train_lr.py --arch
+#: mamba2-130m: drops of 0.259 at 3e-3 and 0.217 at 1e-2, divergence at
+#: 3e-2), the loss falling by LM_TRAIN_DROP, then ``profile_steps``
+#: profiled; the reduced MoE configs' one step and jamba's yardstick step on
+#: ``small``'s batch
+LM_FAMILY_TRAIN = dict(batch=8, seq=1024, steps=20, lr=3e-3, profile_steps=1,
+                       small=dict(batch=4, seq=512))
+#: mamba2's prefill on the first MAMBA_PREFIX prompt tokens (a multiple of
+#: its 256-token chunk) and its decode at the next, against forward_train
+#: on the whole prompt; one layer's chunked SSD against the sequential scan
+#: within the reference's SSD_TOL (tests/test_models.py:29); absorbed MLA
+#: decode against the baseline at the reference's MLA_RTOL, MLA_ATOL (:184)
+MAMBA_PREFIX, SSD_TOL, MLA_RTOL, MLA_ATOL = 768, 2e-3, 2e-2, 2e-3
 #: The precond phase: the preconditioners' ranks (the specs' defaults), the
 #: RFFGram operator's feature count (the serving path's prior)
 PRECOND_RANK, RFF_RANK, RFFGRAM_FEATURES = 100, 256, 2048
@@ -437,6 +485,7 @@ def main() -> int:
     lkgp = lkgp_phase(torch, kernels)
     lm_serve_phase(torch, kernels)
     lm_train_phase(torch, kernels)
+    lm_families_phase(torch, kernels)
     profile_phase(torch, engine, sparse, lkgp)
     large_n_phase(torch)
 
@@ -780,7 +829,8 @@ def kernels_phase(torch) -> dict:
                                                "inducing_prior")
     lkgp_kernel_cases(torch, gram_case, rff_case, gen, paths)
 
-    paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={}, lm_train={})
+    paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={}, lm_train={}, lm_dbrx={},
+                 lm_jamba={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
     rff_bwd_cases(torch, x, rff_omega, gen, rec)
     thompson_kernel_cases(torch, gen, rec, paths)
@@ -1663,8 +1713,8 @@ def flash_cases(torch, gen, rec, paths) -> None:
         check(err <= FLASH_TOL * scale, f"flash_attention {label}: {err} > {FLASH_TOL * scale}")
         check(line["same_bits"], f"flash_attention {label}: the same bits on two launches")
         rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
-        if label in ("lm_serve", "lm_train"):
-            paths[label]["flash_attention"] = line
+        if label in FLASH_PATHS:
+            paths[FLASH_PATHS[label]]["flash_attention"] = line
 
 
 def main_path_phase(torch, kernels: dict) -> dict:
@@ -3797,18 +3847,19 @@ def lm_train_phase(torch, kernels: dict) -> None:
     _lm_train_checks(torch, cfg, kernels)
 
 
-def _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, step0) -> None:
-    """LM_TRAIN["profile_steps"] train steps under the profiler: device ms by
-    kernel (the GEMMs by name: cuBLAS's ``nvjet``/``gemm`` kernels; the flash
-    forward), by range (the flash Function's backward, the plain attention
-    recomputed under autograd; ``train_step/adamw``), and the idle share."""
+def _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, step0,
+                      window="lm_train", n=LM_TRAIN["profile_steps"]) -> None:
+    """``n`` train steps under the profiler (profile ``window``): device ms
+    by kernel (the GEMMs by name: cuBLAS's
+    ``nvjet``/``gemm`` kernels; the flash forward), by range (the flash
+    Function's backward, the plain attention recomputed under autograd;
+    ``train_step/adamw``), and the idle share."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import token_batch
 
-    n = LM_TRAIN["profile_steps"]
     batches = [token_batch(SEED, step0 + i, b, s, cfg.vocab_size) for i in range(n)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3823,15 +3874,17 @@ def _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, step0) -> None:
     gemm_ms = sum(v for k, v in by_name.items() if re.search(r"gemm|nvjet|cutlass|xmma", k, re.I))
     flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    line = dict(window="lm_train", steps=n, wall_ms=wall * 1e3, device_ms=device_ms,
+    line = dict(window=window, steps=n, wall_ms=wall * 1e3, device_ms=device_ms,
                 idle_share=1.0 - device_ms / (wall * 1e3), gemm_ms=gemm_ms,
                 gemm_share=gemm_ms / max(device_ms, 1e-9), flash_fwd_ms=flash_ms,
                 attention_bwd_ms=_range_ms(prof, "FlashAttentionFnBackward"),
                 adamw_ms=_range_ms(prof, "train_step/adamw"),
                 top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
     emit("lm_profile", **line)
-    check(0 < device_ms <= wall * 1e3, "lm_train: device time within the wall time")
-    check(flash_ms > 0 and line["adamw_ms"] > 0, "lm_train: the profile saw flash and AdamW")
+    check(0 < device_ms <= wall * 1e3, f"{window}: device time within the wall time")
+    check(line["adamw_ms"] > 0, f"{window}: the profile saw AdamW")
+    check((flash_ms > 0) == (_flash_layers(cfg) > 0),
+          f"{window}: the profile saw flash where the model has GQA layers")
 
 
 def _lm_train_checks(torch, cfg, kernels) -> None:
@@ -3845,7 +3898,6 @@ def _lm_train_checks(torch, cfg, kernels) -> None:
     within MICRO_LOSS_RTOL, each gradient leaf within MICRO_GRAD_TOL of its
     scale), one flash launch a layer for each micro-batch; then the restart
     and the compression."""
-    import copy
     import dataclasses
 
     from repro_torch.data.pipeline import token_batch
@@ -3858,25 +3910,8 @@ def _lm_train_checks(torch, cfg, kernels) -> None:
     cfg2 = dataclasses.replace(cfg, num_layers=small["layers"])
     b, s = small["batch"], small["seq"]
     model = model_lib.init_model_params(cfg2, torch.Generator(device="cuda").manual_seed(SEED))
-    model64 = model_lib.cast_model_(copy.deepcopy(model), torch.float64)
     batch = token_batch(SEED, 0, b, s, cfg2.vocab_size)
-
-    _reset_counts(torch)
-    loss_k, grads_k = loss_and_grads(cfg2, model, batch)
-    torch.cuda.synchronize()
-    _train_counts(_read_counts()[0], dict(ops.ATTENTION_TRACE_COUNTS),
-                  _read_bf16_counts(), cfg2.num_layers, 1, "2-layer kernel route")
-    loss_p, grads_p = loss_and_grads(cfg2, model, batch, backend="plain")
-    loss_64, grads_64 = loss_and_grads(cfg2, model64, batch, backend="plain")
-    del model64
-    l64 = loss_64.item()
-    dist = {name: dict(loss=abs(l.item() - l64) / abs(l64),
-                       **dict(zip(("grad_rel_norm", "grad_worst_leaf"),
-                                  _rel_dist(model, g, grads_64))))
-            for name, l, g in (("kernel", loss_k, grads_k), ("plain_fp32", loss_p, grads_p))}
-    bounds = dict(loss=max(TRAIN_YARD_RATIO * dist["plain_fp32"]["loss"], TRAIN_LOSS_FLOOR),
-                  **{k: max(TRAIN_YARD_RATIO * dist["plain_fp32"][k], TRAIN_GRAD_FLOOR)
-                     for k in ("grad_rel_norm", "grad_worst_leaf")})
+    loss_k, grads_k, yard = _yardstick(torch, cfg2, model, batch, "2-layer kernel route")
 
     _reset_counts(torch)
     loss_m, grads_m = loss_and_grads(cfg2, model, batch, micro_steps=2)
@@ -3887,7 +3922,7 @@ def _lm_train_checks(torch, cfg, kernels) -> None:
     micro = dict(loss_rel=abs(loss_m.item() - loss_k.item()) / abs(loss_k.item()),
                  grad_worst_of_scale=max(((a - b_).abs().max() / b_.abs().max()).item()
                                          for a, b_ in zip(grads_m, grads_k)))
-    del grads_p, grads_64, grads_m
+    del grads_m
     # one whole step at micro_steps=2: the same launches
     step2 = make_train_step(cfg2, AdamWConfig(lr=LM_TRAIN["lr"]), micro_steps=2)
     opt = init_opt_state(model, AdamWConfig(lr=LM_TRAIN["lr"]))
@@ -3897,13 +3932,10 @@ def _lm_train_checks(torch, cfg, kernels) -> None:
     _train_counts(_read_counts()[0], dict(ops.ATTENTION_TRACE_COUNTS),
                   _read_bf16_counts(), cfg2.num_layers, 2, "a micro_steps=2 step")
     del opt
-    emit("lm_train_parity", layers=cfg2.num_layers, batch=b, seq=s, loss_float64=l64,
-         distance_from_float64=dist, bounds=bounds, ratio=TRAIN_YARD_RATIO,
-         micro_steps_2=micro, micro_tols=dict(loss_rel=MICRO_LOSS_RTOL,
-                                              grad_of_scale=MICRO_GRAD_TOL))
-    for k, bound in bounds.items():
-        check(dist["kernel"][k] <= bound,
-              f"kernel route's {k} from float64 {dist['kernel'][k]} <= {bound}")
+    emit("lm_train_parity", layers=cfg2.num_layers, batch=b, seq=s, **yard,
+         ratio=TRAIN_YARD_RATIO, micro_steps_2=micro,
+         micro_tols=dict(loss_rel=MICRO_LOSS_RTOL, grad_of_scale=MICRO_GRAD_TOL))
+    _check_yardstick(yard, "2-layer")
     check(micro["loss_rel"] <= MICRO_LOSS_RTOL, f"micro-steps loss: {micro['loss_rel']}")
     check(micro["grad_worst_of_scale"] <= MICRO_GRAD_TOL,
           f"micro-steps gradients: {micro['grad_worst_of_scale']}")
@@ -3911,6 +3943,47 @@ def _lm_train_checks(torch, cfg, kernels) -> None:
     del model, grads_k
     torch.cuda.empty_cache()
     _lm_train_restart(torch, cfg2)
+
+
+def _yardstick(torch, cfg, model, batch, what: str) -> tuple:
+    """One step's loss and gradients on the kernel route (its launches
+    counted: one flash launch a GQA layer, nothing else), on the plain
+    attention route in fp32 and in float64 (``model`` cast to float64):
+    ``(loss, grads, yard)`` of the kernel route, ``yard`` the float64 loss,
+    each fp32 route's distance from float64 (the loss relative; the
+    gradients' relative norm over all leaves and over the worst leaf) and
+    the bounds, TRAIN_YARD_RATIO × the plain fp32 route's distance or the
+    floors TRAIN_LOSS_FLOOR, TRAIN_GRAD_FLOOR, whichever is larger."""
+    import copy
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as model_lib
+
+    model64 = model_lib.cast_model_(copy.deepcopy(model), torch.float64)
+    _reset_counts(torch)
+    loss_k, grads_k = loss_and_grads(cfg, model, batch)
+    torch.cuda.synchronize()
+    _train_counts(_read_counts()[0], dict(ops.ATTENTION_TRACE_COUNTS),
+                  _read_bf16_counts(), _flash_layers(cfg), 1, what)
+    loss_p, grads_p = loss_and_grads(cfg, model, batch, backend="plain")
+    loss_64, grads_64 = loss_and_grads(cfg, model64, batch, backend="plain")
+    del model64
+    l64 = loss_64.item()
+    dist = {name: dict(loss=abs(l.item() - l64) / abs(l64),
+                       **dict(zip(("grad_rel_norm", "grad_worst_leaf"),
+                                  _rel_dist(model, g, grads_64))))
+            for name, l, g in (("kernel", loss_k, grads_k), ("plain_fp32", loss_p, grads_p))}
+    bounds = dict(loss=max(TRAIN_YARD_RATIO * dist["plain_fp32"]["loss"], TRAIN_LOSS_FLOOR),
+                  **{k: max(TRAIN_YARD_RATIO * dist["plain_fp32"][k], TRAIN_GRAD_FLOOR)
+                     for k in ("grad_rel_norm", "grad_worst_leaf")})
+    return loss_k, grads_k, dict(loss_float64=l64, distance_from_float64=dist, bounds=bounds)
+
+
+def _check_yardstick(yard: dict, what: str) -> None:
+    dist = yard["distance_from_float64"]["kernel"]
+    for k, bound in yard["bounds"].items():
+        check(dist[k] <= bound, f"{what}: kernel route's {k} from float64 {dist[k]} <= {bound}")
 
 
 def _lm_train_compress(torch, model, grads) -> None:
@@ -4009,6 +4082,295 @@ def _lm_train_restart(torch, cfg2) -> None:
          disk_free_gb=free_gb)
     for k, ok in same.items():
         check(ok, f"restart: {k} bit-equal")
+
+
+def _flash_layers(cfg) -> int:
+    """The flash launches a forward of ``cfg`` makes: one a GQA attention
+    layer (none for MLA or Mamba2; one a jamba period)."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_layer_period
+    return cfg.num_layers
+
+
+@contextlib.contextmanager
+def _spy(module, name: str, on_call):
+    """``module.name`` wrapped for the block: each call's arguments and result
+    passed to ``on_call(args, kwargs, result)``."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        on_call(args, kwargs, out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _excess(got, want, rtol: float) -> dict:
+    """``assert_allclose``'s measure: max|got − want| and max(|got − want| −
+    rtol·|want|), which must stay within the atol."""
+    d = (got.double() - want.double()).abs()
+    return dict(max_abs_diff=d.max().item(), excess=(d - rtol * want.double().abs()).max().item())
+
+
+def lm_families_phase(torch, kernels: dict) -> None:
+    """The LM families of LM_FAMILIES, one at a time, each freed before the
+    next is built (``_lm_family``)."""
+    import gc
+
+    for fam in LM_FAMILIES:
+        _lm_family(torch, kernels, fam)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _family_cfg(fam: dict):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(fam["arch"])
+    if fam["reduced"]:
+        return cfg.reduced()
+    return dataclasses.replace(cfg, num_layers=fam["layers"]) if fam["layers"] else cfg
+
+
+def _lm_family(torch, kernels: dict, fam: dict) -> None:
+    """One family served and trained on the card, in fp32. ``generate`` on
+    LM_FAMILY_SERVE's prompts, with the launch counts read just around it:
+    one flash launch a GQA layer per prefill, no plain attention, no GP
+    kernel. Then, untimed: ``forward_train`` on the prompts, whose last
+    position holds prefill's logits at the reference's CONSIST_RTOL and
+    CONSIST_ATOL (the same routing groups: MoE capacities depend on the
+    group's length), each MoE layer's dropped copies counted (``moe.route``
+    watched), the first Mamba2 layer's chunked SSD held against the
+    sequential scan on the same inputs (SSD_TOL); mamba2 also prefills the
+    first MAMBA_PREFIX tokens and decodes the next, against
+    ``forward_train``; dbrx's and jamba's prefill on the plain attention
+    route within LM_LOGIT_TOL of the kernel route's; deepseek-v2's absorbed
+    MLA decode against the baseline
+    (MLA_RTOL, MLA_ATOL). Then the prefill and decode profiles and the
+    training (``_lm_family_train``)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe, ssm
+
+    cfg = _family_cfg(fam)
+    path = fam["path"]
+    b, prompt, gen_n = (LM_FAMILY_SERVE[k] for k in ("batch", "prompt", "gen"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    tokens = token_batch(SEED, 0, b, prompt, cfg.vocab_size)["tokens"]
+
+    _reset_counts(torch)
+    toks, timings = generate(cfg, model, tokens, prompt + gen_n, gen_n)
+    launches = _read_counts()[0]
+    attention = dict(ops.ATTENTION_TRACE_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decoded = b * (gen_n - 1)
+    flash = _flash_layers(cfg)
+    emit("lm_family", arch=cfg.name, path=path, layers=cfg.num_layers,
+         reduced=fam["reduced"], d_model=cfg.d_model, params=model_lib.count_params(cfg),
+         active_params=model_lib.active_param_count(cfg), weights_gb=weights_gb, batch=b,
+         prompt=prompt, gen=gen_n, init_s=init_s, prefill_s=timings["prefill_s"],
+         decode_s=timings["decode_s"], prefill_tok_per_s=b * prompt / timings["prefill_s"],
+         decode_tok_per_s=decoded / timings["decode_s"],
+         ms_per_decode_step=1e3 * timings["decode_s"] / (gen_n - 1),
+         max_memory_allocated_gb=peak_gb, launches=launches, attention_dispatches=attention,
+         tokens_row0=toks[0].tolist())
+    check(toks.shape == (b, gen_n), f"{path}: tokens of shape {(b, gen_n)}: {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{path}: tokens in vocabulary")
+    check(launches["flash_attention"] == flash,
+          f"{path}: flash launches {launches['flash_attention']} == {flash} GQA layers")
+    check(attention == {"cuda": flash, "plain": 0}, f"{path}: attention dispatches {attention}")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"{path}: no GP kernel on the LM path")
+    _record_path(kernels, path, launches)
+
+    drops = []
+
+    def count_drops(args, kwargs, out):
+        slot, cap = out[2], out[3]
+        drops.append(((slot >= cap).sum(), slot.numel()))
+
+    ssd_args = []
+
+    def first_ssd(args, kwargs, out):
+        if not ssd_args:
+            ssd_args.append((args, out))
+
+    checks = {}
+    with torch.no_grad():
+        with _spy(ssm, "ssd_chunked", first_ssd):
+            full = model_lib.forward_train(cfg, model, {"tokens": tokens})
+        cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+        with _spy(moe, "route", count_drops):
+            logits_k, cache = model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+        logits_k = logits_k[:, -1]
+        check(torch.equal(torch.argmax(logits_k, dim=-1), toks[:, 0]),
+              f"{path}: a second prefill gives generate's first tokens")
+        check(bool(torch.isfinite(full).all()), f"{path}: forward_train's logits finite")
+        checks["prefill_vs_forward"] = _excess(logits_k, full[:, -1], CONSIST_RTOL)
+        if drops:
+            dropped = [int(n.item()) for n, _ in drops]
+            copies = sum(c for _, c in drops)
+            checks["moe_dropped_copies"] = dict(
+                dropped=sum(dropped), copies=copies, share=sum(dropped) / copies,
+                share_by_layer=[n / c for n, (_, c) in zip(dropped, drops)])
+        if ssd_args:
+            (args, (y, state)) = ssd_args[0]
+            x, dt, a_log, bmat, cmat, d_skip, _ = args
+            y_seq, state_seq = ssm.ssm_scan_ref(x, dt, a_log, bmat, cmat, d_skip)
+            checks["ssd_vs_sequential"] = dict(
+                shape=list(x.shape), chunk=args[6], y=_excess(y, y_seq, SSD_TOL),
+                state=_excess(state, state_seq, SSD_TOL), tol=SSD_TOL)
+            del ssd_args[:]
+        if cfg.family == "ssm":  # no MoE: the prefix's groups do not change the routing
+            pre_cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
+            pre, pre_cache = model_lib.prefill(cfg, model, {"tokens": tokens[:, :MAMBA_PREFIX]},
+                                               pre_cache)
+            dec = model_lib.decode_step(cfg, model, tokens[:, MAMBA_PREFIX:MAMBA_PREFIX + 1],
+                                        pre_cache, MAMBA_PREFIX)[0]
+            checks["prefix_prefill_vs_forward"] = _excess(pre[:, -1], full[:, MAMBA_PREFIX - 1],
+                                                          CONSIST_RTOL)
+            checks["prefix_decode_vs_forward"] = _excess(dec[:, -1], full[:, MAMBA_PREFIX],
+                                                         CONSIST_RTOL)
+            del pre_cache
+        del full
+        if flash:
+            logits_p = model_lib.prefill(cfg, model, {"tokens": tokens},
+                                         model_lib.zero_cache(cfg, b, prompt + gen_n),
+                                         backend="plain")[0][:, -1]
+            scale = max(1.0, logits_p.abs().max().item())
+            checks["kernel_vs_plain_route"] = dict(
+                max_abs_diff=(logits_k - logits_p).abs().max().item(), scale=scale,
+                tol=LM_LOGIT_TOL * scale)
+        if cfg.use_mla:
+            step = [model_lib.decode_step(c, model, toks[:, :1], cache, prompt)[0][:, -1]
+                    for c in (cfg, dataclasses.replace(cfg, mla_absorb=True))]
+            checks["mla_absorbed_vs_baseline"] = _excess(step[1], step[0], MLA_RTOL)
+    emit("lm_family_checks", arch=cfg.name, path=path, **checks, rtol=CONSIST_RTOL,
+         atol=CONSIST_ATOL)
+    for name in ("prefill_vs_forward", "prefix_prefill_vs_forward", "prefix_decode_vs_forward"):
+        if name in checks:
+            check(checks[name]["excess"] <= CONSIST_ATOL,
+                  f"{path}: {name} {checks[name]['excess']} > {CONSIST_ATOL}")
+    if "ssd_vs_sequential" in checks:
+        for k in ("y", "state"):
+            check(checks["ssd_vs_sequential"][k]["excess"] <= SSD_TOL,
+                  f"{path}: chunked SSD's {k} against the sequential scan")
+    if "kernel_vs_plain_route" in checks:
+        line = checks["kernel_vs_plain_route"]
+        check(line["max_abs_diff"] <= line["tol"], f"{path}: kernel against plain route {line}")
+    if "mla_absorbed_vs_baseline" in checks:
+        check(checks["mla_absorbed_vs_baseline"]["excess"] <= MLA_ATOL,
+              f"{path}: absorbed MLA decode against the baseline")
+    check(cfg.family != "ssm" or "ssd_vs_sequential" in checks, f"{path}: SSD checked")
+    check(not cfg.is_moe or "moe_dropped_copies" in checks, f"{path}: MoE routes counted")
+
+    with torch.no_grad():
+        _lm_profile(torch, cfg, model, tokens, toks, cache, "_" + path)
+    del model, cache
+    torch.cuda.empty_cache()
+    _lm_family_train(torch, kernels, fam, cfg)
+
+
+def _lm_family_train(torch, kernels: dict, fam: dict, cfg) -> None:
+    """How ``fam`` is trained on the card. ``full`` (mamba2-130m):
+    ``launch/train.main`` at LM_FAMILY_TRAIN's size and rate, every loss
+    finite and the mean of the last 5 at least LM_TRAIN_DROP below the first
+    5's, then ``profile_steps`` steps profiled. ``reduced`` (the MoE
+    configs) and ``yardstick`` (jamba, already reduced): one counted step of
+    ``make_train_step`` on the reduced config at ``small``'s batch, timed
+    from a warm-up step; jamba's gradients also held to the yardstick of
+    ``_yardstick``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import AdamWConfig, init_opt_state
+
+    tr_cfg = LM_FAMILY_TRAIN
+    path = fam["path"] + "_train"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if fam["trained"] == "full":
+        b, s, steps, lr = (tr_cfg[k] for k in ("batch", "seq", "steps", "lr"))
+        argv = ["--arch", cfg.name, "--steps", str(steps), "--batch", str(b), "--seq-len",
+                str(s), "--lr", str(lr), "--seed", str(SEED)]
+        _reset_counts(torch)
+        tr = launch_train.main(argv)
+        torch.cuda.synchronize()
+        launches, bf16 = _read_counts()[0], _read_bf16_counts()
+        attention = dict(ops.ATTENTION_TRACE_COUNTS)
+        losses, times = tr.losses, tr.step_times
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        med = sorted(times)[len(times) // 2]
+        emit("lm_family_train", arch=cfg.name, path=path, layers=cfg.num_layers, batch=b,
+             seq=s, steps=steps, lr=lr, step_s=times, median_step_s=med,
+             tok_per_s=b * s / med, max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+             / 1e9, losses=losses, first5_mean=first, last5_mean=last, drop=first - last,
+             min_drop=LM_TRAIN_DROP, launches=launches, attention_dispatches=attention)
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{path}: every loss finite")
+        check(first - last >= LM_TRAIN_DROP,
+              f"{path}: the loss falls by {LM_TRAIN_DROP}: first 5 {first}, last 5 {last}")
+        _train_counts(launches, attention, bf16, _flash_layers(cfg), steps, path)
+        _record_path(kernels, path, launches)
+        del tr
+        opt_cfg = AdamWConfig(lr=lr)
+        model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        opt = init_opt_state(model, opt_cfg)
+        _lm_train_profile(torch, cfg, make_train_step(cfg, opt_cfg), model, opt, b, s, steps,
+                          window=path, n=tr_cfg["profile_steps"])
+        return
+
+    cfg_r = cfg if fam["reduced"] else get_config(cfg.name).reduced()
+    b, s = tr_cfg["small"]["batch"], tr_cfg["small"]["seq"]
+    model = model_lib.init_model_params(cfg_r, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = token_batch(SEED, 0, b, s, cfg_r.vocab_size)
+    yard = None
+    if fam["trained"] == "yardstick":
+        _, _, yard = _yardstick(torch, cfg_r, model, batch, path)
+    opt_cfg = AdamWConfig(lr=LM_TRAIN["lr"])
+    opt = init_opt_state(model, opt_cfg)
+    step_fn = make_train_step(cfg_r, opt_cfg)
+    model, opt, _ = step_fn(model, opt, token_batch(SEED, 1, b, s, cfg_r.vocab_size))
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    model, opt, metrics = step_fn(model, opt, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    launches, bf16 = _read_counts()[0], _read_bf16_counts()
+    attention = dict(ops.ATTENTION_TRACE_COUNTS)
+    emit("lm_family_train", arch=cfg_r.name, path=path, layers=cfg_r.num_layers,
+         d_model=cfg_r.d_model, params=model_lib.count_params(cfg_r), batch=b, seq=s,
+         step_s=step_s, tok_per_s=b * s / step_s, loss=loss, step=int(metrics["step"]),
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **(yard or {}), launches=launches, attention_dispatches=attention)
+    check(math.isfinite(loss) and int(metrics["step"]) == 2, f"{path}: the step's loss, step")
+    _train_counts(launches, attention, bf16, _flash_layers(cfg_r), 1, path)
+    _record_path(kernels, path, launches)
+    if yard is not None:
+        _check_yardstick(yard, path)
+    del model, opt
 
 
 def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:

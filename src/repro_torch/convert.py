@@ -21,7 +21,7 @@ from .core.solvers.spec import as_spec, spec_from_dict
 from .core.svgp import SVGPState
 from .core.thompson import ThompsonDraws, ThompsonState
 from .device import DeviceLike, resolve_device
-from .models.model import Transformer
+from .models.model import Transformer, leaf_tree, lm_leaves
 from .models.param import tree_map
 from .serve.request import RequestDraws
 from .serve.state import PosteriorState, hypers_fingerprint
@@ -237,10 +237,11 @@ def _lm_t(a, device: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Transformer:
     """The reference's LM params pytree as numpy arrays (``embed.tok`` and
     ``embed.unembed``, ``final_norm``, and ``layers.*`` stacked with a leading
-    layer axis) → the port's :class:`Transformer`, its layers unstacked. The
-    weights keep their (in, out) orientation: both packages compute h @ W, and
-    no weight goes into an ``nn.Linear`` (which would want Wᵀ). bf16 weights
-    stay bf16, bit for bit; all others become float32."""
+    layer axis; jamba's period leaves with a sub-block axis after it) → the
+    port's :class:`Transformer`, its layers unstacked. The weights keep their
+    (in, out) orientation: both packages compute h @ W, and no weight goes
+    into an ``nn.Linear`` (which would want Wᵀ). bf16 weights stay bf16, bit
+    for bit; all others become float32."""
     dev = resolve_device(device)
     return Transformer(cfg, tree_map(lambda a: _lm_t(a, dev), tree))
 
@@ -257,13 +258,8 @@ def lm_params_to_numpy(model: Transformer, *, bf16: str = "float32") -> dict:
             return p.detach().cpu().numpy()
         return bf16_to_words(p) if bf16 == "words" else p.detach().cpu().float().numpy()
 
-    per_layer = [{name: {k: array(p) for k, p in pd.items()}
-                  for name, pd in blk.named_children()} for blk in model.layers]
-    layers = {name: {k: np.stack([lay[name][k] for lay in per_layer]) for k in group}
-              for name, group in per_layer[0].items()}
-    return {"embed": {k: array(p) for k, p in model.embed.items()},
-            "final_norm": {k: array(p) for k, p in model.final_norm.items()},
-            "layers": layers}
+    flat = [t.detach().cpu() for _, ts in lm_leaves(model) for t in ts]
+    return tree_map(array, leaf_tree(model, flat))
 
 
 def opt_state_from_numpy(cfg, mu, nu, step, *, device: DeviceLike = None):

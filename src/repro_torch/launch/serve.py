@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.serve --arch llama3-8b              # on the card
     python -m repro_torch.launch.serve --arch olmo-1b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-130m                # on the card
 
 Weights are random, drawn from ``--seed`` as the reference's launcher draws
 them: the repository holds no checkpoint.

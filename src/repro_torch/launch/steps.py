@@ -11,9 +11,10 @@ embeddings, decode token + cache index). Decoding is greedy (``argmax``; ties
 go to the first index in both packages).
 
 A train step attends through ``ops.flash_attention`` (on the card the flash
-kernel, one launch a layer for each micro-batch; its backward is autograd of
-the plain version, the gradient the reference takes through ``_sdpa``), and
-updates the model's parameters and the optimiser state in place.
+kernel, one launch a GQA layer for each micro-batch; its backward is
+autograd of the plain version, the gradient the reference takes through
+``_sdpa``; MLA and Mamba2 layers are plain PyTorch, as in the reference),
+and updates the model's parameters and the optimiser state in place.
 """
 from __future__ import annotations
 

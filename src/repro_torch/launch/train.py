@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.train --arch olmo-1b                   # on the card
     python -m repro_torch.launch.train --arch olmo-1b --reduced --device cpu
+    python -m repro_torch.launch.train --arch dbrx-132b --reduced       # on the card
 
 Trains in fp32, as the reference's launcher does, on the planted-bigram
 token batches, with random initial weights drawn from ``--seed``.

@@ -14,7 +14,12 @@ serving cache is the largest buffer after the weights, and nothing reads the
 old one. It keeps its own dtype (fp32 in ``launch/serve.generate``, as in the
 reference), and a bf16 model's decode attends with JAX's promotion: its bf16
 query against the fp32 cache is an fp32 product, and so is what follows.
-MLA, cross-attention and M-RoPE are not ported: ROADMAP queue 1 item 14.
+MLA (deepseek-v2) is the reference's plain product in every mode: its q·k
+heads are 192 wide and its v heads 128, and the flash kernel takes one head
+width. It caches the 512-d latent c_kv and the shared rope key only; decode
+up-projects the cached latents every step (the reference's baseline), or,
+with ``cfg.mla_absorb``, attends in latent space. Cross-attention and M-RoPE
+are not ported: ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -23,11 +28,13 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope, matmul
+from .layers import apply_rope, at_least_fp32, matmul
 from .param import P
 
 #: the reference's mask value; −inf would make a fully masked row's max − max NaN
 _NEG = -1e30
+#: the query-block size of MLA's streaming path (the reference's ``_Q_CHUNK``)
+_Q_CHUNK = 512
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kv_len: int) -> torch.Tensor:
@@ -60,8 +67,7 @@ def gqa_params(cfg):
 
 
 def mla_params(cfg):
-    """MLA's schema (deepseek-v2), for ``count_params``; MLA itself is not
-    ported."""
+    """MLA's schema (deepseek-v2)."""
     d, h = cfg.d_model, cfg.num_heads
     r = cfg.kv_lora_rank
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -110,3 +116,109 @@ def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
     else:
         raise ValueError(mode)
     return matmul(out.reshape(b, s, nh * dh), p["wo"]), cache
+
+
+# ------------------------------------------------------------------ MLA ------
+
+
+def mla_make_cache(cfg, batch: int, max_len: int, dtype=torch.float32, device=None) -> dict:
+    """A zero latent buffer (batch, max_len, kv_lora_rank) and rope-key
+    buffer (batch, max_len, qk_rope_dim)."""
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                                 device=device)}
+
+
+def _mla_mask(logits, q_offset: int, kv_len: Optional[int], causal: bool):
+    """The reference's −1e30 masks on (b, h, sq, sk) logits: the causal one
+    from query row ``q_offset``, and keys from ``kv_len`` on."""
+    sq, sk = logits.shape[-2:]
+    cols = torch.arange(sk, device=logits.device)
+    if causal:
+        rows = q_offset + torch.arange(sq, device=logits.device)[:, None]
+        logits = torch.where(rows >= cols, logits, _NEG)
+    if kv_len is not None:
+        logits = torch.where(cols < kv_len, logits, _NEG)
+    return logits
+
+
+def _mla_attend_block(cfg, q, k_nope, v, krope, kv_len, q_offset, causal):
+    """One query block. q: (b, sq, h, nope + rope); k_nope, v: (b, sk, h, ·);
+    krope: (b, sk, rope). fp32 softmax."""
+    b, sq, h, _ = q.shape
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    qn, qr = q[..., :nope], q[..., nope:]
+    logits = (torch.einsum("bqhd,bshd->bhqs", qn, k_nope)
+              + torch.einsum("bqhd,bsd->bhqs", qr, krope))
+    logits = at_least_fp32(logits) * (nope + rope_d) ** -0.5
+    pr = torch.softmax(_mla_mask(logits, q_offset, kv_len, causal), dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", pr, v).reshape(b, sq, -1)
+
+
+def _mla_attend_absorbed(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=True):
+    """Attention in latent space (``cfg.mla_absorb``): W_uk absorbed into the
+    query and W_uv applied to the weighted latents, so the cache is never
+    up-projected: logits = (q_nope W_ukᵀ) ckvᵀ + q_rope kropeᵀ, out =
+    (P ckv) W_uv."""
+    b, sq, h, _ = q.shape
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    qn, qr = q[..., :nope], q[..., nope:]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", qn, p["w_uk"].reshape(r, h, nope))
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhd,bsd->bhqs", qr, krope))
+    logits = at_least_fp32(logits) * (nope + rope_d) ** -0.5
+    pr = torch.softmax(_mla_mask(logits, q_offset, kv_len, causal), dim=-1).to(ckv.dtype)
+    lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv)
+    out = torch.einsum("bqhr,rhd->bqhd", lat, p["w_uv"].reshape(r, h, vd))
+    return out.reshape(b, sq, h * vd)
+
+
+def _mla_attend(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=True):
+    """q: (b, sq, h, nope + rope); ckv: (b, sk, r); krope: (b, sk, rope).
+
+    The baseline up-projects the latents (the whole cache in decode) once a
+    call, then attends in query blocks of ``_Q_CHUNK`` rows past that length,
+    so the (sq × sk) logits never exist at once; ``cfg.mla_absorb`` switches
+    short queries (decode) to :func:`_mla_attend_absorbed`."""
+    b, sq, h, _ = q.shape
+    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    sk = ckv.shape[1]
+    if cfg.mla_absorb and sq <= _Q_CHUNK:
+        return _mla_attend_absorbed(cfg, q, ckv, krope, p, kv_len, q_offset, causal)
+    k_nope = matmul(ckv, p["w_uk"]).reshape(b, sk, h, nope)
+    v = matmul(ckv, p["w_uv"]).reshape(b, sk, h, vd)
+    if sq <= _Q_CHUNK:
+        return _mla_attend_block(cfg, q, k_nope, v, krope, kv_len, q_offset, causal)
+    if sq % _Q_CHUNK:
+        raise ValueError(f"MLA query length {sq} past {_Q_CHUNK} must be a multiple of it, "
+                         f"as in the reference")
+    return torch.cat([_mla_attend_block(cfg, q[:, i:i + _Q_CHUNK], k_nope, v, krope, kv_len,
+                                        q_offset + i, causal)
+                      for i in range(0, sq, _Q_CHUNK)], dim=1)
+
+
+def mla_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
+              cache: Optional[dict] = None, cache_index: Optional[int] = None, **_):
+    """One MLA mixer. h: (b, s, d); positions: (b, s). Returns (out, cache):
+    prefill writes the prompt's latents and rope keys at 0, decode its one
+    token's at ``cache_index`` and attends to the first ``cache_index + 1``."""
+    b, s, _ = h.shape
+    nh, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = matmul(h, p["wq"]).reshape(b, s, nh, nope + rope_d)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+    ckv = matmul(h, p["w_dkv"])  # (b, s, r)
+    krope = apply_rope(matmul(h, p["w_krope"])[:, :, None], positions, cfg.rope_theta)[:, :, 0]
+    if mode in ("train", "prefill"):
+        out = _mla_attend(cfg, q, ckv, krope, p, causal=True)
+        if mode == "prefill":
+            cache["ckv"][:, :s] = ckv
+            cache["krope"][:, :s] = krope
+    elif mode == "decode":
+        cache["ckv"][:, cache_index:cache_index + s] = ckv
+        cache["krope"][:, cache_index:cache_index + s] = krope
+        out = _mla_attend(cfg, q, cache["ckv"], cache["krope"], p, kv_len=cache_index + 1,
+                          causal=False)
+    else:
+        raise ValueError(mode)
+    return matmul(out, p["wo"]), cache

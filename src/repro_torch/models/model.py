@@ -1,18 +1,23 @@
-"""Model assembly — twin of ``repro/models/model.py`` for the uniform dense
-decoder plan (llama3, deepseek-coder, minitron, OLMo). Three entry points:
+"""Model assembly — twin of ``repro/models/model.py`` for the decoder plans:
+the uniform stacks (the dense decoders, the MoE decoders dbrx and
+deepseek-v2 with its MLA mixer, the attention-free mamba2) and jamba's
+8-layer period. Three entry points:
 
     forward_train(cfg, model, inputs)            → logits (b, s, v)
     prefill(cfg, model, inputs, cache)           → (last logits, filled cache)
     decode_step(cfg, model, token, cache, index) → (logits, updated cache)
 
 ``model`` is a :class:`Transformer`: the reference's params pytree as an
-``nn.Module``, its layer stack an ``nn.ModuleList`` walked by a Python loop
-where the reference scans. The cache is a list of per-layer key/value
-buffers, written in place.
+``nn.Module``, its layer stack an ``nn.ModuleList`` of :class:`Block` (or, for
+jamba, :class:`Period`) walked by a Python loop where the reference scans.
+The cache has the reference's keys (``attn``; ``mamba``; MLA's ``ckv`` and
+``krope``), a list a layer (a period's mamba caches a list of 7) where the
+reference stacks, its buffers written in place.
 
-``param_schema``/``count_params`` cover all ten configs (they allocate
-nothing); building a model, or a cache, for MoE, MLA, SSM, hybrid,
-encoder-decoder or VLM configs raises: ROADMAP queue 1 item 14.
+``param_schema``/``count_params``/``active_param_count`` cover all ten
+configs (they allocate nothing); building a model, or a cache, for the
+encoder-decoder (whisper) or the M-RoPE (qwen2-vl) configs raises: ROADMAP
+queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -23,64 +28,35 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from .attention import gqa_apply, gqa_make_cache, gqa_params, mla_params
+from . import moe, ssm
+from .attention import (
+    gqa_apply, gqa_make_cache, gqa_params, mla_apply, mla_make_cache, mla_params,
+)
 from .layers import embed, embed_params, mlp, mlp_params, rmsnorm, rmsnorm_params, unembed
-from .param import P, init_params, param_count, stack_schema, tree_map
+from .param import init_params, leaves, param_count, stack_schema, tree_map
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the families whose modules are not ported yet."""
-    if (cfg.family != "dense" or cfg.is_moe or cfg.use_mla or cfg.is_encdec
-            or cfg.use_mrope):
+    if cfg.is_encdec or cfg.use_mrope:
         raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported yet: the MoE, MLA, SSM, "
-            f"hybrid, encoder-decoder and VLM modules are ROADMAP queue 1 item 14"
+            f"{cfg.name} (family {cfg.family!r}) is not ported yet: whisper's "
+            f"encoder-decoder and qwen2-vl's M-RoPE are ROADMAP queue 1 item 14"
         )
 
 
 # --------------------------------------------------------------- schemas -----
 
 
-def _moe_params(cfg):
-    """``repro/models/moe.py``'s schema, for counting only."""
-    d, e, ff = cfg.d_model, cfg.num_experts, cfg.expert_ff
-    out = {
-        "router": P((d, e), ("embed", None)),
-        "gate": P((e, d, ff), ("experts", "embed", "mlp")),
-        "up": P((e, d, ff), ("experts", "embed", "mlp")),
-        "down": P((e, ff, d), ("experts", "mlp", "embed")),
-    }
-    if cfg.num_shared_experts:
-        out["shared"] = mlp_params(cfg, d_ff=cfg.num_shared_experts * cfg.expert_ff)
-    return out
-
-
-def _mamba_params(cfg):
-    """``repro/models/ssm.py``'s schema, for counting only."""
-    d, din = cfg.d_model, cfg.d_inner
-    n, h = cfg.ssm_state, cfg.ssm_heads
-    conv_ch = din + 2 * n
-    return {
-        "in_proj": P((d, 2 * din + 2 * n + h), ("embed", "d_inner")),
-        "conv_w": P((cfg.ssm_conv_width, conv_ch), (None, "d_inner")),
-        "conv_b": P((conv_ch,), ("d_inner",), init="zeros"),
-        "a_log": P((h,), (None,), init="ones"),
-        "d_skip": P((h,), (None,), init="ones"),
-        "dt_bias": P((h,), (None,), init="zeros"),
-        "norm_scale": P((din,), ("d_inner",), init="ones"),
-        "out_proj": P((din, d), ("d_inner", "embed")),
-    }
-
-
 def _block_schema(cfg: ModelConfig, mixer: str, mlp_kind: str, cross: bool = False):
     if mixer == "attn":
         mix = mla_params(cfg) if cfg.use_mla else gqa_params(cfg)
     else:
-        mix = _mamba_params(cfg)
+        mix = ssm.mamba_params(cfg)
     s: dict[str, Any] = {"norm1": rmsnorm_params(cfg), "mixer": mix}
     if mlp_kind != "none":
         s["norm2"] = rmsnorm_params(cfg)
-        s["mlp"] = _moe_params(cfg) if mlp_kind == "moe" else mlp_params(cfg)
+        s["mlp"] = moe.moe_params(cfg) if mlp_kind == "moe" else mlp_params(cfg)
     if cross:
         s["norm_x"] = rmsnorm_params(cfg)
         s["cross"] = gqa_params(cfg)
@@ -92,6 +68,9 @@ def _layer_plan(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         return {"kind": "uniform", "mixer": "mamba", "mlp": "none", "n": cfg.num_layers}
     if cfg.family == "hybrid":
+        if cfg.num_layers % cfg.attn_layer_period:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole periods of "
+                             f"{cfg.attn_layer_period}")
         return {"kind": "period", "n": cfg.num_layers // cfg.attn_layer_period,
                 "period": cfg.attn_layer_period}
     mlp_kind = "moe" if cfg.is_moe else "dense"
@@ -106,7 +85,7 @@ def _period_schema(cfg: ModelConfig):
         "attn_block": _block_schema(cfg, "attn", "dense"),
         "mamba_blocks": stack_schema(_block_schema(cfg, "mamba", "none"), per - 1, None),
         "moe_mlps": stack_schema(
-            {"norm2": rmsnorm_params(cfg), "mlp": _moe_params(cfg)}, n_moe, None),
+            {"norm2": rmsnorm_params(cfg), "mlp": moe.moe_params(cfg)}, n_moe, None),
         "dense_mlps": stack_schema(
             {"norm2": rmsnorm_params(cfg), "mlp": mlp_params(cfg)}, per - n_moe - 1, None),
     }
@@ -114,7 +93,8 @@ def _period_schema(cfg: ModelConfig):
 
 def param_schema(cfg: ModelConfig):
     """The reference's params pytree as ``P`` leaves: ``embed``, ``final_norm``
-    and the stacked ``layers`` (leading layer dim)."""
+    and the stacked ``layers`` (leading layer dim; jamba's period stacks a
+    sub-block dim after it)."""
     plan = _layer_plan(cfg)
     sch: dict[str, Any] = {"embed": embed_params(cfg), "final_norm": rmsnorm_params(cfg)}
     if plan["kind"] == "uniform":
@@ -134,29 +114,61 @@ def count_params(cfg: ModelConfig) -> int:
     return param_count(param_schema(cfg))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: routed k of E experts), the
+    reference's count: every ``moe_layer_period``-th of the layers is MoE."""
+    total = count_params(cfg)
+    if not cfg.is_moe:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.expert_ff
+    inactive = ((cfg.num_experts - cfg.experts_per_tok) * per_expert
+                * (cfg.num_layers // cfg.moe_layer_period))
+    return total - inactive
+
+
 # ---------------------------------------------------------------- module -----
 
 
 def _parameters(tree: dict) -> nn.ParameterDict:
-    # serving weights: no autograd (the training slice turns it on)
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in tree.items()})
+    """A params dict as a ``ParameterDict``, a nested dict (MoE's ``shared``)
+    as a nested one. Serving weights: no autograd (the train step turns it
+    on)."""
+    return nn.ParameterDict({
+        k: _parameters(t) if isinstance(t, dict) else nn.Parameter(t, requires_grad=False)
+        for k, t in tree.items()})
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm GQA mixer, then pre-norm SwiGLU MLP."""
+    """One decoder layer's params: pre-norm mixer (GQA, MLA or Mamba2:
+    ``norm1``, ``mixer``), then, unless it is a mamba block, the pre-norm MLP
+    (dense or MoE: ``norm2``, ``mlp``); or one of jamba's stand-alone MLPs
+    (``norm2``, ``mlp``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        self.norm1 = _parameters(tree["norm1"])
-        self.mixer = _parameters(tree["mixer"])
-        self.norm2 = _parameters(tree["norm2"])
-        self.mlp = _parameters(tree["mlp"])
+        for k in sorted(tree, key=("norm1", "mixer", "norm2", "mlp").index):
+            setattr(self, k, _parameters(tree[k]))
+
+
+class Period(nn.Module):
+    """One jamba period: ``attn_block`` (GQA, dense MLP), ``mamba_blocks``
+    (per − 1 mamba blocks), ``moe_mlps`` and ``dense_mlps`` (the MLPs after
+    mamba blocks 1, 3, 5, 7 and 2, 4, 6)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.attn_block = Block(tree["attn_block"])
+        for k in ("mamba_blocks", "moe_mlps", "dense_mlps"):
+            n = next(t for _, t in leaves(tree[k])).shape[0]
+            setattr(self, k, nn.ModuleList(
+                Block(tree_map(lambda t, j=j: t[j], tree[k])) for j in range(n)))
 
 
 class Transformer(nn.Module):
-    """The dense decoder over a params tree in the reference's layout
-    (``param_schema``). Layer ``i``'s parameters are views of slice ``i`` of
-    the stacked tensors, so building the module copies nothing."""
+    """The decoder over a params tree in the reference's layout
+    (``param_schema``). Layer ``i``'s parameters (period ``i``'s, and its
+    sub-block ``j``'s) are views of slice ``i`` (``[i, j]``) of the stacked
+    tensors, so building the module copies nothing."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         check_ported(cfg)
@@ -164,42 +176,52 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = _parameters(tree["embed"])
         self.final_norm = _parameters(tree["final_norm"])
+        plan = _layer_plan(cfg)
+        layer = Block if plan["kind"] == "uniform" else Period
         self.layers = nn.ModuleList(
-            Block(tree_map(lambda t, i=i: t[i], tree["layers"])) for i in range(cfg.num_layers))
+            layer(tree_map(lambda t, i=i: t[i], tree["layers"])) for i in range(plan["n"]))
 
     def forward(self, tokens: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
         return forward_train(self.cfg, self, {"tokens": tokens}, backend=backend)
 
 
+def _slices(node, parts: list) -> list:
+    """The parameters at key path ``parts`` below ``node``, every
+    ``ModuleList`` on the way walked in order (layers, then sub-blocks)."""
+    if isinstance(node, nn.ModuleList):
+        return [t for child in node for t in _slices(child, parts)]
+    if not parts:
+        return [node]
+    head, *rest = parts
+    return _slices(node[head] if isinstance(node, nn.ParameterDict) else getattr(node, head),
+                   rest)
+
+
 def lm_leaves(model: Transformer) -> list:
     """The reference's params pytree as ``model`` holds it: ``(path, tensors)``
     for each leaf in ``jax.tree.flatten``'s order (dict keys sorted), ``path``
-    its key path (``"embed/tok"``, ``"layers/mlp/up"``) and ``tensors`` the
-    leaf's parameters: one, or a stacked leaf's per-layer slices in layer
-    order."""
-    out = [(f"{group}/{k}", [getattr(model, group)[k]])
-           for group in ("embed", "final_norm") for k in sorted(getattr(model, group).keys())]
-    first = model.layers[0]
-    for name in sorted(n for n, _ in first.named_children()):
-        out += [(f"layers/{name}/{k}", [getattr(blk, name)[k] for blk in model.layers])
-                for k in sorted(getattr(first, name).keys())]
-    return out
+    its key path (``"embed/tok"``, ``"layers/mlp/up"``,
+    ``"layers/mamba_blocks/mixer/in_proj"``) and ``tensors`` the leaf's
+    parameters: one, or a stacked leaf's slices in order (layer-major, then
+    a period's sub-blocks)."""
+    return [("/".join(path), _slices(model, list(path)))
+            for path, _ in leaves(param_schema(model.cfg))]
 
 
 def leaf_tree(model: Transformer, flat: list) -> dict:
     """``flat``, tensors in :func:`lm_leaves`' order (one per parameter, e.g.
-    a gradient's), as the reference's pytree: nested dicts by path, each
-    stacked leaf's slices stacked again along a leading layer axis."""
-    tree: dict = {}
+    a gradient's), as the reference's pytree: nested dicts by path (an empty
+    norm's included), each stacked leaf's slices stacked again to the
+    reference's shape."""
     it = iter(flat)
-    for path, params in lm_leaves(model):
-        parts = [next(it) for _ in params]
-        *keys, last = path.split("/")
-        node = tree
-        for k in keys:
-            node = node.setdefault(k, {})
-        node[last] = torch.stack(parts) if path.startswith("layers/") else parts[0]
-    return tree
+
+    def build(schema, path: tuple):
+        if isinstance(schema, dict):
+            return {k: build(schema[k], path + (k,)) for k in sorted(schema)}
+        parts = [next(it) for _ in _slices(model, list(path))]
+        return torch.stack(parts).reshape(schema.shape) if path[0] == "layers" else parts[0]
+
+    return build(param_schema(model.cfg), ())
 
 
 def init_model_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
@@ -233,22 +255,73 @@ def cast_model_(model: Transformer, dtype: torch.dtype) -> Transformer:
 
 def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                device: DeviceLike = None) -> dict:
-    """``{"attn": [{"k", "v"} per layer]}``, each (batch, max_len, kv, dh)."""
+    """The reference's cache keys, a buffer dict a layer: ``{"attn": [...]}``
+    (GQA's ``k``, ``v``, each (batch, max_len, kv, dh); MLA's ``ckv``,
+    ``krope``), ``{"mamba": [...]}`` (``conv`` in ``dtype``, the ``ssm``
+    state fp32), or for jamba both, ``"mamba"`` a list of per − 1 a period."""
     check_ported(cfg)
     dev = resolve_device(device)
-    return {"attn": [gqa_make_cache(cfg, batch, max_len, dtype, dev)
-                     for _ in range(cfg.num_layers)]}
+    plan = _layer_plan(cfg)
+
+    def attn():
+        make = mla_make_cache if cfg.use_mla else gqa_make_cache
+        return make(cfg, batch, max_len, dtype, dev)
+
+    def mamba():
+        return ssm.mamba_make_cache(cfg, batch, dtype, dev)
+
+    if plan["kind"] == "period":
+        return {"attn": [attn() for _ in range(plan["n"])],
+                "mamba": [[mamba() for _ in range(plan["period"] - 1)]
+                          for _ in range(plan["n"])]}
+    if plan["mixer"] == "mamba":
+        return {"mamba": [mamba() for _ in range(plan["n"])]}
+    return {"attn": [attn() for _ in range(plan["n"])]}
 
 
 # --------------------------------------------------------------- forward -----
 
 
-def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, *, backend="auto"):
-    mixed, new_cache = gqa_apply(p.mixer, cfg, rmsnorm(p.norm1, h, cfg.norm_eps), positions,
-                                 mode, cache, cache_index, backend=backend)
+def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, mixer: str,
+                 mlp_kind: str, *, backend="auto"):
+    x = rmsnorm(p.norm1, h, cfg.norm_eps)
+    if mixer == "mamba":
+        mixed, new_cache = ssm.mamba_apply(p.mixer, cfg, x, mode, cache, cache_index)
+    elif cfg.use_mla:
+        mixed, new_cache = mla_apply(p.mixer, cfg, x, positions, mode, cache, cache_index)
+    else:
+        mixed, new_cache = gqa_apply(p.mixer, cfg, x, positions, mode, cache, cache_index,
+                                     backend=backend)
     h = h + mixed
-    h = h + mlp(p.mlp, rmsnorm(p.norm2, h, cfg.norm_eps))
-    return h, new_cache
+    return _apply_mlp(p, cfg, h, mlp_kind), new_cache
+
+
+def _apply_mlp(p: Block, cfg, h, mlp_kind: str):
+    if mlp_kind == "dense":
+        return h + mlp(p.mlp, rmsnorm(p.norm2, h, cfg.norm_eps))
+    if mlp_kind == "moe":
+        return h + moe.moe_apply(p.mlp, cfg, rmsnorm(p.norm2, h, cfg.norm_eps))
+    return h
+
+
+def _apply_period(p: Period, cfg, h, positions, mode, cache, cache_index, backend):
+    """One jamba period: the attention block (dense MLP), then each mamba
+    block followed by an MoE MLP (odd sub-layers) or a dense one."""
+    h, _ = _apply_block(p.attn_block, cfg, h, positions, mode,
+                        None if cache is None else cache["attn"], cache_index, "attn", "dense",
+                        backend=backend)
+    i_moe = i_dense = 0
+    for i, blk in enumerate(p.mamba_blocks, start=1):
+        h, _ = _apply_block(blk, cfg, h, positions, mode,
+                            None if cache is None else cache["mamba"][i - 1], cache_index,
+                            "mamba", "none")
+        if i % cfg.moe_layer_period == 1:  # global layer 8p + i; odd i → MoE
+            h = _apply_mlp(p.moe_mlps[i_moe], cfg, h, "moe")
+            i_moe += 1
+        else:
+            h = _apply_mlp(p.dense_mlps[i_dense], cfg, h, "dense")
+            i_dense += 1
+    return h
 
 
 def _positions_for(cfg: ModelConfig, batch: int, seq: int, offset: int,
@@ -259,10 +332,18 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, offset: int,
 
 
 def _trunk(cfg, model, h, positions, mode, cache, cache_index, backend):
+    plan = _layer_plan(cfg)
+    if plan["kind"] == "period":
+        for i, per in enumerate(model.layers):
+            c = None if cache is None else {"attn": cache["attn"][i],
+                                            "mamba": cache["mamba"][i]}
+            h = _apply_period(per, cfg, h, positions, mode, c, cache_index, backend)
+        return h, cache
+    key = "mamba" if plan["mixer"] == "mamba" else "attn"
     for i, blk in enumerate(model.layers):
-        layer_cache = None if cache is None else cache["attn"][i]
-        h, _ = _apply_block(blk, cfg, h, positions, mode, layer_cache, cache_index,
-                            backend=backend)
+        h, _ = _apply_block(blk, cfg, h, positions, mode,
+                            None if cache is None else cache[key][i], cache_index,
+                            plan["mixer"], plan["mlp"], backend=backend)
     return h, cache
 
 

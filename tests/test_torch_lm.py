@@ -361,8 +361,7 @@ def test_token_batch_plants_the_bigram_chain():
     assert abs(share - 0.8) < 0.04 and abs(jshare - 0.8) < 0.04
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b", "mamba2-130m",
-                                  "jamba-1.5-large-398b", "whisper-tiny", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
