@@ -58,8 +58,15 @@ on the protein-shaped problem at full n through those kernels:
   deepseek-v2-236b at full width with 2 layers (dbrx's prefill through the
   flash kernel against the plain attention route, deepseek's absorbed MLA
   decode against the baseline, the MoE layers' dropped copies counted;
-  one reduced training step each), and jamba's hybrid period, reduced
-  (held to the training yardstick); every prefill against
+  one reduced training step each), jamba's hybrid period, reduced
+  (held to the training yardstick), whisper-tiny's encoder-decoder at full
+  size over stub frames (its encoder's non-causal attention and its
+  decoder's causal self-attention through the flash kernel, its
+  cross-attention the plain product; 20 training steps with the loss
+  falling, the training yardstick at full size) and qwen2-vl-7b at full
+  width and depth on prompts whose first 1,024 positions are stub patch
+  embeddings under M-RoPE's vision grid (one training step at full width
+  with 2 layers, the yardstick reduced); every prefill against
   ``forward_train``.
 
 The training path's θ-gradients are held against the plain autograd Function
@@ -166,16 +173,22 @@ THOMPSON_SDD = dict(num_steps=3000, batch_size=128, step_size_times_n=2.0)
 #: and depth, batch 4 × prompt 1,024 from the planted-bigram token batch, 16
 #: greedy tokens; the flash kernel's cases of the kernels phase (label, b, s,
 #: hq, hkv, d, causal): the path's shape, a ragged s causal and not, the
-#: reduced configs' d = 64, olmo-1b's training shape and dbrx-132b's 48 → 8
-#: heads
+#: reduced configs' d = 64, olmo-1b's training shape, dbrx-132b's 48 → 8
+#: heads, whisper-tiny's encoder (non-causal, 1,500 frames) and decoder
+#: self-attention (its 432-token prompts), qwen2-vl-7b's 28 → 4 heads
 LM = dict(arch="llama3-8b", batch=4, prompt=1024, gen=16)
 FLASH_CASES = (("lm_serve", 4, 1024, 32, 8, 128, True), ("ragged", 4, 1000, 32, 8, 128, True),
                ("ragged_full", 4, 1000, 32, 8, 128, False), ("d64", 4, 1024, 4, 2, 64, True),
-               ("lm_train", 8, 1024, 16, 16, 128, True), ("lm_dbrx", 4, 1024, 48, 8, 128, True))
+               ("lm_train", 8, 1024, 16, 16, 128, True), ("lm_dbrx", 4, 1024, 48, 8, 128, True),
+               ("whisper_encoder", 4, 1500, 6, 6, 64, False),
+               ("whisper_decoder", 4, 432, 6, 6, 64, True),
+               ("lm_qwen2vl", 4, 2048, 28, 4, 128, True))
 #: the flash cases that are a path's shape: the path each one's line goes to
-#: (d64 is the reduced jamba's attention layer at the families' batch)
+#: (d64 is the reduced jamba's attention layer at the families' batch); a
+#: path with two shapes (whisper's) takes its first as its line and lists both
 FLASH_PATHS = {"lm_serve": "lm_serve", "lm_train": "lm_train", "lm_dbrx": "lm_dbrx",
-               "d64": "lm_jamba"}
+               "d64": "lm_jamba", "whisper_encoder": "lm_whisper",
+               "whisper_decoder": "lm_whisper", "lm_qwen2vl": "lm_qwen2vl"}
 #: LM training: olmo-1b (src/repro_torch/configs/olmo_1b.py: 16 layers,
 #: d_model 2,048, 16 heads of 128, d_ff 8,192, vocab 50,304, tied embeddings,
 #: 1.18e9 parameters) at full width and depth in fp32, batch 8 × 1,024
@@ -210,32 +223,55 @@ PROFILE_DECODE_STEPS = 8
 #: tests/test_models.py:96; the MoE configs are trained only reduced, one
 #: step: a full-width dbrx layer's weights, gradients and moments alone
 #: would fill the card), jamba-1.5-large-398b reduced (one period at full
-#: width is 4.51e10 parameters, 180 GB in fp32). Path names (``path``) key
-#: the kernels' records; ``trained`` says how each is trained
-#: (``_lm_family_train``); a prefill's flash launches are ``_flash_layers``
+#: width is 4.51e10 parameters, 180 GB in fp32), whisper-tiny at full size
+#: on its published 448-position decoder context (n_text_ctx: 432-token
+#: prompts, 16 generated) over 1,500 stub frames, and qwen2-vl-7b at full
+#: width and depth on 2,048-token prompts whose first 1,024 positions are
+#: stub patch embeddings (``data.pipeline.stub_inputs``). Path names (``path``) key the
+#: kernels' records; ``trained`` says how each is trained
+#: (``_lm_family_train``; ``train`` overrides LM_FAMILY_TRAIN's size and
+#: rate, ``yardstick`` adds the yardstick step at full size); ``prompt``
+#: overrides LM_FAMILY_SERVE's; ``prefix``
+#: is the length of the prefix prefill held, with the next decode, against
+#: forward_train (not for the MoE configs: a shorter group routes
+#: differently); a prefill's flash launches are ``_flash_layers``
 LM_FAMILY_SERVE = dict(batch=4, prompt=1024, gen=16)
 LM_FAMILIES = (
-    dict(arch="mamba2-130m", path="lm_mamba2", layers=None, reduced=False, trained="full"),
+    dict(arch="mamba2-130m", path="lm_mamba2", layers=None, reduced=False, trained="full",
+         prefix=768),
     dict(arch="dbrx-132b", path="lm_dbrx", layers=2, reduced=False, trained="reduced"),
     dict(arch="deepseek-v2-236b", path="lm_deepseek", layers=2, reduced=False,
          trained="reduced"),
     dict(arch="jamba-1.5-large-398b", path="lm_jamba", layers=None, reduced=True,
          trained="yardstick"),
+    dict(arch="whisper-tiny", path="lm_whisper", layers=None, reduced=False, trained="full",
+         train=dict(batch=16, seq=448, lr=5e-3), yardstick=True, prompt=432,
+         prefix=416),
+    dict(arch="qwen2-vl-7b", path="lm_qwen2vl", layers=None, reduced=False, trained="width",
+         prompt=2048, prefix=1536),
 )
 #: mamba2-130m's full-size run: batch 8 × 1,024 planted-bigram tokens, 20
 #: steps of the default AdamW at ``lr`` (scripts/lm_train_lr.py --arch
 #: mamba2-130m: drops of 0.259 at 3e-3 and 0.217 at 1e-2, divergence at
 #: 3e-2), the loss falling by LM_TRAIN_DROP, then ``profile_steps``
 #: profiled; the reduced MoE configs' one step and jamba's yardstick step on
-#: ``small``'s batch
+#: ``small``'s batch. whisper-tiny's full-size run (``full`` with its
+#: ``train``): the yardstick step at full size, then 20 steps on 16 × 448
+#: tokens (its published 448-position decoder context), each with its
+#: frames, of the default AdamW at 5e-3. scripts/lm_train_lr.py --arch
+#: whisper-tiny --seq-len 448: on 8 × 448 the drop stays below 0.1 at the
+#: default warm-up (0.064 at 3e-3, 0.057 at 1e-2, divergence at 3e-2); on
+#: 16 × 448, 0.124, 0.113, 0.026 and −0.061 at 5e-3, 1e-2, 2e-2, 3e-2. qwen2-vl-7b
+#: (``width``): one counted step at full width with ``qwen2vl["layers"]`` of
+#: its 28 layers on ``qwen2vl``'s batch, and the yardstick on the reduced
+#: config with as many layers at ``small``'s batch
 LM_FAMILY_TRAIN = dict(batch=8, seq=1024, steps=20, lr=3e-3, profile_steps=1,
-                       small=dict(batch=4, seq=512))
-#: mamba2's prefill on the first MAMBA_PREFIX prompt tokens (a multiple of
-#: its 256-token chunk) and its decode at the next, against forward_train
-#: on the whole prompt; one layer's chunked SSD against the sequential scan
-#: within the reference's SSD_TOL (tests/test_models.py:29); absorbed MLA
-#: decode against the baseline at the reference's MLA_RTOL, MLA_ATOL (:184)
-MAMBA_PREFIX, SSD_TOL, MLA_RTOL, MLA_ATOL = 768, 2e-3, 2e-2, 2e-3
+                       small=dict(batch=4, seq=512),
+                       qwen2vl=dict(layers=2, batch=4, seq=2048))
+#: one layer's chunked SSD against the sequential scan within the
+#: reference's SSD_TOL (tests/test_models.py:29); absorbed MLA decode
+#: against the baseline at the reference's MLA_RTOL, MLA_ATOL (:184)
+SSD_TOL, MLA_RTOL, MLA_ATOL = 2e-3, 2e-2, 2e-3
 #: The precond phase: the preconditioners' ranks (the specs' defaults), the
 #: RFFGram operator's feature count (the serving path's prior)
 PRECOND_RANK, RFF_RANK, RFFGRAM_FEATURES = 100, 256, 2048
@@ -830,7 +866,7 @@ def kernels_phase(torch) -> dict:
     lkgp_kernel_cases(torch, gram_case, rff_case, gen, paths)
 
     paths.update(sgd={}, sdd={}, ap={}, thompson={}, lm_serve={}, lm_train={}, lm_dbrx={},
-                 lm_jamba={})
+                 lm_jamba={}, lm_whisper={}, lm_qwen2vl={})
     new_kernels_cases(torch, x, xs, rff_omega, gen, rec, paths)
     rff_bwd_cases(torch, x, rff_omega, gen, rec)
     thompson_kernel_cases(torch, gen, rec, paths)
@@ -1678,7 +1714,8 @@ def flash_cases(torch, gen, rec, paths) -> None:
     over 20 warm launches, the fp32 plain version over 3 calls, and SDPA
     (``scaled_dot_product_attention`` with ``enable_gqa``, on (b, h, s, d)
     copies made beforehand) over 20, by CUDA events. Both calls of the
-    kernel give the same bits."""
+    kernel give the same bits. whisper-tiny's encoder and decoder shapes and
+    qwen2-vl-7b's are the families' paths."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import BLOCK, flash_attention
@@ -1714,7 +1751,10 @@ def flash_cases(torch, gen, rec, paths) -> None:
         check(line["same_bits"], f"flash_attention {label}: the same bits on two launches")
         rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
         if label in FLASH_PATHS:
-            paths[FLASH_PATHS[label]]["flash_attention"] = line
+            path = FLASH_PATHS[label]
+            paths[path].setdefault("flash_attention", line)
+            if list(FLASH_PATHS.values()).count(path) > 1:
+                _path_shape(paths, path, "flash_attention", line)
 
 
 def main_path_phase(torch, kernels: dict) -> dict:
@@ -3602,10 +3642,10 @@ def lm_serve_phase(torch, kernels: dict) -> None:
     _lm_serve_bf16(torch, kernels, cfg, model, tokens, toks, logits_k, margins, fp32_run)
     with torch.no_grad():
         cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
-        _lm_profile(torch, cfg, model, tokens, toks, cache, "_bf16")
+        _lm_profile(torch, cfg, model, {"tokens": tokens}, toks, cache, "_bf16")
         model_lib.cast_model_(model, torch.float32)
         torch.cuda.empty_cache()
-        _lm_profile(torch, cfg, model, tokens, toks, cache, "")
+        _lm_profile(torch, cfg, model, {"tokens": tokens}, toks, cache, "")
     del model, cache
     torch.cuda.empty_cache()
 
@@ -3679,21 +3719,22 @@ def _lm_serve_bf16(torch, kernels, cfg, model, tokens, toks, logits_fp32, margin
     check(mismatched == 0, f"{mismatched} bf16 greedy tokens differ above the margin")
 
 
-def _lm_profile(torch, cfg, model, tokens, toks, cache, suffix: str) -> None:
-    """One prefill and PROFILE_DECODE_STEPS decode steps of ``model`` under
-    the profiler (windows ``prefill`` and ``decode``, with ``suffix``):
-    device time by kernel, idle share."""
+def _lm_profile(torch, cfg, model, inputs, toks, cache, suffix: str) -> None:
+    """One prefill of ``inputs`` (the tokens and any stub inputs) and
+    PROFILE_DECODE_STEPS decode steps of ``model`` under the profiler
+    (windows ``prefill`` and ``decode``, with ``suffix``): device time by
+    kernel, idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as model_lib
 
-    prompt = tokens.shape[1]
+    prompt = inputs["tokens"].shape[1]
     for window in ("prefill", "decode"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if window == "prefill":
-                model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+                model_lib.prefill(cfg, model, inputs, cache)
             else:
                 tok = toks[:, :1]
                 for i in range(PROFILE_DECODE_STEPS):
@@ -3858,9 +3899,7 @@ def _lm_train_profile(torch, cfg, step_fn, model, opt, b, s, step0,
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.pipeline import token_batch
-
-    batches = [token_batch(SEED, step0 + i, b, s, cfg.vocab_size) for i in range(n)]
+    batches = [_lm_batch(torch, cfg, step0 + i, b, s) for i in range(n)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4086,12 +4125,22 @@ def _lm_train_restart(torch, cfg2) -> None:
 
 def _flash_layers(cfg) -> int:
     """The flash launches a forward of ``cfg`` makes: one a GQA attention
-    layer (none for MLA or Mamba2; one a jamba period)."""
+    layer (none for MLA or Mamba2; one a jamba period; one a whisper encoder
+    layer and one a decoder layer, none for cross-attention)."""
     if cfg.family == "ssm" or cfg.use_mla:
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_layer_period
-    return cfg.num_layers
+    return cfg.num_layers + cfg.encoder_layers
+
+
+def _lm_batch(torch, cfg, step: int, b: int, s: int) -> dict:
+    """Train batch ``step`` on the card: ``data.pipeline.lm_batch``'s
+    planted-bigram tokens and labels (b, s) and the family's stub inputs,
+    drawn from (SEED, step)."""
+    from repro_torch.data.pipeline import lm_batch
+
+    return lm_batch(cfg, SEED, step, b, s, device="cuda")
 
 
 @contextlib.contextmanager
@@ -4143,23 +4192,24 @@ def _family_cfg(fam: dict):
 
 def _lm_family(torch, kernels: dict, fam: dict) -> None:
     """One family served and trained on the card, in fp32. ``generate`` on
-    LM_FAMILY_SERVE's prompts, with the launch counts read just around it:
-    one flash launch a GQA layer per prefill, no plain attention, no GP
-    kernel. Then, untimed: ``forward_train`` on the prompts, whose last
-    position holds prefill's logits at the reference's CONSIST_RTOL and
-    CONSIST_ATOL (the same routing groups: MoE capacities depend on the
-    group's length), each MoE layer's dropped copies counted (``moe.route``
-    watched), the first Mamba2 layer's chunked SSD held against the
-    sequential scan on the same inputs (SSD_TOL); mamba2 also prefills the
-    first MAMBA_PREFIX tokens and decodes the next, against
-    ``forward_train``; dbrx's and jamba's prefill on the plain attention
-    route within LM_LOGIT_TOL of the kernel route's; deepseek-v2's absorbed
-    MLA decode against the baseline
+    LM_FAMILY_SERVE's prompts (``fam["prompt"]`` tokens long where given,
+    with the family's stub inputs, ``data.pipeline.stub_inputs``), with the launch counts
+    read just around it: one flash launch a GQA layer per prefill (whisper:
+    its encoder's and its decoder's, none for cross-attention), no plain
+    attention, no GP kernel. Then, untimed: ``forward_train`` on the
+    prompts, whose last position holds prefill's logits at the reference's
+    CONSIST_RTOL and CONSIST_ATOL (the same routing groups: MoE capacities
+    depend on the group's length), each MoE layer's dropped copies counted
+    (``moe.route`` watched), the first Mamba2 layer's chunked SSD held
+    against the sequential scan on the same inputs (SSD_TOL); where the
+    family has a ``prefix``, a prefill of the first ``prefix`` tokens and a
+    decode of the next against ``forward_train``; where it has flash layers,
+    its prefill on the plain attention route within LM_LOGIT_TOL of the
+    kernel route's; deepseek-v2's absorbed MLA decode against the baseline
     (MLA_RTOL, MLA_ATOL). Then the prefill and decode profiles and the
     training (``_lm_family_train``)."""
     import dataclasses
 
-    from repro_torch.data.pipeline import token_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as model_lib
@@ -4167,7 +4217,8 @@ def _lm_family(torch, kernels: dict, fam: dict) -> None:
 
     cfg = _family_cfg(fam)
     path = fam["path"]
-    b, prompt, gen_n = (LM_FAMILY_SERVE[k] for k in ("batch", "prompt", "gen"))
+    b, gen_n = LM_FAMILY_SERVE["batch"], LM_FAMILY_SERVE["gen"]
+    prompt = fam.get("prompt", LM_FAMILY_SERVE["prompt"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4175,28 +4226,41 @@ def _lm_family(torch, kernels: dict, fam: dict) -> None:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
-    tokens = token_batch(SEED, 0, b, prompt, cfg.vocab_size)["tokens"]
+    inputs = _lm_batch(torch, cfg, 0, b, prompt)
+    del inputs["labels"]
+    tokens = inputs["tokens"]
+    extra = {k: v for k, v in inputs.items() if k != "tokens"}
+
+    causal = {"causal": 0, "non_causal": 0}
+
+    def count_causal(args, kwargs, out):
+        causal["causal" if kwargs["causal"] else "non_causal"] += 1
 
     _reset_counts(torch)
-    toks, timings = generate(cfg, model, tokens, prompt + gen_n, gen_n)
+    with _spy(ops, "_flash_kernel", count_causal):
+        toks, timings = generate(cfg, model, tokens, prompt + gen_n, gen_n, extra)
     launches = _read_counts()[0]
     attention = dict(ops.ATTENTION_TRACE_COUNTS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decoded = b * (gen_n - 1)
     flash = _flash_layers(cfg)
+    want_causal = {"causal": flash - cfg.encoder_layers, "non_causal": cfg.encoder_layers}
     emit("lm_family", arch=cfg.name, path=path, layers=cfg.num_layers,
-         reduced=fam["reduced"], d_model=cfg.d_model, params=model_lib.count_params(cfg),
-         active_params=model_lib.active_param_count(cfg), weights_gb=weights_gb, batch=b,
-         prompt=prompt, gen=gen_n, init_s=init_s, prefill_s=timings["prefill_s"],
-         decode_s=timings["decode_s"], prefill_tok_per_s=b * prompt / timings["prefill_s"],
+         encoder_layers=cfg.encoder_layers, reduced=fam["reduced"], d_model=cfg.d_model,
+         params=model_lib.count_params(cfg), active_params=model_lib.active_param_count(cfg),
+         weights_gb=weights_gb, batch=b, prompt=prompt, gen=gen_n,
+         stub_inputs={k: list(v.shape) for k, v in extra.items()}, init_s=init_s,
+         prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
+         prefill_tok_per_s=b * prompt / timings["prefill_s"],
          decode_tok_per_s=decoded / timings["decode_s"],
          ms_per_decode_step=1e3 * timings["decode_s"] / (gen_n - 1),
          max_memory_allocated_gb=peak_gb, launches=launches, attention_dispatches=attention,
-         tokens_row0=toks[0].tolist())
+         flash_launches_by_mask=causal, tokens_row0=toks[0].tolist())
     check(toks.shape == (b, gen_n), f"{path}: tokens of shape {(b, gen_n)}: {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{path}: tokens in vocabulary")
     check(launches["flash_attention"] == flash,
-          f"{path}: flash launches {launches['flash_attention']} == {flash} GQA layers")
+          f"{path}: flash launches {launches['flash_attention']} == {flash} attention layers")
+    check(causal == want_causal, f"{path}: flash launches by mask {causal} == {want_causal}")
     check(attention == {"cuda": flash, "plain": 0}, f"{path}: attention dispatches {attention}")
     check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
           f"{path}: no GP kernel on the LM path")
@@ -4217,10 +4281,10 @@ def _lm_family(torch, kernels: dict, fam: dict) -> None:
     checks = {}
     with torch.no_grad():
         with _spy(ssm, "ssd_chunked", first_ssd):
-            full = model_lib.forward_train(cfg, model, {"tokens": tokens})
+            full = model_lib.forward_train(cfg, model, inputs)
         cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
         with _spy(moe, "route", count_drops):
-            logits_k, cache = model_lib.prefill(cfg, model, {"tokens": tokens}, cache)
+            logits_k, cache = model_lib.prefill(cfg, model, inputs, cache)
         logits_k = logits_k[:, -1]
         check(torch.equal(torch.argmax(logits_k, dim=-1), toks[:, 0]),
               f"{path}: a second prefill gives generate's first tokens")
@@ -4240,20 +4304,19 @@ def _lm_family(torch, kernels: dict, fam: dict) -> None:
                 shape=list(x.shape), chunk=args[6], y=_excess(y, y_seq, SSD_TOL),
                 state=_excess(state, state_seq, SSD_TOL), tol=SSD_TOL)
             del ssd_args[:]
-        if cfg.family == "ssm":  # no MoE: the prefix's groups do not change the routing
+        if "prefix" in fam:
+            n = fam["prefix"]
             pre_cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
-            pre, pre_cache = model_lib.prefill(cfg, model, {"tokens": tokens[:, :MAMBA_PREFIX]},
+            pre, pre_cache = model_lib.prefill(cfg, model, dict(inputs, tokens=tokens[:, :n]),
                                                pre_cache)
-            dec = model_lib.decode_step(cfg, model, tokens[:, MAMBA_PREFIX:MAMBA_PREFIX + 1],
-                                        pre_cache, MAMBA_PREFIX)[0]
-            checks["prefix_prefill_vs_forward"] = _excess(pre[:, -1], full[:, MAMBA_PREFIX - 1],
-                                                          CONSIST_RTOL)
-            checks["prefix_decode_vs_forward"] = _excess(dec[:, -1], full[:, MAMBA_PREFIX],
-                                                         CONSIST_RTOL)
+            dec = model_lib.decode_step(cfg, model, tokens[:, n:n + 1], pre_cache, n)[0]
+            checks["prefix_prefill_vs_forward"] = dict(
+                prefix=n, **_excess(pre[:, -1], full[:, n - 1], CONSIST_RTOL))
+            checks["prefix_decode_vs_forward"] = _excess(dec[:, -1], full[:, n], CONSIST_RTOL)
             del pre_cache
         del full
         if flash:
-            logits_p = model_lib.prefill(cfg, model, {"tokens": tokens},
+            logits_p = model_lib.prefill(cfg, model, inputs,
                                          model_lib.zero_cache(cfg, b, prompt + gen_n),
                                          backend="plain")[0][:, -1]
             scale = max(1.0, logits_p.abs().max().item())
@@ -4284,75 +4347,111 @@ def _lm_family(torch, kernels: dict, fam: dict) -> None:
     check(not cfg.is_moe or "moe_dropped_copies" in checks, f"{path}: MoE routes counted")
 
     with torch.no_grad():
-        _lm_profile(torch, cfg, model, tokens, toks, cache, "_" + path)
+        _lm_profile(torch, cfg, model, inputs, toks, cache, "_" + path)
     del model, cache
     torch.cuda.empty_cache()
     _lm_family_train(torch, kernels, fam, cfg)
 
 
 def _lm_family_train(torch, kernels: dict, fam: dict, cfg) -> None:
-    """How ``fam`` is trained on the card. ``full`` (mamba2-130m):
-    ``launch/train.main`` at LM_FAMILY_TRAIN's size and rate, every loss
-    finite and the mean of the last 5 at least LM_TRAIN_DROP below the first
-    5's, then ``profile_steps`` steps profiled. ``reduced`` (the MoE
-    configs) and ``yardstick`` (jamba, already reduced): one counted step of
-    ``make_train_step`` on the reduced config at ``small``'s batch, timed
-    from a warm-up step; jamba's gradients also held to the yardstick of
-    ``_yardstick``."""
+    """How ``fam`` is trained on the card. ``full`` (mamba2-130m,
+    whisper-tiny): LM_FAMILY_TRAIN["steps"] steps of the ``Trainer`` that
+    ``launch/train.main`` runs, at LM_FAMILY_TRAIN's size and rate or the
+    family's ``train``, on ``_lm_batch``'s batches (whisper's with their
+    frames, which the launcher does not give, as the reference's does not),
+    after the yardstick step (``_yardstick``) at full size on the first
+    batch where the family asks for it; every loss finite and the mean of
+    the last 5 at least LM_TRAIN_DROP below the first 5's, then
+    ``profile_steps`` steps profiled. ``reduced`` (the MoE configs),
+    ``yardstick`` (jamba, already reduced) and ``width`` (qwen2-vl-7b): one
+    counted step of ``make_train_step``, timed from a warm-up step, on the
+    reduced config at ``small``'s batch, or for ``width`` at full width with
+    LM_FAMILY_TRAIN["qwen2vl"]'s layers and batch; jamba's gradients, and
+    those of qwen2-vl reduced to as many layers, also held to the
+    yardstick."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import token_batch
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as launch_train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as model_lib
-    from repro_torch.train import AdamWConfig, init_opt_state
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig, init_opt_state
 
     tr_cfg = LM_FAMILY_TRAIN
     path = fam["path"] + "_train"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if fam["trained"] == "full":
-        b, s, steps, lr = (tr_cfg[k] for k in ("batch", "seq", "steps", "lr"))
-        argv = ["--arch", cfg.name, "--steps", str(steps), "--batch", str(b), "--seq-len",
-                str(s), "--lr", str(lr), "--seed", str(SEED)]
+        size = dict(batch=tr_cfg["batch"], seq=tr_cfg["seq"], lr=tr_cfg["lr"])
+        size.update(fam.get("train", {}))
+        b, s, lr = (size[k] for k in ("batch", "seq", "lr"))
+        steps = tr_cfg["steps"]
+        opt_cfg = AdamWConfig(lr=lr)
+        yard = None
+        if fam.get("yardstick"):
+            model = model_lib.init_model_params(cfg,
+                                                torch.Generator(device="cuda").manual_seed(SEED))
+            _, _, yard = _yardstick(torch, cfg, model, _lm_batch(torch, cfg, 0, b, s), path)
+            del model
         _reset_counts(torch)
-        tr = launch_train.main(argv)
+        tr = Trainer(cfg, TrainerConfig(batch=b, seq_len=s, num_steps=steps, seed=SEED,
+                                        log_every=0, opt=opt_cfg),
+                     batches=lambda i: _lm_batch(torch, cfg, i, b, s), device="cuda")
+        tr.run()
+        losses, times = tr.losses, tr.step_times
+        del tr
         torch.cuda.synchronize()
         launches, bf16 = _read_counts()[0], _read_bf16_counts()
         attention = dict(ops.ATTENTION_TRACE_COUNTS)
-        losses, times = tr.losses, tr.step_times
         first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
         med = sorted(times)[len(times) // 2]
         emit("lm_family_train", arch=cfg.name, path=path, layers=cfg.num_layers, batch=b,
              seq=s, steps=steps, lr=lr, step_s=times, median_step_s=med,
              tok_per_s=b * s / med, max_memory_allocated_gb=torch.cuda.max_memory_allocated()
              / 1e9, losses=losses, first5_mean=first, last5_mean=last, drop=first - last,
-             min_drop=LM_TRAIN_DROP, launches=launches, attention_dispatches=attention)
+             min_drop=LM_TRAIN_DROP, **(yard or {}), launches=launches,
+             attention_dispatches=attention)
         check(len(losses) == steps and all(math.isfinite(x) for x in losses),
               f"{path}: every loss finite")
         check(first - last >= LM_TRAIN_DROP,
               f"{path}: the loss falls by {LM_TRAIN_DROP}: first 5 {first}, last 5 {last}")
         _train_counts(launches, attention, bf16, _flash_layers(cfg), steps, path)
         _record_path(kernels, path, launches)
-        del tr
-        opt_cfg = AdamWConfig(lr=lr)
+        if yard is not None:
+            _check_yardstick(yard, path)
         model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
         opt = init_opt_state(model, opt_cfg)
         _lm_train_profile(torch, cfg, make_train_step(cfg, opt_cfg), model, opt, b, s, steps,
                           window=path, n=tr_cfg["profile_steps"])
         return
 
-    cfg_r = cfg if fam["reduced"] else get_config(cfg.name).reduced()
-    b, s = tr_cfg["small"]["batch"], tr_cfg["small"]["seq"]
-    model = model_lib.init_model_params(cfg_r, torch.Generator(device="cuda").manual_seed(SEED))
-    batch = token_batch(SEED, 0, b, s, cfg_r.vocab_size)
     yard = None
+    if fam["trained"] == "width":
+        cfg_y = get_config(cfg.name).reduced(num_layers=tr_cfg["qwen2vl"]["layers"])
+        model = model_lib.init_model_params(cfg_y,
+                                            torch.Generator(device="cuda").manual_seed(SEED))
+        small = tr_cfg["small"]
+        _, _, yard = _yardstick(torch, cfg_y, model,
+                                _lm_batch(torch, cfg_y, 0, small["batch"], small["seq"]),
+                                path + "_reduced")
+        yard = dict(yardstick_config=dict(arch=cfg_y.name, reduced=True,
+                                          layers=cfg_y.num_layers, **small), **yard)
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg_r = dataclasses.replace(cfg, num_layers=tr_cfg["qwen2vl"]["layers"])
+        b, s = tr_cfg["qwen2vl"]["batch"], tr_cfg["qwen2vl"]["seq"]
+    else:
+        cfg_r = cfg if fam["reduced"] else get_config(cfg.name).reduced()
+        b, s = tr_cfg["small"]["batch"], tr_cfg["small"]["seq"]
+    model = model_lib.init_model_params(cfg_r, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = _lm_batch(torch, cfg_r, 0, b, s)
     if fam["trained"] == "yardstick":
         _, _, yard = _yardstick(torch, cfg_r, model, batch, path)
     opt_cfg = AdamWConfig(lr=LM_TRAIN["lr"])
     opt = init_opt_state(model, opt_cfg)
     step_fn = make_train_step(cfg_r, opt_cfg)
-    model, opt, _ = step_fn(model, opt, token_batch(SEED, 1, b, s, cfg_r.vocab_size))
+    model, opt, _ = step_fn(model, opt, _lm_batch(torch, cfg_r, 1, b, s))
     _reset_counts(torch)
     t0 = time.perf_counter()
     model, opt, metrics = step_fn(model, opt, batch)
@@ -4366,6 +4465,8 @@ def _lm_family_train(torch, kernels: dict, fam: dict, cfg) -> None:
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          **(yard or {}), launches=launches, attention_dispatches=attention)
     check(math.isfinite(loss) and int(metrics["step"]) == 2, f"{path}: the step's loss, step")
+    check(all(bool(torch.isfinite(t).all()) for t in model.parameters()),
+          f"{path}: the parameters finite after the step")
     _train_counts(launches, attention, bf16, _flash_layers(cfg_r), 1, path)
     _record_path(kernels, path, launches)
     if yard is not None:

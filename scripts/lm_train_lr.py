@@ -5,13 +5,17 @@
                                    [--steps 20] [--batch 8] [--seq-len 1024]
 
 For each learning rate, trains ``--arch`` at full width and depth through
-``repro_torch.launch.train.main`` (fp32, the default AdamW with its 100
-warm-up steps, the planted-bigram batches of seed 0) and prints one JSON
-line: the losses, the means of the first and the last 5 and their
-difference, the median step time and the peak memory. ``chip_smoke.py``'s
-``lm_train`` phase trains at the rate chosen from these runs, and holds the
-drop to at least 0.1. Runs on the card (``--device cpu`` with ``--reduced``
-to try it on the CPU).
+the ``Trainer`` that ``repro_torch.launch.train`` runs (fp32, the default
+AdamW with its 100 warm-up steps) on ``data.pipeline.lm_batch``'s batches of
+seed 0: the launcher's planted-bigram tokens, with the stub inputs of a
+family that has them (whisper-tiny's frames, qwen2-vl-7b's patch
+embeddings), which the launcher does not give. Prints one JSON line: the losses, the means of the first and
+the last 5 and their difference, the median step time and the peak memory.
+``chip_smoke.py``'s ``lm_train`` and ``lm_families`` phases train at the
+rates chosen from these runs, and hold the drop to at least 0.1. Runs on the
+card (``--device cpu`` with ``--reduced`` to try it on the CPU), e.g.
+
+    python3 scripts/lm_train_lr.py --arch whisper-tiny --batch 16 --seq-len 448
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.data.pipeline import lm_batch  # noqa: E402
+from repro_torch.train import AdamWConfig, Trainer, TrainerConfig  # noqa: E402
 
 
 def main() -> int:
@@ -41,20 +47,25 @@ def main() -> int:
     cuda = args.device is None or args.device.startswith("cuda")
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    dev = args.device or "cuda"
     for lr in args.lrs:
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        argv = ["--arch", args.arch, "--steps", str(args.steps), "--batch", str(args.batch),
-                "--seq-len", str(args.seq_len), "--lr", str(lr), "--seed", "0"]
-        argv += ["--reduced"] * args.reduced + (["--device", args.device] if args.device else [])
-        tr = launch_train.main(argv)
+        tr = Trainer(cfg, TrainerConfig(
+            batch=args.batch, seq_len=args.seq_len, num_steps=args.steps, seed=0,
+            log_every=0, opt=AdamWConfig(lr=lr)),
+            batches=lambda i: lm_batch(cfg, 0, i, args.batch, args.seq_len, device=dev),
+            device=dev)
+        tr.run()
         first = statistics.fmean(tr.losses[:5])
         last = statistics.fmean(tr.losses[-5:])
         print(json.dumps(dict(
             arch=args.arch, lr=lr, steps=args.steps, batch=args.batch, seq=args.seq_len,
-            losses=tr.losses, first5_mean=first, last5_mean=last, drop=first - last,
-            median_step_s=statistics.median(tr.step_times),
+            losses=tr.losses, first5_mean=first, last5_mean=last,
+            drop=first - last, median_step_s=statistics.median(tr.step_times),
             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
         )), flush=True)
     return 0

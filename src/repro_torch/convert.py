@@ -237,7 +237,8 @@ def _lm_t(a, device: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Transformer:
     """The reference's LM params pytree as numpy arrays (``embed.tok`` and
     ``embed.unembed``, ``final_norm``, and ``layers.*`` stacked with a leading
-    layer axis; jamba's period leaves with a sub-block axis after it) → the
+    layer axis; jamba's period leaves with a sub-block axis after it;
+    whisper's ``enc_layers.*``, ``enc_norm`` and ``dec_layers.*``) → the
     port's :class:`Transformer`, its layers unstacked. The weights keep their
     (in, out) orientation: both packages compute h @ W, and no weight goes
     into an ``nn.Linear`` (which would want Wᵀ). bf16 weights stay bf16, bit

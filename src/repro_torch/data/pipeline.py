@@ -1,11 +1,14 @@
 """Deterministic synthetic data — twin of ``repro/data/pipeline.py``'s LM token
-batches, regression datasets and learning-curve grids.
+batches, regression datasets, learning-curve grids and molecule fingerprints.
 
-``regression_dataset`` and ``grid_curves``: the reference is pure numpy up to
-its final ``jnp.asarray``, so these return the bit-identical arrays, as numpy
-arrays; callers move them to a device. ``token_batch``: the same planted bigram
+``regression_dataset``, ``grid_curves`` and ``molecule_fingerprints``: the
+reference is pure numpy up to its final ``jnp.asarray``, so these compute the
+bit-identical arrays, the first two as numpy arrays (callers move them to a
+device), the fingerprints as tensors on the requested device. ``token_batch``: the same planted bigram
 chain, drawn from a ``torch.Generator`` (so not the reference's tokens: the
-parity tests hand both packages the same tokens instead).
+parity tests hand both packages the same tokens instead); ``lm_batch`` adds
+the stub frontends' inputs (``stub_inputs``), which the reference's launchers
+do not give.
 """
 from __future__ import annotations
 
@@ -35,6 +38,31 @@ def token_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int, *,
         chain.append(cur)
     tokens = torch.stack(chain, dim=1).to(resolve_device(device))  # (batch, seq_len + 1)
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def stub_inputs(cfg, seed: int, step: int, batch: int, *, device: DeviceLike = None) -> dict:
+    """The stub frontends' inputs of batch ``step``, a pure function of (seed,
+    step) drawn with numpy: whisper's frame embeddings "frames" (batch,
+    encoder_seq, d_model), unit normal; qwen2-vl's patch embeddings
+    "vision_embeds" (batch, vision_tokens, d_model) at the token embeddings'
+    scale, 0.02. Empty for the other families."""
+    rng = np.random.default_rng([seed, step])
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model), np.float32)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = 0.02 * rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model), np.float32)
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def lm_batch(cfg, seed: int, step: int, batch: int, seq_len: int, *,
+             device: DeviceLike = None) -> dict:
+    """Train batch ``step`` of ``cfg``: ``token_batch``'s tokens and labels and
+    the family's ``stub_inputs``, all a pure function of (seed, step)."""
+    return dict(token_batch(seed, step, batch, seq_len, cfg.vocab_size, device=device),
+                **stub_inputs(cfg, seed, step, batch, device=device))
 
 # name → (n, d) matching the paper's Table 3.1/4.1 datasets (synthetic stand-ins)
 UCI_SHAPES = {
@@ -103,3 +131,27 @@ def grid_curves(n_configs: int = 64, n_steps: int = 50, density: float = 0.7,
     x1 = rng.normal(size=(n_configs, 4)).astype(np.float32)  # config features
     x2 = np.log(t)[:, None].astype(np.float32)  # step feature
     return {"curves": curves.astype(np.float32), "mask": mask, "grid1": x1, "grid2": x2}
+
+
+def molecule_fingerprints(n: int = 4096, dim: int = 1024, seed: int = 0, n_test: int = 512,
+                          *, device: DeviceLike = None) -> dict:
+    """Sparse count fingerprints (counts in {0, 1, 2}) and synthetic binding
+    scores that depend on the presence of 8 random bit motifs, so that
+    Tanimoto similarity is the right inductive bias (Ch. 4 §4.3.3); scores
+    clipped at their 95% quantile and standardised on the training rows.
+    Returns float32 tensors on ``device``: "x" (n, dim), "y" (n,), "x_test"
+    (n_test, dim), "y_test" (n_test,)."""
+    rng = np.random.default_rng(seed)
+    ntot = n + n_test
+    x = (rng.random((ntot, dim)) < 0.05).astype(np.float32)
+    x += (rng.random((ntot, dim)) < 0.01).astype(np.float32)
+    motifs = (rng.random((8, dim)) < 0.08).astype(np.float32)
+    wm = rng.normal(size=8)
+    overlap = (x @ motifs.T) / (motifs.sum(1, keepdims=True).T + 1e-9)
+    y = overlap @ wm + 0.05 * rng.normal(size=ntot)
+    y = np.minimum(y, np.quantile(y, 0.95))
+    mu, sd = y[:n].mean(), y[:n].std() + 1e-12
+    y = ((y - mu) / sd).astype(np.float32)
+    dev = resolve_device(device)
+    return {"x": torch.from_numpy(x[:n]).to(dev), "y": torch.from_numpy(y[:n]).to(dev),
+            "x_test": torch.from_numpy(x[n:]).to(dev), "y_test": torch.from_numpy(y[n:]).to(dev)}

@@ -4,14 +4,18 @@
     python -m repro_torch.launch.serve --arch llama3-8b              # on the card
     python -m repro_torch.launch.serve --arch olmo-1b --reduced --device cpu
     python -m repro_torch.launch.serve --arch mamba2-130m                # on the card
+    python -m repro_torch.launch.serve --arch whisper-tiny --reduced --device cpu
 
 Weights are random, drawn from ``--seed`` as the reference's launcher draws
-them: the repository holds no checkpoint.
+them: the repository holds no checkpoint. whisper's stub frames and
+qwen2-vl's stub patch embeddings are ones, as the reference's launcher gives
+them.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -28,10 +32,12 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.no_grad()
-def generate(cfg, model, tokens: torch.Tensor, max_len: int, gen: int, *,
-             backend: str = "auto"):
-    """Prefill the prompt ``tokens`` (b, prompt_len), then greedy-decode ``gen``
-    tokens into a cache of ``max_len`` positions.
+def generate(cfg, model, tokens: torch.Tensor, max_len: int, gen: int,
+             extra_inputs: Optional[dict] = None, *, backend: str = "auto"):
+    """Prefill the prompt ``tokens`` (b, prompt_len) with ``extra_inputs``
+    (whisper's ``frames``, qwen2-vl's ``vision_embeds``), then greedy-decode
+    ``gen`` tokens into a cache of ``max_len`` positions. Decode goes on from
+    position prompt_len, as the reference's does.
 
     Returns ``(tokens, timings)``: ``tokens`` is (b, gen) and ``timings`` has
     separate ``prefill_s`` and ``decode_s`` walls, each ended by a device
@@ -44,7 +50,7 @@ def generate(cfg, model, tokens: torch.Tensor, max_len: int, gen: int, *,
     serve_step = steps_lib.make_serve_step(cfg)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, cache, {"tokens": tokens})
+    logits, cache = prefill(model, cache, dict(extra_inputs or {}, tokens=tokens))
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
     t1 = time.perf_counter()
@@ -75,7 +81,14 @@ def main(argv=None):
     dev = resolve_device(args.device)
     model = model_lib.init_model_params(cfg, make_generator(args.seed, dev), device=dev)
     batch = token_batch(args.seed, 0, args.batch, args.prompt_len, cfg.vocab_size, device=dev)
-    toks, timings = generate(cfg, model, batch["tokens"], args.prompt_len + args.gen, args.gen)
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = torch.ones((args.batch, cfg.encoder_seq, cfg.d_model), device=dev)
+    if cfg.family == "vlm":
+        extra["vision_embeds"] = torch.ones((args.batch, cfg.vision_tokens, cfg.d_model),
+                                            device=dev)
+    toks, timings = generate(cfg, model, batch["tokens"], args.prompt_len + args.gen, args.gen,
+                             extra)
     dt = timings["prefill_s"] + timings["decode_s"]
     # the decode phase emits gen - 1 tokens a row (prefill's argmax gives the
     # first); a short decode can finish inside timer resolution

@@ -57,7 +57,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=COMPUTE_DTYPE) -> di
 
 def _next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy. logits (b, s, v) fp32, labels (b, s)."""
+    """Mean next-token cross-entropy. logits (b, s, v) fp32, labels (b, s):
+    one logit row a label (a qwen2-vl prompt shorter than ``vision_tokens``
+    comes out ``vision_tokens`` long, and has none for some)."""
+    if logits.shape[:-1] != labels.shape:
+        raise ValueError(f"{cfg.name}: logits {tuple(logits.shape)} do not match labels "
+                         f"{tuple(labels.shape)}")
     lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - lmax
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
@@ -71,8 +76,10 @@ def _next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
 def loss_and_grads(cfg: ModelConfig, model, batch: dict, *, micro_steps: int = 1,
                    backend: str = "auto") -> tuple[torch.Tensor, list]:
     """The train step's loss and its gradients, one per tensor of
-    ``train.optim.leaves(model)``. With ``micro_steps`` > 1 the batch is cut
-    into that many equal slices along its first axis, and their losses and
+    ``train.optim.leaves(model)``. ``batch`` holds ``tokens``, ``labels`` and
+    the stub inputs (whisper's ``frames``, qwen2-vl's ``vision_embeds``).
+    With ``micro_steps`` > 1 every input is cut into that many equal slices
+    along its batch axis, and their losses and
     gradients summed in an fp32 accumulator, then divided by ``micro_steps``,
     as the reference's ``lax.scan`` does. ``backend`` routes the attention
     (``ops.flash_attention``)."""
@@ -117,8 +124,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     at the cost of holding one fp32 gradient accumulator. The step updates
     ``model`` and ``opt``'s moments in place and returns them with
     ``{"loss", "step"}`` (device tensors)."""
-    model_lib.check_ported(cfg)
-
     def train_step(model, opt: OptState, batch: dict):
         with record_function("train_step/forward_backward"):
             loss, grads = loss_and_grads(cfg, model, batch, micro_steps=micro_steps,
@@ -131,7 +136,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
 
 
 def make_prefill_step(cfg: ModelConfig, *, backend: str = "auto"):
-    """``backend`` routes the prompt's attention (``ops.flash_attention``)."""
+    """``batch`` holds ``tokens`` and the stub inputs (``frames``,
+    ``vision_embeds``); ``backend`` routes the prompt's attention
+    (``ops.flash_attention``)."""
 
     def prefill_step(model, cache: dict, batch: dict):
         return model_lib.prefill(cfg, model, batch, cache, backend=backend)

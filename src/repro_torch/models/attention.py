@@ -1,13 +1,19 @@
-"""GQA attention (llama family) — twin of the GQA part of
-``repro/models/attention.py``, in modes train (full causal), prefill (causal,
-fills the KV cache) and decode (one token against the cache).
+"""Attention mixers — twin of ``repro/models/attention.py``: GQA (llama
+family; whisper's encoder, decoder and cross-attention; qwen2-vl with M-RoPE)
+and MLA (deepseek-v2), in modes train (full causal, or full for whisper's
+encoder), prefill (causal, fills the KV cache) and decode (one token against
+the cache).
 
-Train and prefill attend through ``kernels.ops.flash_attention``: on the card
-the hand-written flash kernel (``csrc/flash_attention.cu``), the TPU runtime
-path the reference's ``_sdpa`` describes itself as equal to. Decode attends one
-query row to a cache masked by ``kv_len``, which the kernel does not compute
-(it takes equal query and key lengths), so it stays the plain product
-``_sdpa``, as it is in the reference.
+GQA's train and prefill attend through ``kernels.ops.flash_attention``: on
+the card the hand-written flash kernel (``csrc/flash_attention.cu``), the TPU
+runtime path the reference's ``_sdpa`` describes itself as equal to. Decode
+attends one query row to a cache masked by ``kv_len``, and cross-attention
+the decoder's rows to the encoder's memory, of another length: the kernel
+computes neither (it takes equal query and key lengths, as the reference's
+Pallas kernel does), so both stay the plain product ``_sdpa``, as they are in
+the reference. Cross-attention takes no rotary and is never cached or masked:
+decode recomputes its keys and values from the memory every step, as the
+reference does.
 
 The cache is written in place (the reference returns an updated copy): a
 serving cache is the largest buffer after the weights, and nothing reads the
@@ -18,8 +24,7 @@ MLA (deepseek-v2) is the reference's plain product in every mode: its q·k
 heads are 192 wide and its v heads 128, and the flash kernel takes one head
 width. It caches the 512-d latent c_kv and the shared rope key only; decode
 up-projects the cached latents every step (the reference's baseline), or,
-with ``cfg.mla_absorb``, attends in latent space. Cross-attention and M-RoPE
-are not ported: ROADMAP queue 1 item 14.
+with ``cfg.mla_absorb``, attends in latent space.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope, at_least_fp32, matmul
+from .layers import apply_mrope, apply_rope, at_least_fp32, matmul
 from .param import P
 
 #: the reference's mask value; −inf would make a fully masked row's max − max NaN
@@ -37,20 +42,23 @@ _NEG = -1e30
 _Q_CHUNK = 512
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kv_len: int) -> torch.Tensor:
-    """The plain attention product of decode, the reference's ``_sdpa`` with
-    ``causal=False``: q (b, sq, h, dh) against the cache k, v (b, sk, hkv, dh),
-    h % hkv == 0, entries from ``kv_len`` on masked; fp32 softmax. (The
-    reference's causal mode and its 512-row query blocks serve train and
-    prefill, which the port sends to ``ops.flash_attention``.) A bf16 q
-    against an fp32 cache is promoted, as the reference's einsum promotes it.
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          kv_len: Optional[int] = None) -> torch.Tensor:
+    """The plain attention product of decode and of cross-attention, the
+    reference's ``_sdpa`` with ``causal=False``: q (b, sq, h, dh) against k, v
+    (b, sk, hkv, dh), h % hkv == 0, keys from ``kv_len`` on masked (none
+    without it); fp32 softmax. (The reference's causal mode and its 512-row
+    query blocks serve train and prefill, which the port sends to
+    ``ops.flash_attention``.) A bf16 q against an fp32 cache is promoted, as
+    the reference's einsum promotes it.
     """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
     qg = q.reshape(b, sq, hkv, h // hkv, dh).to(dt)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(dt)).float() * (dh ** -0.5)
-    logits = torch.where(torch.arange(sk, device=q.device) < kv_len, logits, _NEG)
+    if kv_len is not None:
+        logits = torch.where(torch.arange(sk, device=q.device) < kv_len, logits, _NEG)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
     return out.reshape(b, sq, h, dh)
@@ -89,23 +97,45 @@ def gqa_make_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _mrope_sections(cfg) -> tuple:
+    """M-RoPE's (t, h, w) frequency slots: a quarter of head_dim/2 for time,
+    the rest split between height and width ((16, 24, 24) at head_dim 128)."""
+    half = cfg.head_dim // 2
+    t = half // 4
+    hw = (half - t) // 2
+    return (t, hw, half - t - hw)
+
+
 def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
               cache: Optional[dict] = None, cache_index: Optional[int] = None, *,
+              cross_kv: Optional[tuple] = None, causal: bool = True,
               backend: str = "auto"):
-    """One GQA mixer. h: (b, s, d); positions: (b, s). Returns (out, cache):
-    prefill writes the prompt's keys and values at 0, decode its one token's
-    at ``cache_index`` and attends to the first ``cache_index + 1`` entries.
-    ``backend`` picks ``ops.flash_attention``'s route for train and prefill."""
-    if cfg.use_mrope:
-        raise NotImplementedError(f"M-RoPE ({cfg.name}) is not ported yet: ROADMAP queue 1 "
-                                  f"item 14")
+    """One GQA mixer. h: (b, s, d); positions: (b, s), or (3, b, s) with
+    M-RoPE. Returns (out, cache): prefill writes the prompt's keys and values
+    at 0, decode its one token's at ``cache_index`` and attends to the first
+    ``cache_index + 1`` entries. ``causal=False`` (whisper's encoder) makes
+    train mode attend to every key. ``cross_kv=(memory,)`` is
+    cross-attention (whisper's decoder): keys and values from ``memory`` (b,
+    sk, d), no rotary, no cache and no mask, in every mode. ``backend`` picks
+    ``ops.flash_attention``'s route for train and prefill."""
     b, s, _ = h.shape
     nh, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(matmul(h, p["wq"]).reshape(b, s, nh, dh), positions, cfg.rope_theta)
-    k = apply_rope(matmul(h, p["wk"]).reshape(b, s, kv, dh), positions, cfg.rope_theta)
-    v = matmul(h, p["wv"]).reshape(b, s, kv, dh)
+    src = h if cross_kv is None else cross_kv[0]
+    q = matmul(h, p["wq"]).reshape(b, s, nh, dh)
+    k = matmul(src, p["wk"]).reshape(b, src.shape[1], kv, dh)
+    v = matmul(src, p["wv"]).reshape(b, src.shape[1], kv, dh)
+    if cross_kv is not None:
+        return matmul(_sdpa(q, k, v).reshape(b, s, nh * dh), p["wo"]), cache
+    if cfg.use_mrope:
+        sections = _mrope_sections(cfg)
+        q = apply_mrope(q, positions, cfg.rope_theta, sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if mode in ("train", "prefill"):
-        out = ops.flash_attention(q, k, v, causal=True, backend=backend)
+        out = ops.flash_attention(q, k, v, causal=causal if mode == "train" else True,
+                                  backend=backend)
         if mode == "prefill":
             cache["k"][:, :s] = k
             cache["v"][:, :s] = v

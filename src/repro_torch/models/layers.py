@@ -1,5 +1,5 @@
 """Common layers — twin of ``repro/models/layers.py``: RMSNorm (parametric and
-OLMo's non-parametric), RoPE, the SwiGLU MLP, embeddings. Plain functions over
+OLMo's non-parametric), RoPE and qwen2-vl's M-RoPE, the SwiGLU MLP, embeddings. Plain functions over
 dicts of tensors (a ``ParameterDict`` serves), schemas declared with ``P``.
 
 Each keeps the reference's dtypes at every cast point: RMSNorm and RoPE work
@@ -54,15 +54,36 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (b, s, h, d); positions: (b, s) ints. Split halves (x₁, x₂), not
-    interleaved pairs; the angle is fp32 position × frequency."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (d/2,)
-    ang = positions[..., None].float() * freqs  # (b, s, d/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (b, s, h, d) rotated by the fp32 angles ang (b, s, d/2): split halves
+    (x₁, x₂), not interleaved pairs, in fp32, back in x's dtype."""
     cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]  # (b,s,1,d/2)
     x1, x2 = at_least_fp32(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (b, s, h, d); positions: (b, s) ints. The angle is fp32 position ×
+    frequency."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (d/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): positions3 (3, b, s), the (t, h, w) streams; the
+    d/2 frequency slots are split into ``sections``, and each slot takes its
+    angle from its section's stream. Text tokens carry three identical
+    streams, where this is :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))  # (half,)
+    pos = positions3[sec_id]  # (half, b, s): each slot's stream
+    return _rotate(x, pos.movedim(0, -1).float() * freqs)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,20 @@
-"""Model assembly — twin of ``repro/models/model.py`` for the decoder plans:
-the uniform stacks (the dense decoders, the MoE decoders dbrx and
-deepseek-v2 with its MLA mixer, the attention-free mamba2) and jamba's
-8-layer period. Three entry points:
+"""Model assembly — twin of ``repro/models/model.py``: the uniform decoder
+stacks (the dense decoders, qwen2-vl with its M-RoPE positions and stub
+vision embeddings, the MoE decoders dbrx and deepseek-v2 with its MLA mixer,
+the attention-free mamba2), jamba's 8-layer period and whisper's
+encoder-decoder over stub frame embeddings. Three entry points:
 
     forward_train(cfg, model, inputs)            → logits (b, s, v)
     prefill(cfg, model, inputs, cache)           → (last logits, filled cache)
     decode_step(cfg, model, token, cache, index) → (logits, updated cache)
 
 ``model`` is a :class:`Transformer`: the reference's params pytree as an
-``nn.Module``, its layer stack an ``nn.ModuleList`` of :class:`Block` (or, for
-jamba, :class:`Period`) walked by a Python loop where the reference scans.
-The cache has the reference's keys (``attn``; ``mamba``; MLA's ``ckv`` and
-``krope``), a list a layer (a period's mamba caches a list of 7) where the
-reference stacks, its buffers written in place.
-
-``param_schema``/``count_params``/``active_param_count`` cover all ten
-configs (they allocate nothing); building a model, or a cache, for the
-encoder-decoder (whisper) or the M-RoPE (qwen2-vl) configs raises: ROADMAP
-queue 1 item 14.
+``nn.Module``, each layer stack an ``nn.ModuleList`` of :class:`Block` (or, for
+jamba, :class:`Period`) walked by a Python loop where the reference scans;
+whisper has two, ``enc_layers`` and ``dec_layers``. The cache has the
+reference's keys (``attn``; ``mamba``; MLA's ``ckv`` and ``krope``; whisper's
+``self`` and ``memory``), a list a layer (a period's mamba caches a list of
+7) where the reference stacks, its buffers written in place.
 """
 from __future__ import annotations
 
@@ -36,13 +33,10 @@ from .layers import embed, embed_params, mlp, mlp_params, rmsnorm, rmsnorm_param
 from .param import init_params, leaves, param_count, stack_schema, tree_map
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the families whose modules are not ported yet."""
-    if cfg.is_encdec or cfg.use_mrope:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported yet: whisper's "
-            f"encoder-decoder and qwen2-vl's M-RoPE are ROADMAP queue 1 item 14"
-        )
+#: the params tree's stacked layer groups (leading layer dim)
+STACKS = ("layers", "enc_layers", "dec_layers")
+#: a block's keys, in the order of its forward
+BLOCK_KEYS = ("norm1", "mixer", "norm_x", "cross", "norm2", "mlp")
 
 
 # --------------------------------------------------------------- schemas -----
@@ -94,7 +88,8 @@ def _period_schema(cfg: ModelConfig):
 def param_schema(cfg: ModelConfig):
     """The reference's params pytree as ``P`` leaves: ``embed``, ``final_norm``
     and the stacked ``layers`` (leading layer dim; jamba's period stacks a
-    sub-block dim after it)."""
+    sub-block dim after it), or for whisper ``enc_layers``, ``enc_norm`` and
+    ``dec_layers`` (its blocks with ``norm_x`` and ``cross``)."""
     plan = _layer_plan(cfg)
     sch: dict[str, Any] = {"embed": embed_params(cfg), "final_norm": rmsnorm_params(cfg)}
     if plan["kind"] == "uniform":
@@ -139,14 +134,15 @@ def _parameters(tree: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer's params: pre-norm mixer (GQA, MLA or Mamba2:
-    ``norm1``, ``mixer``), then, unless it is a mamba block, the pre-norm MLP
-    (dense or MoE: ``norm2``, ``mlp``); or one of jamba's stand-alone MLPs
-    (``norm2``, ``mlp``)."""
+    """One layer's params: pre-norm mixer (GQA, MLA or Mamba2: ``norm1``,
+    ``mixer``), for a whisper decoder layer pre-norm cross-attention
+    (``norm_x``, ``cross``), then, unless it is a mamba block, the pre-norm
+    MLP (dense or MoE: ``norm2``, ``mlp``); or one of jamba's stand-alone
+    MLPs (``norm2``, ``mlp``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        for k in sorted(tree, key=("norm1", "mixer", "norm2", "mlp").index):
+        for k in sorted(tree, key=BLOCK_KEYS.index):
             setattr(self, k, _parameters(tree[k]))
 
 
@@ -164,25 +160,35 @@ class Period(nn.Module):
                 Block(tree_map(lambda t, j=j: t[j], tree[k])) for j in range(n)))
 
 
+def _stack(tree: dict, n: int, layer=Block) -> nn.ModuleList:
+    """``n`` layers over the slices of a stacked params tree."""
+    return nn.ModuleList(layer(tree_map(lambda t, i=i: t[i], tree)) for i in range(n))
+
+
 class Transformer(nn.Module):
-    """The decoder over a params tree in the reference's layout
+    """The model over a params tree in the reference's layout
     (``param_schema``). Layer ``i``'s parameters (period ``i``'s, and its
     sub-block ``j``'s) are views of slice ``i`` (``[i, j]``) of the stacked
     tensors, so building the module copies nothing."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        check_ported(cfg)
         super().__init__()
         self.cfg = cfg
         self.embed = _parameters(tree["embed"])
         self.final_norm = _parameters(tree["final_norm"])
+        if cfg.is_encdec:
+            self.enc_layers = _stack(tree["enc_layers"], cfg.encoder_layers)
+            self.enc_norm = _parameters(tree["enc_norm"])
+            self.dec_layers = _stack(tree["dec_layers"], cfg.num_layers)
+            return
         plan = _layer_plan(cfg)
-        layer = Block if plan["kind"] == "uniform" else Period
-        self.layers = nn.ModuleList(
-            layer(tree_map(lambda t, i=i: t[i], tree["layers"])) for i in range(plan["n"]))
+        self.layers = _stack(tree["layers"], plan["n"],
+                             Block if plan["kind"] == "uniform" else Period)
 
-    def forward(self, tokens: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
-        return forward_train(self.cfg, self, {"tokens": tokens}, backend=backend)
+    def forward(self, tokens: torch.Tensor, *, backend: str = "auto", **inputs) -> torch.Tensor:
+        """``forward_train`` on ``tokens`` and the stub inputs (``frames``,
+        ``vision_embeds``)."""
+        return forward_train(self.cfg, self, {"tokens": tokens, **inputs}, backend=backend)
 
 
 def _slices(node, parts: list) -> list:
@@ -219,7 +225,7 @@ def leaf_tree(model: Transformer, flat: list) -> dict:
         if isinstance(schema, dict):
             return {k: build(schema[k], path + (k,)) for k in sorted(schema)}
         parts = [next(it) for _ in _slices(model, list(path))]
-        return torch.stack(parts).reshape(schema.shape) if path[0] == "layers" else parts[0]
+        return torch.stack(parts).reshape(schema.shape) if path[0] in STACKS else parts[0]
 
     return build(param_schema(model.cfg), ())
 
@@ -228,7 +234,6 @@ def init_model_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.
                       device: DeviceLike = None) -> Transformer:
     """A :class:`Transformer` with weights drawn from ``generator`` (on
     ``device``) at the reference's scales."""
-    check_ported(cfg)
     return Transformer(cfg, init_params(param_schema(cfg), generator, dtype, device))
 
 
@@ -258,8 +263,9 @@ def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     """The reference's cache keys, a buffer dict a layer: ``{"attn": [...]}``
     (GQA's ``k``, ``v``, each (batch, max_len, kv, dh); MLA's ``ckv``,
     ``krope``), ``{"mamba": [...]}`` (``conv`` in ``dtype``, the ``ssm``
-    state fp32), or for jamba both, ``"mamba"`` a list of per − 1 a period."""
-    check_ported(cfg)
+    state fp32), or for jamba both, ``"mamba"`` a list of per − 1 a period;
+    for whisper ``{"self": [...], "memory": (batch, encoder_seq, d_model)}``,
+    the decoder's self-attention buffers and the encoder's output."""
     dev = resolve_device(device)
     plan = _layer_plan(cfg)
 
@@ -270,6 +276,10 @@ def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     def mamba():
         return ssm.mamba_make_cache(cfg, batch, dtype, dev)
 
+    if cfg.is_encdec:
+        return {"self": [attn() for _ in range(cfg.num_layers)],
+                "memory": torch.zeros((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                                      device=dev)}
     if plan["kind"] == "period":
         return {"attn": [attn() for _ in range(plan["n"])],
                 "mamba": [[mamba() for _ in range(plan["period"] - 1)]
@@ -283,7 +293,9 @@ def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
 
 
 def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, mixer: str,
-                 mlp_kind: str, *, backend="auto"):
+                 mlp_kind: str, *, cross_mem=None, causal=True, backend="auto"):
+    """One block: the mixer (``causal=False``: whisper's encoder), then with
+    ``cross_mem`` cross-attention to it, then the MLP."""
     x = rmsnorm(p.norm1, h, cfg.norm_eps)
     if mixer == "mamba":
         mixed, new_cache = ssm.mamba_apply(p.mixer, cfg, x, mode, cache, cache_index)
@@ -291,8 +303,12 @@ def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, mixer: s
         mixed, new_cache = mla_apply(p.mixer, cfg, x, positions, mode, cache, cache_index)
     else:
         mixed, new_cache = gqa_apply(p.mixer, cfg, x, positions, mode, cache, cache_index,
-                                     backend=backend)
+                                     causal=causal, backend=backend)
     h = h + mixed
+    if cross_mem is not None:
+        xattn, _ = gqa_apply(p.cross, cfg, rmsnorm(p.norm_x, h, cfg.norm_eps), positions,
+                             mode, cross_kv=(cross_mem,))
+        h = h + xattn
     return _apply_mlp(p, cfg, h, mlp_kind), new_cache
 
 
@@ -326,9 +342,23 @@ def _apply_period(p: Period, cfg, h, positions, mode, cache, cache_index, backen
 
 def _positions_for(cfg: ModelConfig, batch: int, seq: int, offset: int,
                    device: Optional[torch.device] = None) -> torch.Tensor:
-    """(batch, seq) positions offset + 0 … seq − 1 (no M-RoPE)."""
-    pos = offset + torch.arange(seq, device=device)
-    return pos[None].expand(batch, seq)
+    """(batch, seq) positions offset + 0 … seq − 1; with M-RoPE (3, batch,
+    seq): the same positions in the (t, h, w) streams, except that a sequence
+    of at least ``vision_tokens`` has the stub vision region's
+    side × side grid (side = ⌊√vision_tokens⌋) in the h and w streams of its
+    first ``vision_tokens`` positions. Text after the grid is not shifted
+    past it (the reference's simplification of Qwen2-VL)."""
+    pos = (offset + torch.arange(seq, device=device))[None].expand(batch, seq)
+    if not cfg.use_mrope:
+        return pos
+    vt = cfg.vision_tokens
+    side = max(int(vt ** 0.5), 1)
+    th, tw = pos.clone(), pos.clone()
+    if vt and seq >= vt:
+        grid = torch.arange(vt, device=device)
+        th[:, :vt] = grid // side
+        tw[:, :vt] = grid % side
+    return torch.stack([pos, th, tw])
 
 
 def _trunk(cfg, model, h, positions, mode, cache, cache_index, backend):
@@ -347,31 +377,84 @@ def _trunk(cfg, model, h, positions, mode, cache, cache_index, backend):
     return h, cache
 
 
+def _encode(cfg, model, frames: torch.Tensor, backend: str) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings (b, encoder_seq, d): its
+    layers in train mode with full (non-causal) self-attention, then
+    ``enc_norm``."""
+    b, s, _ = frames.shape
+    pos = torch.arange(s, device=frames.device)[None].expand(b, s)
+    h = frames
+    for blk in model.enc_layers:
+        h, _ = _apply_block(blk, cfg, h, pos, "train", None, None, "attn", "dense",
+                            causal=False, backend=backend)
+    return rmsnorm(model.enc_norm, h, cfg.norm_eps)
+
+
+def _decode_trunk(cfg, model, h, positions, mode, cache, cache_index, memory, backend):
+    """whisper's decoder stack: cached self-attention, cross-attention to
+    ``memory``."""
+    for i, blk in enumerate(model.dec_layers):
+        h, _ = _apply_block(blk, cfg, h, positions, mode,
+                            None if cache is None else cache["self"][i], cache_index,
+                            "attn", "dense", cross_mem=memory, backend=backend)
+    return h, cache
+
+
+def _inputs_to_h(cfg, model, inputs: dict, mode: str) -> torch.Tensor:
+    """The token embeddings; for qwen2-vl outside decode, the stub vision
+    embeddings (b, vision_tokens, d) in place of the first ``vision_tokens``
+    positions. A prompt shorter than that comes out ``vision_tokens`` long,
+    as in the reference."""
+    h = embed(model.embed, inputs["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in inputs and mode != "decode":
+        vt = cfg.vision_tokens
+        h = torch.cat([inputs["vision_embeds"].to(h.dtype), h[:, vt:]], dim=1)
+    return h
+
+
+def _prompt(cfg, model, inputs: dict, mode: str, cache, backend: str):
+    """The trunk over a whole prompt (train or prefill): the stack over the
+    embedded inputs; or whisper's encoder, then its decoder, the memory
+    stored in the cache in the cache's dtype."""
+    if not cfg.is_encdec:
+        h = _inputs_to_h(cfg, model, inputs, mode)
+        pos = _positions_for(cfg, h.shape[0], h.shape[1], 0, h.device)
+        return _trunk(cfg, model, h, pos, mode, cache, None, backend)
+    memory = _encode(cfg, model, inputs["frames"], backend)
+    h = embed(model.embed, inputs["tokens"])
+    pos = _positions_for(cfg, h.shape[0], h.shape[1], 0, h.device)
+    h, cache = _decode_trunk(cfg, model, h, pos, mode, cache, None, memory, backend)
+    if cache is not None:
+        cache["memory"] = memory.to(cache["memory"].dtype)
+    return h, cache
+
+
 def forward_train(cfg: ModelConfig, model: Transformer, inputs: dict, *,
                   backend: str = "auto") -> torch.Tensor:
-    """Full causal LM forward → logits (b, s, vocab)."""
-    h = embed(model.embed, inputs["tokens"])
-    b, s, _ = h.shape
-    pos = _positions_for(cfg, b, s, 0, h.device)
-    h, _ = _trunk(cfg, model, h, pos, "train", None, None, backend)
+    """Full causal LM forward → logits (b, s, vocab). ``inputs``: ``tokens``,
+    and whisper's ``frames`` or qwen2-vl's ``vision_embeds``."""
+    h, _ = _prompt(cfg, model, inputs, "train", None, backend)
     return unembed(model.embed, rmsnorm(model.final_norm, h, cfg.norm_eps))
 
 
 def prefill(cfg: ModelConfig, model: Transformer, inputs: dict, cache: dict, *,
             backend: str = "auto"):
     """Process the prompt, fill the cache, return last-position logits (b, 1, v)."""
-    h = embed(model.embed, inputs["tokens"])
-    b, s, _ = h.shape
-    pos = _positions_for(cfg, b, s, 0, h.device)
-    h, cache = _trunk(cfg, model, h, pos, "prefill", cache, None, backend)
+    h, cache = _prompt(cfg, model, inputs, "prefill", cache, backend)
     h = rmsnorm(model.final_norm, h[:, -1:], cfg.norm_eps)
     return unembed(model.embed, h), cache
 
 
 def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor, cache: dict,
                 cache_index: int):
-    """One token (b, 1) against the cache at position ``cache_index``."""
+    """One token (b, 1) against the cache at position ``cache_index``;
+    whisper's cross-attention recomputes its keys and values from the cached
+    memory."""
     h = embed(model.embed, token)
     pos = _positions_for(cfg, token.shape[0], 1, cache_index, h.device)
-    h, cache = _trunk(cfg, model, h, pos, "decode", cache, cache_index, "auto")
+    if cfg.is_encdec:
+        h, cache = _decode_trunk(cfg, model, h, pos, "decode", cache, cache_index,
+                                 cache["memory"], "auto")
+    else:
+        h, cache = _trunk(cfg, model, h, pos, "decode", cache, cache_index, "auto")
     return unembed(model.embed, rmsnorm(model.final_norm, h, cfg.norm_eps)), cache

@@ -1334,7 +1334,7 @@ def _flash_layers(cfg) -> int:
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_layer_period
-    return cfg.num_layers
+    return cfg.num_layers + cfg.encoder_layers
 
 
 @pytest.mark.gpu
@@ -1429,3 +1429,60 @@ def test_ssd_on_card_matches_sequential_with_a_finite_gradient(card):
     torch.testing.assert_close(state.detach(), state_seq, rtol=2e-3, atol=2e-3)
     (g,) = torch.autograd.grad(y.sum(), dt)
     assert torch.isfinite(g).all()
+
+
+@pytest.mark.gpu
+def test_flash_kernel_non_causal_at_whispers_encoder_shape_on_card(card):
+    """whisper-tiny's encoder self-attention: 4 × 1,500 frames, 6 heads of
+    64, every key visible (the last of 24 query blocks ragged)."""
+    q, k, v = (_normal(seed, 4, 1500, 6, 64) for seed in (1, 2, 3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    err, scale = _max_err(out, flash_attention_ref(q.double(), k.double(), v.double(),
+                                                   causal=False))
+    assert err <= FLASH_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
+def test_encdec_and_vlm_on_card_match_the_cpu(card, arch):
+    """Reduced whisper (2 encoder layers over 64 frames, 2 decoder layers)
+    and reduced qwen2-vl (2 layers, 16 vision tokens) on the card against
+    the same weights and stub inputs on the CPU: prefill's logits within
+    1e-4 of scale, with one flash launch an encoder or a decoder layer
+    (none for cross-attention), and greedy generate's tokens equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import init_params, tree_map
+
+    cfg = get_config(arch).reduced(num_layers=2)
+    tree = init_params(model_lib.param_schema(cfg), torch.Generator().manual_seed(0),
+                       device="cpu")
+    models = {"cpu": model_lib.Transformer(cfg, tree),
+              "cuda": model_lib.Transformer(cfg, tree_map(lambda t: t.cuda(), tree))}
+    inputs = {"tokens": token_batch(0, 0, 2, 32, cfg.vocab_size, device="cpu")["tokens"]}
+    rng = np.random.default_rng(1)
+    if cfg.is_encdec:
+        inputs["frames"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        inputs["vision_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev, model in models.items():
+        ins = {k: v.to(dev) for k, v in inputs.items()}
+        before = flash_attention.launches
+        with torch.no_grad():
+            logits, _ = model_lib.prefill(cfg, model, ins,
+                                          model_lib.zero_cache(cfg, 2, 40, device=dev))
+        if dev == "cuda":
+            assert flash_attention.launches - before == _flash_layers(cfg)
+        extra = {k: v for k, v in ins.items() if k != "tokens"}
+        toks, _ = generate(cfg, model, ins["tokens"], 40, 8, extra)
+        out[dev] = logits.cpu(), toks.cpu()
+    (lc, tc), (lg, tg) = out["cpu"], out["cuda"]
+    assert (lg - lc).abs().max().item() <= 1e-4 * max(1.0, lc.abs().max().item())
+    assert torch.equal(tg, tc)

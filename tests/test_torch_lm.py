@@ -360,11 +360,3 @@ def test_token_batch_plants_the_bigram_chain():
     # the planted share is 0.8 (+ 1/1000 by chance); 2,048 transitions each
     assert abs(share - 0.8) < 0.04 and abs(jshare - 0.8) < 0.04
 
-
-@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tmodel.init_model_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tmodel.zero_cache(cfg, 1, 8, device="cpu")

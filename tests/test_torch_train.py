@@ -68,8 +68,6 @@ from repro_torch.train import (
 
 DENSE = [a for a in list_configs() if get_config(a).family == "dense"
          and not (get_config(a).is_moe or get_config(a).use_mla)]
-#: the families whose modules are not ported yet (ROADMAP queue 1 item 14)
-UNPORTED = ["qwen2-vl-7b", "whisper-tiny"]
 TINY = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, d_ff=128, head_dim=32,
             vocab_size=128)
 LOSS_RTOL, GRAD_TOL, MOMENT_TOL, PARAM_TOL, ILL_POSED = 1e-6, 1e-4, 1e-5, 1e-5, 100.0
@@ -174,15 +172,6 @@ def test_train_step_matches_the_reference(arch, overrides, micro_steps):
         assert np.all(dm <= _bf16_ulp(ref_m[k][ok])), k
         dp = np.abs(got_p[k] - ref_p[k])[ok]
         assert dp.max(initial=0.0) <= PARAM_TOL * np.abs(ref_p[k]).max(), k
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_non_dense_archs_raise_naming_item_14(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmodel.init_model_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 @pytest.mark.parametrize("arch", list_configs())
