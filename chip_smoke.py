@@ -879,7 +879,7 @@ def kernels_phase(torch) -> dict:
     flash_bf16_cases(torch, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "sfu_floor_ms", "tc_split_bound_ms")
+            "library_ms", "sfu_floor_ms", "tc_split_bound_ms", "tile_bound_ms")
     # each record's own numbers: the training path's shape for the kernels of
     # the first slices, SGD's for the row-panel and feature-pair kernels, the
     # Thompson ascent's for the RFF backward, LM serving's for flash attention.
@@ -896,8 +896,8 @@ def kernels_phase(torch) -> dict:
         line = paths[home[key]][key]
         rec[key].update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         library_ms=line.get("library_ms"),
-                        **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms")
-                           if k in line},
+                        **{k: line[k] for k in ("sfu_floor_ms", "tc_split_bound_ms",
+                                                "tile_bound_ms") if k in line},
                         by_path={p: _path_line(lines, key, keep)
                                  for p, lines in paths.items() if key in lines})
     # the rows matvec (SDD's entry of the row-panel source) under its record
@@ -1416,29 +1416,41 @@ def bf16_backward_cases(torch, x, xtr, rff_omega, gen, rec, paths) -> None:
 
 def flash_bf16_cases(torch, gen, rec, paths) -> None:
     """Flash attention on bf16 q, k and v (``csrc/flash_attention_bf16.cu``)
-    at FLASH_CASES' lm_serve and ragged shapes, against its bf16 plain
-    version (FLASH_BF16_TOL) and against the fp32 kernel on the same
-    bf16-valued inputs (FLASH_BF16_FP32_TOL), beside SDPA on the same bf16
-    tensors (``enable_gqa``, (b, h, s, d) copies made beforehand) as the
-    library's time. The bound counts the products at the bf16 tensor-core
-    rate and bf16 bytes; ``tc_split_bound_ms`` is the fp32 kernel's."""
+    at FLASH_CASES' lm_serve, ragged, ragged_full (non-causal) and d64
+    shapes, against its bf16 plain version (FLASH_BF16_TOL) and against the
+    fp32 kernel on the same bf16-valued inputs (FLASH_BF16_FP32_TOL), the
+    same bits on two launches, beside SDPA on the same bf16 tensors
+    (``enable_gqa``, (b, h, s, d) copies made beforehand) as the library's
+    time. The bound counts the products at the bf16 tensor-core rate and
+    bf16 bytes; the floors count the 128 × 128 tiles the kernel visits
+    (``_flash_floors``); ``items`` is its work items (128 query rows of a
+    batch × query head), ``ctas`` its persistent CTAs. The kernel's
+    registers, spills and shared memory from the build's ptxas log come on
+    a line of their own first."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import BLOCK, flash_attention
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention, query_blocks
     from repro_torch.kernels.ref import flash_attention_ref
 
     _bf16_record(rec, "flash_attention[bf16]", "flash_attention_bf16.cu",
                  "src/repro/kernels/flash_attention.py:72")
+    info = _build._INFO or _build.build()
+    emit("kernel_build", kernel="flash_attention[bf16]",
+         ptxas=[k for k in info.ptxas if "flash_attention_bf16_kernel" in k["name"]],
+         smem_bytes={d: flash_attention.smem_bytes(d, "bf16") for d in (64, 128)})
     dev = torch.device("cuda")
-    for label, b, s, hq, hkv, d, causal in FLASH_CASES[:2]:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, b, s, hq, hkv, d, causal in FLASH_CASES[:4]:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
                    for h in (hq, hkv, hkv))
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         fp32_bound, flops, nbytes = _flash_bound_ms(b, s, hq, hkv, d, causal)
-        floors = _flash_floors(b, s, hq, d, causal)
+        items = b * hq * query_blocks(s, "bf16")
+        out = flash_attention(q, k, v, causal=causal)
+        same_bits = bool(torch.equal(out, flash_attention(q, k, v, causal=causal)))
         line = _bf16_line(
-            torch, rec, "flash_attention[bf16]", label,
-            [flash_attention(q, k, v, causal=causal)],
+            torch, rec, "flash_attention[bf16]", label, [out],
             [flash_attention_ref(q, k, v, causal=causal)],
             [flash_attention(q.float(), k.float(), v.float(), causal=causal)],
             lambda: flash_attention(q, k, v, causal=causal),
@@ -1446,11 +1458,12 @@ def flash_bf16_cases(torch, gen, rec, paths) -> None:
             tol=FLASH_BF16_TOL, tol_fp32=FLASH_BF16_FP32_TOL,
             library_fn=lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True),
-            b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal, ctas=b * hq * -(-s // BLOCK),
-            smem_bytes=flash_attention.smem_bytes(d, "bf16"),
-            sfu_floor_ms=floors["sfu_floor_ms"], tc_split_bound_ms=floors["tc_split_bound_ms"],
+            b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal, items=items, ctas=min(items, sms),
+            same_bits=same_bits, smem_bytes=flash_attention.smem_bytes(d, "bf16"),
+            **_flash_floors(b, s, hq, d, causal, "bf16"),
             bound_fp32_ms=fp32_bound, bytes_ms=1e3 * (nbytes / 2) / PEAK_BYTES,
             **_bf16_bound(flops, 1, nbytes // 2))
+        check(same_bits, f"flash_attention[bf16] {label}: the same bits on two launches")
         if label == "lm_serve":
             paths["lm_serve_bf16"]["flash_attention[bf16]"] = line
 
@@ -1689,21 +1702,28 @@ def _flash_bound_ms(b, s, hq, hkv, d, causal):
     return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES), flops, nbytes
 
 
-def _flash_floors(b, s, hq, d, causal) -> dict:
-    """The flash kernel's own floors over the (row, key) pairs it computes:
-    64 × 64 a visited key tile (causal: tiles 0 to the CTA's own), an exp a
-    pair on the SFU (``sfu_floor_ms``), and 2 × 2d flops a pair in the
-    three-way TF32 split, 3 × that, at 495 TFLOP/s (``tc_split_bound_ms``),
-    where a diagonal tile's warp skips the n-tiles past its rows (2,560 of
-    its 4,096 pairs computed)."""
-    from repro_torch.kernels.flash_attention import BLOCK
+def _flash_floors(b, s, hq, d, causal, precision="fp32") -> dict:
+    """A flash kernel's own floors over the (row, key) pairs it computes:
+    BLOCKS[precision]² a visited key tile (causal: tiles 0 to the block's
+    own), an exp a pair on the SFU (``sfu_floor_ms``); for the fp32 kernel
+    2 × 2d flops a pair in the three-way TF32 split, 3 × that, at 495 TFLOP/s
+    (``tc_split_bound_ms``), where a diagonal tile's warp skips the n-tiles
+    past its rows (2,560 of its 4,096 pairs computed); for the bf16 kernel
+    2 × 2d flops a pair of every visited tile, whole, at the bf16
+    tensor-core rate (``tile_bound_ms``)."""
+    from repro_torch.kernels.flash_attention import BLOCKS
 
-    nq = -(-s // BLOCK)
+    block = BLOCKS[precision]
+    nq = -(-s // block)
     tiles = nq * (nq + 1) // 2 if causal else nq * nq
-    pairs = b * hq * tiles * BLOCK ** 2
-    mma_pairs = pairs - (b * hq * nq * (BLOCK ** 2 - 2560) if causal else 0)
-    return dict(sfu_floor_ms=1e3 * pairs / SFU_OPS_PER_S,
-                tc_split_bound_ms=1e3 * mma_pairs * 3 * 4 * d / PEAK_TF32_FLOPS)
+    pairs = b * hq * tiles * block ** 2
+    out = dict(sfu_floor_ms=1e3 * pairs / SFU_OPS_PER_S)
+    if precision == "bf16":
+        out.update(tile_bound_ms=1e3 * pairs * 4 * d / PEAK_BF16_FLOPS)
+    else:
+        mma_pairs = pairs - (b * hq * nq * (block ** 2 - 2560) if causal else 0)
+        out.update(tc_split_bound_ms=1e3 * mma_pairs * 3 * 4 * d / PEAK_TF32_FLOPS)
+    return out
 
 
 def flash_cases(torch, gen, rec, paths) -> None:
@@ -1718,7 +1738,7 @@ def flash_cases(torch, gen, rec, paths) -> None:
     qwen2-vl-7b's are the families' paths."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import BLOCK, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, query_blocks
     from repro_torch.kernels.ref import flash_attention_ref
 
     dev = torch.device("cuda")
@@ -1737,7 +1757,8 @@ def flash_cases(torch, gen, rec, paths) -> None:
         bound, flops, nbytes = _flash_bound_ms(b, s, hq, hkv, d, causal)
         line = dict(
             kernel="flash_attention", case=label, b=b, s=s, hq=hq, hkv=hkv, d=d,
-            causal=causal, ctas=b * hq * -(-s // BLOCK), max_abs_err=err, rel_err=err / scale,
+            causal=causal, ctas=b * hq * query_blocks(s, "fp32"), max_abs_err=err,
+            rel_err=err / scale,
             same_bits=bool(torch.equal(out, again)),
             tol=FLASH_TOL * scale, smem_bytes=flash_attention.smem_bytes(d),
             ms=_events_ms(torch, lambda: flash_attention(q, k, v, causal=causal), 20),
@@ -3744,12 +3765,13 @@ def _lm_profile(torch, cfg, model, inputs, toks, cache, suffix: str) -> None:
             wall = time.perf_counter() - t0
         by_name = _device_ms_by_kernel(prof)
         device_ms = sum(by_name.values())
+        flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         emit("lm_profile", window=window + suffix,
              decode_steps=PROFILE_DECODE_STEPS if window == "decode" else 0,
              wall_ms=wall * 1e3, device_ms=device_ms,
              idle_share=1.0 - device_ms / (wall * 1e3),
-             flash_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
+             flash_ms=flash_ms, flash_share=flash_ms / max(device_ms, 1e-9),
              top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
         check(0 < device_ms <= wall * 1e3, f"{window}{suffix}: device time within the wall time")
 

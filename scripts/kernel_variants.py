@@ -11,6 +11,14 @@ one card.
   with the port's nvcc flags (``kernels/_build.py``) into a library of its
   own and timed at ``chip_smoke.py``'s FLASH_CASES against the plain
   version in float64.
+- Flash attention on bf16 inputs (``--only flash_bf16``):
+  ``csrc/flash_attention_bf16.cu`` as committed, without the consumer
+  warpgroups' turns (``no_pingpong``), and without the mask (``no_mask``:
+  its output then wrong, its time what the rest costs), each at the first
+  four FLASH_CASES against the bf16 plain version, beside SDPA on the same
+  tensors; then the host time of one call through the wrapper, its launch
+  and the C entry (``host_us``), which sets a floor under the wrapper's
+  time of a small launch.
 - The RFF backward: its factor products on the tensor cores and on the FMA
   pipe (``rff_bwd_plan``'s ``products``), at the Thompson ascent's 400 × 512,
   d = 8, for s from 8 to 100: where the plan's NARROW_G line falls; at its
@@ -57,6 +65,12 @@ ZERO_C = ("""  float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         "r"(__float_as_uint(bhi[0])), "r"(__float_as_uint(bhi[1])), "f"(0.0f));
 """)
 #: variant -> {source: [(old, new), ...]}
+FLASH_BF16_VARIANTS = {
+    "committed": {},
+    "no_pingpong": {"flash_attention_bf16.cu": [("kPingPong = true;", "kPingPong = false;")]},
+    # where the time goes: its output then wrong, its time what the rest costs
+    "no_mask": {"flash_attention_bf16.cu": [("  if (masked) {", "  if (false) {")]},
+}
 FLASH_VARIANTS = {
     "committed": {},
     "qk_group1": {"flash_attention.cu": [("kGroupQK = 2;", "kGroupQK = 1;")]},
@@ -115,7 +129,7 @@ def build_variant(source: str, name: str, subs: dict, entries, out_dir: Path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON lines here")
-    ap.add_argument("--only", choices=("flash", "rff"), default=None,
+    ap.add_argument("--only", choices=("flash", "flash_bf16", "rff"), default=None,
                     help="time one kernel's variants only")
     args = ap.parse_args()
 
@@ -169,9 +183,11 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if args.only != "rff":
+    if args.only in (None, "flash"):
         flash_variants(torch, emit, events_ms, out_dir, gen, stream)
-    if args.only != "flash":
+    if args.only in (None, "flash_bf16"):
+        flash_bf16_variants(torch, emit, events_ms, out_dir, gen, stream)
+    if args.only in (None, "rff"):
         rff_variants(torch, emit, events_ms, graph_ms, out_dir, gen, stream)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -213,6 +229,83 @@ def flash_variants(torch, emit, events_ms, out_dir, gen, stream) -> None:
             emit(case=label, variant=name, b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal,
                  ms=events_ms(run), err_of_scale=(out.double() - ref).abs().max().item() / scale)
         del ref
+
+
+def flash_bf16_variants(torch, emit, events_ms, out_dir, gen, stream) -> None:
+    """``csrc/flash_attention_bf16.cu``'s variants at chip_smoke.py's first four
+    FLASH_CASES, each against the bf16 plain version (error of max(1, scale)),
+    beside SDPA on (b, h, s, d) copies of the same bf16 tensors."""
+    import torch.nn.functional as F
+
+    from chip_smoke import FLASH_CASES
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    libs = {}
+    for name, subs in FLASH_BF16_VARIANTS.items():
+        lib, secs, ptx = build_variant(
+            "flash_attention_bf16.cu", name, subs,
+            ("repro_flash_attention_bf16", "repro_flash_attention_smem_bytes_bf16"), out_dir)
+        libs[name] = lib
+        emit(variant=name, nvcc_seconds=secs,
+             kernels=[{k: p[k] for k in ("name", "registers", "spill_stores")} for p in ptx],
+             smem_bytes={d: lib.repro_flash_attention_smem_bytes_bf16(d) for d in (64, 128)})
+    dev = torch.device("cuda")
+    for label, b, s, hq, hkv, d, causal in FLASH_CASES[:4]:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+                   for h in (hq, hkv, hkv))
+        ref = flash_attention_ref(q, k, v, causal=causal).float()
+        scale = max(1.0, ref.abs().max().item())
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        emit(case=label, variant="sdpa", b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal,
+             ms=events_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True)))
+        for name, lib in libs.items():
+            out = torch.empty_like(q)
+
+            def run():
+                err = lib.repro_flash_attention_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq, hkv, d,
+                    int(causal), d ** -0.5, stream)
+                if err:
+                    raise RuntimeError(f"{name}: launch error {err}")
+            run()
+            torch.cuda.synchronize()
+            emit(case=label, variant=name, b=b, s=s, hq=hq, hkv=hkv, d=d, causal=causal,
+                 ms=events_ms(run), err_of_scale=(out.float() - ref).abs().max().item() / scale)
+        del ref
+    host_costs(torch, emit, stream)
+
+
+def host_costs(torch, emit, stream, reps=200) -> None:
+    """Host time of one call, µs over ``reps`` calls without a sync, on a
+    tiny bf16 input (b 1, s 128, one head of 64: the card idles): through
+    ``flash_attention`` (its autograd Function, checks, allocation and
+    launch), through the wrapper's ``_launch`` alone, and of the committed
+    library's C entry through ctypes (its tensor maps, attribute and launch)."""
+    import time
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn((1, 128, 1, 64), device="cuda").bfloat16()
+    out = torch.empty_like(q)
+    entry = _build.library().repro_flash_attention_bf16
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / reps
+
+    emit(case="host_us", b=1, s=128, hq=1, hkv=1, d=64,
+         wrapper=us(lambda: flash_attention(q, q, q, causal=True)),
+         launch=us(lambda: flash_attention._launch(q, q, q, causal=True)),
+         c_entry=us(lambda: entry(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                  1, 128, 1, 1, 64, 1, 0.125, stream)))
 
 
 def rff_variants(torch, emit, events_ms, graph_ms, out_dir, gen, stream) -> None:

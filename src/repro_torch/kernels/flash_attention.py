@@ -29,11 +29,24 @@ from .ref import flash_attention_ref
 
 #: head dimensions the kernel is instantiated for (the reduced configs', llama3-8b's)
 HEAD_DIMS = (64, 128)
-#: query rows of a CTA, and keys of a tile (``kBlock``); a CTA per (batch ×
-#: query head, block), the blocks along grid.y
-BLOCK = 64
+#: query rows of a block, and keys of a tile, by the tile precision of the
+#: launch: ``kBlock`` in ``flash_attention.cu`` (a CTA per batch × query head
+#: and block, the blocks along grid.y), ``kRows`` in
+#: ``flash_attention_bf16.cu`` (a work item of its persistent CTAs)
+BLOCKS = {"fp32": 64, "bf16": 128}
 #: the dtypes the kernels take, by the tile precision they count launches as
 DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def query_blocks(s: int, precision: str) -> int:
+    """The query blocks of a launch over s rows at the block of its tile
+    precision, or a ValueError past the 65,535 that both C entries take
+    (grid.y's limit in the fp32 kernel)."""
+    blocks = -(-s // BLOCKS[precision])
+    if blocks > 65535:
+        raise ValueError(f"flash_attention: {blocks} query blocks of {BLOCKS[precision]} rows "
+                         f"exceed the 65,535 a launch takes")
+    return blocks
 
 
 def check_dtypes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -106,8 +119,7 @@ class FlashAttention(LaunchCounts):
             )
         if d not in HEAD_DIMS:
             raise ValueError(f"{self.name}: head dimension {d} not in {HEAD_DIMS}")
-        if -(-s // BLOCK) > 65535:
-            raise ValueError(f"{self.name}: {-(-s // BLOCK)} query blocks exceed grid.y's 65,535")
+        query_blocks(s, precision)
         out = torch.empty_like(q)
         if b == 0 or s == 0:
             return out

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from repro.kernels.ops import flash_attention as jflash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import _FlashAttentionFn
+from repro_torch.kernels.flash_attention import BLOCKS, _FlashAttentionFn, query_blocks
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -95,6 +95,19 @@ def test_bf16_and_pallas_raise():
         ops.flash_attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError, match="unknown backend"):
         ops.flash_attention(q, k, v, backend="chunked")
+
+
+@pytest.mark.parametrize("precision,block", [("fp32", 64), ("bf16", 128)])
+def test_query_blocks_at_each_precisions_block(precision, block):
+    # a block of query rows is 64 rows in the fp32 kernel, 128 in the bf16
+    # one; a launch past 65,535 blocks is refused before any kernel is
+    # reached, naming its own block
+    assert BLOCKS[precision] == block
+    assert [query_blocks(s, precision) for s in (1, block - 1, block, block + 1, 1000)] == [
+        1, 1, 1, 2, -(-1000 // block)]
+    assert query_blocks(65535 * block, precision) == 65535
+    with pytest.raises(ValueError, match=f"65536 query blocks of {block} rows exceed"):
+        query_blocks(65535 * block + 1, precision)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1168,14 +1168,17 @@ def test_bf16_function_gradients_match_plain_on_card(card, name):
                       _grads(call(plain), ins, torch.float64))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 1024, 32, 8, 128), (4, 1000, 32, 8, 128),
-                                          (2, 130, 4, 2, 64), (1, 37, 2, 1, 64),
-                                          (2, 256, 4, 4, 128)])
-def test_bf16_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d):
-    q = _normal(1, b, s, hq, d).bfloat16()
-    k, v = _normal(2, b, s, hkv, d).bfloat16(), _normal(3, b, s, hkv, d).bfloat16()
+#: the bf16 kernel's block edges: a CTA holds 128 query rows and walks keys
+#: in tiles of 128 (``BLOCKS["bf16"]``), so s one short of, at and one past a
+#: block, two blocks and a row, and the ragged 1,000, at d 64 and 128, one kv
+#: head a query head and one for four
+FLASH_BF16_EDGES = [(2, s, hq, 2, d) for s in (1, 127, 128, 129, 257, 1000)
+                    for hq in (2, 8) for d in (64, 128)]
+
+
+def _check_bf16_flash(q, k, v, causal):
+    """One bf16 launch against the bf16 plain version and the fp32 kernel on
+    the same bf16-valued inputs, and the same bits on a second launch."""
     before = (flash_attention.launches, flash_attention.bf16_launches)
     out = flash_attention(q, k, v, causal=causal)
     assert (flash_attention.launches, flash_attention.bf16_launches) == (before[0], before[1] + 1)
@@ -1185,6 +1188,36 @@ def test_bf16_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d)
     e_plain, e_fp32 = _bf16_err(out.float(), plain.float(), fp32)
     assert e_plain <= FLASH_BF16_TOL and e_fp32 <= FLASH_BF16_FP32_TOL
     assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 1024, 32, 8, 128), (4, 1000, 32, 8, 128),
+                                          (2, 130, 4, 2, 64), (1, 37, 2, 1, 64),
+                                          (2, 256, 4, 4, 128)] + FLASH_BF16_EDGES)
+def test_bf16_flash_kernel_matches_plain_on_card(card, causal, b, s, hq, hkv, d):
+    q = _normal(1, b, s, hq, d).bfloat16()
+    k, v = _normal(2, b, s, hkv, d).bfloat16(), _normal(3, b, s, hkv, d).bfloat16()
+    _check_bf16_flash(q, k, v, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_flash_kernel_on_slices_of_larger_tensors_on_card(card, causal, d):
+    # the kernel's tensor maps start at each operand's data_ptr() and step by
+    # its shape's strides: contiguous slices of larger tensors, at offsets
+    # past the first batch and, with b = 1, past the first rows, read only
+    # their own rows
+    s, hq, hkv = 200, 8, 2
+    big_q = _normal(1, 3, s, hq, d).bfloat16()
+    big_kv = _normal(2, 2, 3, s, hkv, d).bfloat16()
+    _check_bf16_flash(big_q[1:], big_kv[0, 1:], big_kv[1, :2], causal)
+    q_rows = _normal(3, 1, s + 7, hq, d).bfloat16()
+    kv_rows = _normal(4, 2, s + 7, hkv, d).bfloat16()
+    q, k, v = q_rows[:, 3:3 + s], kv_rows[:1, 5:5 + s], kv_rows[1:, 1:1 + s]
+    assert all(t.is_contiguous() and t.storage_offset() for t in (q, k, v))
+    _check_bf16_flash(q, k, v, causal)
 
 
 @pytest.mark.gpu
