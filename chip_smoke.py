@@ -69,6 +69,13 @@ on the protein-shaped problem at full n through those kernels:
   with 2 layers, the yardstick reduced); every prefill against
   ``forward_train``.
 
+* the distributed solve, ``distributed_solve`` over ``torch.distributed``
+  with its ranks spawned on the card: one rank on NCCL and two sharing the
+  card on gloo (staging through host memory) on the CG cell's problem,
+  under gather, gather_once, ring and auto, against the Cholesky oracle and
+  single-device CG, SGD, SDD and AP against their single-device runs on the
+  same draws, and four ranks' primitives under ring against gather.
+
 The training path's θ-gradients are held against the plain autograd Function
 in float64 at a reduced n, and the gradients at ``precision="bf16"`` through
 the reference's differentiable kernel entry points (the pins ``ops.
@@ -159,7 +166,11 @@ SDD_PAPER_STEP = 50.0
 #: 1.7–4.4e-3 on the plain route alone as the targets' rounding moves: 200
 #: clipped steps amplify it)
 PARITY_STEPS, PARITY_TOL, PARITY_FP64_MARGIN, PARITY_SEEDS = 200, 2e-3, 1.5, 8
-PROFILE_STOCH_STEPS = {"sgd": 500, "sdd": 500, "ap": 200}
+#: the profiled windows' depth: a profiled step costs the host its events'
+#: processing, so the stochastic runs and the Thompson acquisition's ascent
+#: are profiled short (the counted runs above keep their full depth)
+PROFILE_STOCH_STEPS = {"sgd": 250, "sdd": 250, "ap": 100}
+PROFILE_THOMPSON_ASCENT = 5
 #: Parallel Thompson sampling: benchmarks/bench_thompson.py:18-40's full run
 #: (d = 8, Matérn-3/2, ℓ = 0.3, σ_f² = 1, σ² = 1e-3, the objective a prior
 #: draw on 2,048 features, acquisition batch 100, 512 candidates, top 4, 20
@@ -343,6 +354,30 @@ LKGP_REF_GAP, LKGP_BUDGET_RATIO = 0.3276, 1.5
 #: CG's column check: one column at width 8 and beside 63 others at width
 #: 64, on the first CG_WIDTH_N protein rows at the main path's θ and tol
 CG_WIDTH_N = 8192
+#: The distributed phase: the CG cell's problem (2,048 prior features, 64
+#: samples) split over spawned ranks, the 18-iteration budget of the
+#: reference's ring tests (tests/test_distributed_ring.py:124), 200 steps of
+#: each stochastic solver, every primitive at P = 4 on the cg_width problem
+#: (45,730 rows do not split into 4). Held: CG's iterations within
+#: ``iters_rtol`` of single-device CG's, the budget's columns within
+#: ``budget_tol`` of scale of single-device CG's. Ring sums each row over P
+#: launches, which fp32 CG carries far: its columns are held within
+#: ``budget_tol`` of single-device CG on ``RingOrderGram`` (the ring's row
+#: sums on one device) and to the float64 route within PARITY_FP64_MARGIN ×
+#: the single device's distance from it, and its distance from single-device
+#: CG on ``Gram`` at each of ``ring_budgets`` is printed. The stochastic
+#: solvers within the stochastic phase's
+#: route bound (PARITY_TOL); ring's ``mv`` (P = 2, 4) and primitives (P = 4)
+#: within the reference's ring-vs-gather bound (tests/test_distributed_ring.py:49);
+#: each rank's Gram and RFF launches against the plain route in float64 on
+#: the same inputs at the kernels phase's GRAM_TOL and RFF_TOL.
+#: ``auto_budget_bytes`` is under protein's 1.6 MB (n, d) panel, so auto
+#: resolves to ring. Timeouts in seconds: a spawned run, a collective.
+DIST = dict(features=2048, samples=64, budget=18, steps=200, p4_n=CG_WIDTH_N,
+            iters_rtol=0.15, budget_tol=1e-4,
+            ring_budgets=(2, 4, 6, 8, 10, 12, 14, 16, 18), stoch_tol=PARITY_TOL,
+            prim_tol=1e-5, auto_budget_bytes=1 << 20, mv_reps=5, kernel_reps=5, plain_reps=3,
+            run_timeout=600, group_timeout=300)
 #: the kernels' records on the last lines, in order: the fp32 kernels, then
 #: the bf16 tiles of the GP kernels and flash attention's bf16 inputs
 #: (``[bf16]``), each its own record
@@ -517,6 +552,7 @@ def main() -> int:
     thompson_phase(torch, kernels)
     engine = engine_phase(torch, kernels, oracle)
     cg_width_phase(torch)
+    distributed_phase(torch, kernels, oracle)
     sparse = sparse_phase(torch, kernels)
     lkgp = lkgp_phase(torch, kernels)
     lm_serve_phase(torch, kernels)
@@ -3172,6 +3208,527 @@ def cg_width_phase(torch) -> None:
     emit("cg_width", n=int(x.shape[0]), d=d, **out)
 
 
+def _dist_inputs(torch, data, params_cpu) -> dict:
+    """The distributed phase's draws, made once on the host from SEED and
+    given to every rank and to the single-device runs alike: the prior's
+    2,048 features and 64 weight columns, ε, the stochastic solvers' SGD and
+    row draws, and the P = 4 primitives' operands."""
+    from repro_torch.core import spectral_sample
+
+    n, d = int(data["n"]), data["d"]
+    gen = torch.Generator().manual_seed(SEED)
+    m, s, steps = DIST["features"] // 2, DIST["samples"], DIST["steps"]
+    batch, q = STOCH_SPECS["sgd"]["batch_size"], STOCH_SPECS["sgd"]["num_features"]
+    p4 = DIST["p4_n"]
+    return dict(
+        x=torch.as_tensor(data["x"]), y=torch.as_tensor(data["y"]),
+        omega=spectral_sample(params_cpu, m, d, generator=gen),
+        w=torch.randn((2 * m, s), generator=gen),
+        eps=params_cpu.noise.sqrt() * torch.randn((n, s), generator=gen),
+        sgd_idx=torch.randint(0, n, (steps, batch), generator=gen),
+        sgd_omega=spectral_sample(params_cpu, steps * q, d, generator=gen).reshape(steps, q, d),
+        rows_idx=torch.randint(0, n, (steps, STOCH_SPECS["sdd"]["batch_size"]), generator=gen),
+        v4=torch.randn((p4, s + 1), generator=gen), u4=torch.randn((512, s + 1), generator=gen),
+        idx4=torch.randint(0, p4, (512,), generator=gen),
+        hypers=dict(lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1, d=d))
+
+
+def _dist_specs():
+    """The distributed phase's solver specs: CG to the main path's tol, CG at
+    the fixed budget, and the stochastic solvers' DIST["steps"] steps."""
+    from repro_torch.core import CG
+
+    return dict(full=CG(max_iters=MAIN_MAX_ITERS, tol=MAIN_TOL),
+                budget=CG(max_iters=DIST["budget"], tol=1e-12),
+                **{name: _stochastic_spec(name, DIST["steps"]) for name in ("sgd", "sdd", "ap")})
+
+
+def _dist_rank(rank: int, world: int, port: int, inputs: str, out_dir: str, part: str) -> None:
+    """One spawned rank of the distributed phase: joins the ``("data",)``
+    mesh of ``world`` ranks on the card (NCCL for one rank, gloo for ranks
+    that share the card), runs its ``part`` and saves what it measured."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.testing.ranks import join_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = join_mesh(rank, world, port, "cuda", timeout=DIST["group_timeout"])
+    inp = torch.load(inputs, map_location="cuda")
+    out = (_dist_primitives if part == "p4" else _dist_solves)(torch, rank, world, mesh, inp)
+    torch.save(out, Path(out_dir) / f"{part}_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _dist_window(torch, fn):
+    """Run ``fn`` with every count at 0 just before and read just after:
+    (its result, wall seconds, the counts)."""
+    from repro_torch.core import collectives as coll
+
+    _reset_counts(torch)
+    coll.reset_collective_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, matvec_counts, feature_counts = _read_counts()
+    return res, wall, dict(launches=launches, bf16=_read_bf16_counts(),
+                           matvec_counts=matvec_counts, feature_counts=feature_counts,
+                           collectives=coll.collective_counts())
+
+
+def _dist_held(torch, fn, plain_fn, ref64_fn, tol: float, bound: tuple) -> dict:
+    """A rank's launch at its distributed shape held as the kernels phase
+    holds each kernel: its result against the plain route run in float64 on
+    the same inputs within ``tol`` × max(1, scale), the kernel and the fp32
+    plain route timed by CUDA events, ``bound`` = (ms, flops, bytes)."""
+    out, ref = fn(), ref64_fn()
+    err = (out.double() - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    return dict(max_abs_err=err, tol=tol * scale,
+                err_vs_fp32_plain=(out - plain_fn()).abs().max().item(),
+                ms=_events_ms(torch, fn, DIST["kernel_reps"]),
+                plain_ms=_events_ms(torch, plain_fn, DIST["plain_reps"]),
+                bound_ms=bound[0], bound_by=_bound_by(bound[1], bound[2]))
+
+
+def _dist_rff_held(torch, p, p64, x, omega, w, sgd_omega, u) -> dict:
+    """The RFF launches of a rank's shard held by :func:`_dist_held` against
+    the materialised features: f_X's ``phi_mv`` (2,048 features, w's 64
+    columns), and on SGD's first step's frequencies its pullback
+    ``phi_t_mv`` of u (the rank's (n/P, 65) rows) and push-forward."""
+    from repro_torch.core.rff import FourierFeatures
+
+    (n, d) = x.shape
+
+    def held(om, call, operand):
+        zero = torch.zeros_like(om[:, 0])
+        ff = FourierFeatures(omega=om, phase=zero, signal=p.signal)
+        ff64 = FourierFeatures(omega=om.double(), phase=zero.double(), signal=p64.signal)
+        line = _dist_held(
+            torch, lambda: getattr(ff, call)(x, operand),
+            lambda: getattr(ff, call)(x, operand, backend="features"),
+            lambda: getattr(ff64, call)(x.double(), operand.double(), backend="features"),
+            RFF_TOL, _rff_bound_ms(n, om.shape[0], d, operand.shape[1]))
+        line.update(n=n, m=om.shape[0], d=d, s=operand.shape[1])
+        return line, getattr(ff, call)(x, operand)
+
+    f_x, _ = held(omega, "phi_mv", w)
+    pull, t = held(sgd_omega, "phi_t_mv", u)
+    push, _ = held(sgd_omega, "phi_mv", t)
+    return dict(f_x=f_x, sgd_pull=pull, sgd_push=push)
+
+
+def _dist_solves(torch, rank, world, mesh, inp) -> dict:
+    """A rank's solves on the protein problem: the right-hand side's f_X
+    block through ``ShardedFourierFeatures.phi_mv``, then ``distributed_solve``
+    with CG to tol and at the 18-iteration budget under each comm (under
+    ring at P > 1 also at each of DIST["ring_budgets"]), one ``mv``, a
+    matvec's wall time, and the Gram launch at the comm's shard shape
+    against its plain route; the RFF launches at the shard's shapes against
+    theirs; at P = 2, 200 steps of SGD and SDD under ring and AP under
+    gather_once on the injected draws."""
+    import torch.distributed as dist
+
+    from repro_torch.core import CG, ShardedGram, distributed_solve, make_params
+    from repro_torch.core import shard_training_rows
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.rff import FourierFeatures
+    from repro_torch.core.solvers import RowDraws, SGDDraws
+    from repro_torch.kernels.ops import gram_mv
+
+    p = make_params("matern32", device="cuda", **inp["hypers"])
+    p64 = make_params("matern32", device="cuda", dtype=torch.float64, **inp["hypers"])
+    x = shard_training_rows(mesh, inp["x"])
+    group = coll.axis_group(mesh, ("data",))
+    rows = slice(rank * x.shape[0], (rank + 1) * x.shape[0])
+    ff = ShardedGram(x=x, params=p, mesh=mesh).wrap_features(
+        FourierFeatures(omega=inp["omega"], phase=torch.zeros_like(inp["omega"][:, 0]),
+                        signal=p.signal))
+    f_x, _, rhs = _dist_window(torch, lambda: ff.phi_mv(x, inp["w"]))
+    b_local = torch.cat([inp["y"][rows, None], f_x + inp["eps"][rows]], dim=1).contiguous()
+    b_whole = coll.all_gather_rows(b_local, group)
+    out = dict(backend=str(dist.get_backend()), rhs=rhs, runs={}, stochastic={},
+               rff=_dist_rff_held(torch, p, p64, x, inp["omega"], inp["w"],
+                                  inp["sgd_omega"][0], b_local))
+    comms = [("gather", dict(comm="gather")), ("gather_once", dict(comm="gather", gather_once=True)),
+             ("ring", dict(comm="ring")),
+             ("auto", dict(comm="auto", comm_budget_bytes=DIST["auto_budget_bytes"]))]
+    if world == 1:
+        comms = [comms[0], comms[2]]
+    specs = _dist_specs()
+    for tag, kw in comms:
+        op = ShardedGram(x=x, params=p, mesh=mesh, **kw)
+        ring = op._resolve_comm() == "ring"
+        b = b_local if ring else b_whole
+        mine = (lambda t: t) if ring else (lambda t: t[rows])  # this rank's rows
+        rec = dict(resolved=op._resolve_comm())
+        for run in ("full", "budget"):
+            res, wall, counts = _dist_window(
+                torch, lambda: distributed_solve(p, x, b, mesh, specs[run], **kw))
+            rec[run] = dict(iterations=res.iterations, matvecs=res.matvecs,
+                            converged=res.converged, wall_s=wall,
+                            max_rel_residual=res.rel_residual.max().item(),
+                            solution_shape=list(res.solution.shape), **counts)
+            rec[run + "_rows"] = mine(res.solution).cpu()
+        if ring and world > 1:
+            rec["curve_rows"] = {k: mine(distributed_solve(
+                p, x, b, mesh, CG(max_iters=k, tol=1e-12), **kw).solution).cpu()
+                for k in DIST["ring_budgets"]}
+        prepared = op.prepare_for_solve()
+        rec["mv_rows"] = mine(prepared.mv(b)).cpu()
+        _, wall, counts = _dist_window(
+            torch, lambda: [prepared.mv(b) for _ in range(DIST["mv_reps"])])
+        rec["ms_per_mv"] = 1e3 * wall / DIST["mv_reps"]
+        rec["mv_counts"] = counts
+        z, vz = (x, b_local) if ring else (coll.all_gather_rows(x, group), b_whole)
+        rec["kernel_shape"] = [x.shape[0], z.shape[0], vz.shape[1]]
+        rec["kernel"] = _dist_held(
+            torch, lambda: prepared._local_mv(x, z, vz),
+            lambda: gram_mv(p, x, vz, z=z, backend="chunked"),
+            lambda: gram_mv(p64, x.double(), vz.double(), z=z.double(), backend="chunked"),
+            GRAM_TOL, _gram_bound_ms(x.shape[0], z.shape[0], x.shape[1], vz.shape[1]))
+        out["runs"][tag] = rec
+    if world == 2:
+        draws = dict(sgd=SGDDraws(idx=inp["sgd_idx"], omega=inp["sgd_omega"]),
+                     sdd=RowDraws(idx=inp["rows_idx"]), ap=RowDraws(idx=inp["rows_idx"]))
+        for name, kw in (("sgd", dict(comm="ring")), ("sdd", dict(comm="ring")),
+                         ("ap", dict(comm="gather", gather_once=True))):
+            res, wall, counts = _dist_window(torch, lambda: distributed_solve(
+                p, x, b_whole, mesh, specs[name], draws=draws[name], **kw))
+            ring = kw["comm"] == "ring"
+            out["stochastic"][name] = dict(
+                comm=kw, iterations=res.iterations, matvecs=res.matvecs, wall_s=wall,
+                ms_per_step=1e3 * wall / DIST["steps"],
+                rows=(res.solution if ring else res.solution[rows]).cpu(), **counts)
+    return out
+
+
+def _dist_primitives(torch, rank, world, mesh, inp) -> dict:
+    """A rank's primitives on the first DIST["p4_n"] protein rows under
+    gather and ring: one ``mv`` counted alone, then the row primitives and
+    ``block_at``; ring's row blocks are gathered whole outside the counts."""
+    from repro_torch.core import ShardedGram, make_params, shard_training_rows
+    from repro_torch.core import collectives as coll
+
+    p = make_params("matern32", device="cuda", **inp["hypers"])
+    x = shard_training_rows(mesh, inp["x"][:DIST["p4_n"]])
+    group = coll.axis_group(mesh, ("data",))
+    v, u, idx = inp["v4"], inp["u4"], inp["idx4"]
+    out = {}
+    for comm in ("gather", "ring"):
+        op = ShardedGram(x=x, params=p, mesh=mesh, comm=comm)
+        v_in = op.layout.iterate(v)
+        mv, _, mv_counts = _dist_window(torch, lambda: op.mv(v_in))
+        prims, _, counts = _dist_window(torch, lambda: dict(
+            rows_mv=op.rows_mv(idx, v_in), rows_t_mv=op.rows_t_mv(idx, u),
+            pair=op.rows_pair_mv(idx, v_in, u), block_at=op.block_at(idx)))
+        whole = (lambda t: coll.all_gather_rows(t, group)) if comm == "ring" else (lambda t: t)
+        out[comm] = dict(mv_counts=mv_counts, counts=counts, mv=whole(mv).cpu(),
+                         rows_mv=prims["rows_mv"].cpu(), rows_t_mv=whole(prims["rows_t_mv"]).cpu(),
+                         pair_err=prims["pair"][0].cpu(), pair_g=whole(prims["pair"][1]).cpu(),
+                         block_at=prims["block_at"].cpu())
+    return out
+
+
+def _sum_counts(recs: list, key: str) -> dict:
+    """A counts dict (``launches`` or ``bf16``) summed over ranks and windows."""
+    out = {}
+    for rec in recs:
+        for k, v in rec[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _dist_no_plain(what: str, rec: dict) -> None:
+    check(rec["matvec_counts"]["chunked"] == rec["matvec_counts"]["dense"] == 0,
+          f"{what}: no plain Gram matvec")
+    check(rec["feature_counts"]["features"] == 0, f"{what}: no materialised feature matrix")
+    check(not any(rec["bf16"].values()), f"{what}: no bf16 launch")
+
+
+def _dist_launches(what: str, rec: dict, want: dict) -> None:
+    """A window's launches: ``want`` by wrapper, every other wrapper none."""
+    full = {k: want.get(k, 0) for k in rec["launches"]}
+    check(rec["launches"] == full, f"{what}: launches {rec['launches']} == {full}")
+
+
+def _dist_path_line(kernels, name: str, path: str, what: str, lines: list) -> None:
+    """The ranks' held launches of kernel ``name`` on a distributed path
+    (:func:`_dist_held`): each within its tolerance; under ``by_path`` the
+    path's line, beside its launches, gets the shape, the slowest rank's
+    times and the largest error, which the record's ``max_abs_err`` takes
+    too."""
+    for rk, line in enumerate(lines):
+        check(line["max_abs_err"] <= line["tol"],
+              f"{what} rank {rk}: {name} within {line['tol']} of the plain route in "
+              f"float64 ({line['max_abs_err']})")
+    worst = max(lines, key=lambda line: line["ms"])
+    err = max(line["max_abs_err"] for line in lines)
+    kernels[name]["by_path"][path].update(
+        worst, max_abs_err=err, ms_by_rank=[line["ms"] for line in lines],
+        plain_ms_by_rank=[line["plain_ms"] for line in lines])
+    kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+
+
+def _dist_cg_checks(torch, part, ranks, single, oracle, kernels, p, x, xt) -> None:
+    """CG under each comm of one world: counts, launches, the mean column
+    against the Cholesky oracle, the fixed budget against single-device CG,
+    ring's row blocks; one line and one launch record a comm."""
+    from repro_torch.kernels.ops import gram_mv
+
+    world = len(ranks)
+    for rk, r in enumerate(ranks):
+        rhs = r["rhs"]
+        _dist_launches(f"{part} rank {rk}: f_X", rhs, dict(rff_matvec=1))
+        _dist_no_plain(f"{part} rank {rk}: f_X", rhs)
+    _record_path(kernels, f"dist_{part}_rhs", _sum_counts([r["rhs"] for r in ranks], "launches"),
+                 _sum_counts([r["rhs"] for r in ranks], "bf16"))
+    _dist_path_line(kernels, "rff_matvec", f"dist_{part}_rhs", f"{part} f_X",
+                    [r["rff"]["f_x"] for r in ranks])
+    emit("distributed_kernels", part=part, ranks=world, rff=[r["rff"] for r in ranks],
+         gram={tag: dict(shape=ranks[0]["runs"][tag]["kernel_shape"],
+                         by_rank=[r["runs"][tag]["kernel"] for r in ranks])
+               for tag in ranks[0]["runs"]})
+    gather_mv = [r["runs"]["gather"]["mv_rows"] for r in ranks]
+    for tag in ranks[0]["runs"]:
+        recs = [r["runs"][tag] for r in ranks]
+        ring = recs[0]["resolved"] == "ring"
+        for run in ("full", "budget"):
+            its = {(rec[run]["iterations"], rec[run]["matvecs"]) for rec in recs}
+            check(len(its) == 1, f"{part} {tag} {run}: every rank the same counts {its}")
+            for rk, rec in enumerate(recs):
+                it, what = rec[run], f"{part} {tag} {run} rank {rk}"
+                check(it["matvecs"] == it["iterations"], f"{what}: matvecs == iterations")
+                _dist_launches(what, it, dict(gram_matvec=(world if ring else 1) * it["iterations"]))
+                _dist_no_plain(what, it)
+                staged = it["collectives"]["staged_bytes"]
+                check(staged > 0 if world > 1 else staged == 0,
+                      f"{what}: {staged} bytes staged through the host ({ranks[0]['backend']})")
+                if ring:
+                    check(it["solution_shape"] == [x.shape[0] // world, DIST["samples"] + 1],
+                          f"{what}: ring's solution stays this rank's block "
+                          f"{it['solution_shape']}")
+        full = recs[0]["full"]
+        want_its = single["full"].iterations
+        check(abs(full["iterations"] - want_its) <= DIST["iters_rtol"] * want_its,
+              f"{part} {tag}: {full['iterations']} iterations within 15% of single-device "
+              f"CG's {want_its}")
+        check(all(rec["full"]["converged"] for rec in recs), f"{part} {tag}: CG converged")
+        v = torch.cat([rec["full_rows"] for rec in recs]).to(x.device)
+        mean = gram_mv(p, xt, v[:, 0].contiguous(), z=x)
+        exact = oracle["exact_mean"]
+        rel = ((mean - exact).norm() / exact.norm()).item()
+        check(rel <= 1e-2, f"{part} {tag}: mean within 1e-2 of the Cholesky mean ({rel})")
+        mv_vs_gather = max(_scaled_err(rec["mv_rows"], g) for rec, g in zip(recs, gather_mv))
+        check(mv_vs_gather <= DIST["prim_tol"],
+              f"{part} {tag}: mv within {DIST['prim_tol']} of gather's ({mv_vs_gather})")
+        budget = torch.cat([rec["budget_rows"] for rec in recs]).to(x.device)
+        budget_err = _scaled_err(budget, single["budget"].solution)
+        curve = ring_order_err = None
+        vs_fp64 = dict(distributed=_scaled_err(budget, single["fp64"]["budget"]),
+                       single_device=_scaled_err(single["budget"].solution,
+                                                 single["fp64"]["budget"]))
+        check(recs[0]["budget"]["iterations"] == single["budget"].iterations == DIST["budget"],
+              f"{part} {tag}: {DIST['budget']} iterations at the budget")
+        if ring and world > 1:
+            # ring sums a row over P launches where the single device sums it
+            # in one, and fp32 CG carries that rounding far (its distance from
+            # single-device CG at each budget is printed): held within
+            # budget_tol of single-device CG with the ring's row sums, and, as
+            # route parity holds SGD, to the float64 route no further than
+            # PARITY_FP64_MARGIN × the single device's own distance
+            curve = {k: _scaled_err(torch.cat([rec["curve_rows"][k] for rec in recs]).to(x.device),
+                                    single["curve"][k]) for k in DIST["ring_budgets"]}
+            ring_order_err = _scaled_err(budget, single["ring_order"][world])
+            check(ring_order_err <= DIST["budget_tol"],
+                  f"{part} {tag}: {DIST['budget']} iterations within {DIST['budget_tol']} of "
+                  f"scale of single-device CG on the ring's row sums ({ring_order_err})")
+            limit = PARITY_FP64_MARGIN * vs_fp64["single_device"]
+            check(vs_fp64["distributed"] <= limit,
+                  f"{part} {tag}: {DIST['budget']} iterations {vs_fp64['distributed']} of scale "
+                  f"from the float64 route, within {limit}")
+        else:
+            # gather contracts each row in one launch of the single device's
+            # shape, and its vectors are whole: the single device's bits
+            check(budget_err <= DIST["budget_tol"],
+                  f"{part} {tag}: {DIST['budget']} iterations within {DIST['budget_tol']} of "
+                  f"scale of single-device CG ({budget_err})")
+        emit("distributed", part=part, ranks=world, backend=ranks[0]["backend"], comm=tag,
+             resolved=recs[0]["resolved"], n=int(x.shape[0]), rhs_columns=DIST["samples"] + 1,
+             iterations=full["iterations"], single_device_iterations=want_its,
+             matvecs=full["matvecs"], max_rel_residual=full["max_rel_residual"],
+             rel_mean_err_vs_cholesky=rel, budget_err=budget_err, budget_vs_fp64=vs_fp64,
+             ring_curve=curve, budget_vs_ring_order=ring_order_err, mv_vs_gather=mv_vs_gather,
+             solve_wall_s=[rec["full"]["wall_s"] for rec in recs],
+             single_device_wall_s=single["full_wall_s"],
+             ms_per_mv=[rec["ms_per_mv"] for rec in recs],
+             kernel_ms=[rec["kernel"]["ms"] for rec in recs],
+             kernel_plain_ms=[rec["kernel"]["plain_ms"] for rec in recs],
+             kernel_err=[rec["kernel"]["max_abs_err"] for rec in recs],
+             kernel_shape=recs[0]["kernel_shape"], kernel_bound_ms=recs[0]["kernel"]["bound_ms"],
+             collectives_per_solve=full["collectives"],
+             collectives_per_mv={k: v / DIST["mv_reps"]
+                                 for k, v in recs[0]["mv_counts"]["collectives"].items()},
+             launches_per_rank=full["launches"]["gram_matvec"],
+             solution_shape=full["solution_shape"])
+        windows = [rec[run] for rec in recs for run in ("full", "budget")]
+        _record_path(kernels, f"dist_{part}_{tag}", _sum_counts(windows, "launches"),
+                     _sum_counts(windows, "bf16"))
+        _dist_path_line(kernels, "gram_matvec", f"dist_{part}_{tag}", f"{part} {tag}",
+                        [rec["kernel"] for rec in recs])
+
+
+def _dist_stochastic_checks(torch, ranks, single, kernels) -> None:
+    """SGD, SDD and AP at P = 2 against the single-device runs on the same
+    draws, with their counts and launch identities."""
+    world, steps = len(ranks), DIST["steps"]
+    for name, ref in single["stochastic"].items():
+        recs = [r["stochastic"][name] for r in ranks]
+        ring = recs[0]["comm"]["comm"] == "ring"
+        fin = world if ring else 1  # finalize's matvec: P launches under ring
+        want = dict(sgd=dict(gram_matvec=2 * steps + fin, rff_t_matvec=steps, rff_matvec=steps),
+                    sdd=dict(gram_matvec=steps + fin), ap=dict(gram_matvec=steps))[name]
+        for rk, rec in enumerate(recs):
+            what = f"p2 {name} rank {rk}"
+            check(rec["iterations"] == steps, f"{what}: {steps} steps")
+            check(rec["matvecs"] == (0 if name == "ap" else 1), f"{what}: matvecs {rec['matvecs']}")
+            _dist_launches(what, rec, want)
+            _dist_no_plain(what, rec)
+        sol = torch.cat([rec["rows"] for rec in recs]).to(ref.solution.device)
+        err = _scaled_err(sol, ref.solution)
+        vs_fp64 = None if name != "sgd" else dict(
+            distributed=_scaled_err(sol, single["fp64"]["sgd"]),
+            single_device=_scaled_err(ref.solution, single["fp64"]["sgd"]))
+        emit("distributed_stochastic", solver=name, ranks=world, comm=recs[0]["comm"],
+             steps=steps, err_vs_single_device=err, tol=DIST["stoch_tol"], vs_fp64=vs_fp64,
+             matvecs=recs[0]["matvecs"], wall_s=[rec["wall_s"] for rec in recs],
+             ms_per_step=[rec["ms_per_step"] for rec in recs],
+             single_device_ms_per_step=single["stochastic_ms"][name],
+             collectives=recs[0]["collectives"], launches_per_rank=recs[0]["launches"],
+             feature_counts=recs[0]["feature_counts"])
+        check(bool(torch.isfinite(sol).all()), f"p2 {name}: finite iterates")
+        check(err <= DIST["stoch_tol"], f"p2 {name}: within {DIST['stoch_tol']} of scale of "
+              f"the single-device run on the same draws ({err})")
+        _record_path(kernels, f"dist_p2_{name}", _sum_counts(recs, "launches"),
+                     _sum_counts(recs, "bf16"))
+    for name, key in (("rff_t_matvec", "sgd_pull"), ("rff_matvec", "sgd_push")):
+        _dist_path_line(kernels, name, "dist_p2_sgd", f"p2 sgd {key}",
+                        [r["rff"][key] for r in ranks])
+
+
+def _dist_primitive_checks(ranks, kernels) -> None:
+    """P = 4: every primitive under ring within 1e-5 of gather, and a
+    matvec's collectives and launches."""
+    world = len(ranks)
+    errs = {}
+    for rk, r in enumerate(ranks):
+        for k in ("mv", "rows_mv", "rows_t_mv", "pair_err", "pair_g", "block_at"):
+            errs[k] = max(errs.get(k, 0.0), _scaled_err(r["ring"][k], r["gather"][k]))
+        for comm, want in (("gather", dict(all_gather=2, ppermute=0, psum=0)),
+                           ("ring", dict(all_gather=0, ppermute=2 * (world - 1), psum=0))):
+            got = {k: r[comm]["mv_counts"]["collectives"][k] for k in want}
+            check(got == want, f"p4 {comm} rank {rk}: collectives a matvec {got} == {want}")
+            per_mv = world if comm == "ring" else 1
+            _dist_launches(f"p4 {comm} rank {rk}: mv", r[comm]["mv_counts"],
+                           dict(gram_matvec=per_mv))
+            for rec in (r[comm]["mv_counts"], r[comm]["counts"]):
+                _dist_no_plain(f"p4 {comm} rank {rk}", rec)
+    emit("distributed_primitives", ranks=world, n=DIST["p4_n"], ring_vs_gather=errs,
+         tol=DIST["prim_tol"], collectives_per_mv={
+             comm: ranks[0][comm]["mv_counts"]["collectives"] for comm in ("gather", "ring")},
+         launches={comm: ranks[0][comm]["counts"]["launches"] for comm in ("gather", "ring")})
+    for k, e in errs.items():
+        check(e <= DIST["prim_tol"], f"p4 {k}: ring within {DIST['prim_tol']} of gather ({e})")
+    windows = [r[comm][w] for r in ranks for comm in ("gather", "ring")
+               for w in ("mv_counts", "counts")]
+    _record_path(kernels, "dist_p4", _sum_counts(windows, "launches"),
+                 _sum_counts(windows, "bf16"))
+
+
+def distributed_phase(torch, kernels: dict, oracle: dict) -> None:
+    """``distributed_solve`` on the card, its ranks spawned on a free
+    localhost port: at P = 1 on NCCL and at P = 2 on gloo (both ranks on
+    the one card: NCCL refuses two ranks on one card, so gloo stages every
+    collective through host memory, and the ranks' kernels time-slice the
+    card: these times measure neither NVLink nor overlap), the CG cell's
+    problem at protein's full n with 65 columns [y | f_X + ε], f_X on 2,048
+    features through ``ShardedFourierFeatures.phi_mv``; CG to tol under
+    gather and ring (and at P = 2 gather_once and auto, whose budget resolves
+    to ring) against the Cholesky oracle and single-device CG, and at an
+    18-iteration budget against single-device CG (ring: with the ring's row
+    sums, ``RingOrderGram``); at P = 2, 200 steps of SGD,
+    SDD and AP against the single-device runs on the same draws; at P = 4
+    on the first DIST["p4_n"] rows, every primitive under ring against
+    gather. Each rank's counts are set to 0 just before each window and read
+    just after; a failed rank fails the phase."""
+    import tempfile
+
+    from repro_torch.core import CG, Gram, make_params, solve
+    from repro_torch.core.rff import FourierFeatures
+    from repro_torch.core.solvers import RowDraws, SGDDraws
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.testing.ranks import RingOrderGram, run_ranks
+
+    t_phase = time.perf_counter()
+    data = regression_dataset("protein", seed=SEED)
+    d, dev = data["d"], torch.device("cuda")
+    hypers = dict(lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1, d=d)
+    inp = _dist_inputs(torch, data, make_params("matern32", device="cpu", **hypers))
+    p = make_params("matern32", device=dev, **hypers)
+    x, xt = inp["x"].to(dev), torch.as_tensor(data["x_test"], device=dev)
+    ff = FourierFeatures(omega=inp["omega"].to(dev), phase=torch.zeros(inp["omega"].shape[0],
+                                                                       device=dev),
+                         signal=p.signal)
+    b = torch.cat([inp["y"].to(dev)[:, None],
+                   ff.phi_mv(x, inp["w"].to(dev)) + inp["eps"].to(dev)], dim=1)
+    op, specs = Gram(x=x, params=p), _dist_specs()
+    single = dict(stochastic={}, stochastic_ms={})
+    for run in ("full", "budget"):
+        t0 = time.perf_counter()
+        single[run] = solve(op, b, specs[run])
+        torch.cuda.synchronize()
+        single[run + "_wall_s"] = time.perf_counter() - t0
+    single["curve"] = {k: solve(op, b, CG(max_iters=k, tol=1e-12)).solution
+                       for k in DIST["ring_budgets"]}
+    single["ring_order"] = {2: solve(RingOrderGram(x=x, params=p, world=2), b,
+                                     specs["budget"]).solution}
+    draws = dict(sgd=SGDDraws(idx=inp["sgd_idx"].to(dev), omega=inp["sgd_omega"].to(dev)),
+                 sdd=RowDraws(idx=inp["rows_idx"].to(dev)), ap=RowDraws(idx=inp["rows_idx"].to(dev)))
+    for name in ("sgd", "sdd", "ap"):
+        t0 = time.perf_counter()
+        single["stochastic"][name] = solve(op, b, specs[name], draws=draws[name])
+        torch.cuda.synchronize()
+        single["stochastic_ms"][name] = 1e3 * (time.perf_counter() - t0) / DIST["steps"]
+    # the float64 plain route on the same inputs and draws: how far each fp32
+    # route's rounding carries the budget's CG and SGD's clipped steps
+    op64 = Gram(x=x.double(), params=make_params("matern32", dtype=torch.float64, device=dev,
+                                                 **hypers), backend="chunked")
+    single["fp64"] = dict(budget=solve(op64, b.double(), specs["budget"]).solution, sgd=solve(
+        op64, b.double(), specs["sgd"],
+        draws=SGDDraws(idx=draws["sgd"].idx, omega=draws["sgd"].omega.double())).solution)
+    ranks, spawn_s = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        path = str(Path(tmp) / "inputs.pt")
+        torch.save(inp, path)
+        torch.cuda.empty_cache()
+        for part, world in (("p1", 1), ("p2", 2), ("p4", 4)):
+            t0 = time.perf_counter()
+            run_ranks(_dist_rank, world, path, tmp, part, timeout=DIST["run_timeout"])
+            spawn_s[part] = time.perf_counter() - t0
+            ranks[part] = [torch.load(Path(tmp) / f"{part}_rank{r}.pt") for r in range(world)]
+    check(ranks["p1"][0]["backend"] == "nccl", f"P = 1 on NCCL, got {ranks['p1'][0]['backend']}")
+    check(all(r["backend"] == "gloo" for r in ranks["p2"]), "P = 2 on one card on gloo")
+    for part in ("p1", "p2"):
+        _dist_cg_checks(torch, part, ranks[part], single, oracle, kernels, p, x, xt)
+    _dist_stochastic_checks(torch, ranks["p2"], single, kernels)
+    _dist_primitive_checks(ranks["p4"], kernels)
+    emit("distributed_phase", seconds=time.perf_counter() - t_phase, ranks_seconds=spawn_s,
+         single_device_iterations=single["full"].iterations)
+
+
 def sparse_phase(torch, kernels: dict) -> dict:
     """bench_solvers' SVGP(SGPR) row at protein's full n through the entry
     points a user calls: ``sgpr`` and ``sgpr_elbo``; ``sgpr_iterative``
@@ -4499,7 +5056,7 @@ def _lm_family_train(torch, kernels: dict, fam: dict, cfg) -> None:
 def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
     """The serving and training paths, each stochastic solver's
     fit → predict at PROFILE_STOCH_STEPS steps, one Thompson acquisition
-    step, the serving path on Nyström CG, one cold solve batch of the
+    step of PROFILE_THOMPSON_ASCENT ascent steps, the serving path on Nyström CG, one cold solve batch of the
     serving engine (a full batch's worth of sample requests on fresh seeds),
     and the sparse and LKGP phases' iterative paths (``sgpr_iterative`` with
     its variance solve, ``inducing_posterior`` with its evaluations,
@@ -4552,10 +5109,10 @@ def profile_phase(torch, engine, sparse: dict, lkgp: dict) -> None:
 
     def thompson():
         thompson_step(tparams, tstate, lambda x: target(x)[:, 0], generator=gen,
-                      spec=SDD(**THOMPSON_SDD),
+                      spec=SDD(**THOMPSON_SDD), ascent_steps=PROFILE_THOMPSON_ASCENT,
                       **{k: cfg[k] for k in ("acq_batch", "num_features", "num_candidates",
-                                             "num_top", "ascent_steps")})
-        return cfg["ascent_steps"]
+                                             "num_top")})
+        return PROFILE_THOMPSON_ASCENT
 
     def precond(pc):
         def run():

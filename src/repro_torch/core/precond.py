@@ -28,7 +28,7 @@ RFF frequencies) come from a ``torch.Generator`` or are injected as
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -86,9 +86,11 @@ class WoodburyPrecond(LinearOperator):
     FORWARD apply M @ v, while ``__call__`` is the preconditioner apply
     r ↦ M⁻¹r (the Woodbury solve) that CG consumes."""
 
-    l: torch.Tensor  # (n, m) low-rank factor, K ≈ L Lᵀ
+    l: torch.Tensor  # (n, m) low-rank factor, K ≈ L Lᵀ (this rank's rows when row-sharded)
     chol: torch.Tensor  # (m, m) lower Cholesky of LᵀL + σ²I
     sigma2: torch.Tensor  # () noise variance
+    # a row-sharded layout's psum: Lᵀr sums over the ranks' rows
+    reduce: Optional[Callable] = None
 
     @property
     def rank(self) -> int:
@@ -111,10 +113,15 @@ class WoodburyPrecond(LinearOperator):
         return torch.sum(self.l * self.l, dim=1) + self.sigma2
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        """M⁻¹ @ r via Woodbury: (r − L (LᵀL + σ²I)⁻¹ Lᵀ r) / σ²."""
+        """M⁻¹ @ r via Woodbury: (r − L (LᵀL + σ²I)⁻¹ Lᵀ r) / σ². On row
+        blocks the (m, s) product Lᵀr is psum-reduced: the apply's only
+        collective."""
         if r.ndim == 1:
             return self(r[:, None])[:, 0]
-        sol = torch.cholesky_solve(self.l.T @ r, self.chol)
+        lt_r = self.l.T @ r
+        if self.reduce is not None:
+            lt_r = self.reduce(lt_r)
+        sol = torch.cholesky_solve(lt_r, self.chol)
         return (r - self.l @ sol) / self.sigma2
 
 
@@ -147,12 +154,18 @@ def jacobi_preconditioner(op) -> JacobiPrecond:
     return JacobiPrecond(d=op.diag_part())
 
 
-def woodbury_from_factor(l: torch.Tensor, sigma2) -> WoodburyPrecond:
-    """(n, m) factor L with K ≈ LLᵀ → the (LLᵀ + σ²I)⁻¹ apply."""
+def woodbury_from_factor(l: torch.Tensor, sigma2, layout=None) -> WoodburyPrecond:
+    """(n, m) factor L with K ≈ LLᵀ → the (LLᵀ + σ²I)⁻¹ apply. The inner
+    m × m factor is built from the whole L; with a row-sharded ``layout``
+    (a ring ``ShardedGram``'s) the apply keeps this rank's rows of L and
+    takes row blocks."""
     m = l.shape[1]
     inner = l.T @ l + sigma2 * torch.eye(m, dtype=l.dtype, device=l.device)
-    return WoodburyPrecond(l=l, chol=cholesky_or_nan(inner),
-                           sigma2=torch.as_tensor(sigma2, dtype=l.dtype, device=l.device))
+    reduce = None if layout is None else layout.reduce
+    return WoodburyPrecond(l=l if reduce is None else layout.iterate(l),
+                           chol=cholesky_or_nan(inner),
+                           sigma2=torch.as_tensor(sigma2, dtype=l.dtype, device=l.device),
+                           reduce=reduce)
 
 
 def _default_generator(generator: Optional[torch.Generator], device) -> torch.Generator:

@@ -12,6 +12,9 @@ kernel.
 
 Random draws come from an explicit ``torch.Generator``, or are injected
 (``omega``, ``w``): the parity tests hand both packages the same draws.
+
+:class:`ShardedFourierFeatures` runs a feature map per shard over a
+``torch.distributed`` mesh, the distributed SGD regulariser's path.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from ..kernels.ops import (
     FEATURE_TRACE_COUNTS, materialised_features, resolve_feature_backend, rff_mv,
     rff_pair_mv, rff_t_mv,
 )
+from . import collectives as coll
 from .kernels_fn import KernelParams, spectral_sample
 from .operators import FeatureOperator
 
@@ -102,6 +106,53 @@ class FourierFeatures(FeatureOperator):
             feats = self._cos_only(x, backend, 2)  # built once, used twice
             return feats @ (feats.T @ u)
         return rff_pair_mv(x, self.omega, u, **self._kw(backend, precision))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFourierFeatures(FeatureOperator):
+    """A :class:`FourierFeatures` run per shard over the ranks of ``mesh``'s
+    ``data_axes`` — twin of the reference's ``shard_map``-ped map
+    (``repro/core/rff.py:129-226``). ``x`` is this rank's row block; every
+    contraction is the inner map's own, so on the card the RFF kernels run
+    per shard:
+
+    * ``phi_mv``      — Φ(x_local) @ w with w whole: row block out, no
+      collective;
+    * ``phi_t_mv``    — Φ(x_local)ᵀ @ u_local, one psum of the (F, s)
+      partials, whole out;
+    * ``phi_pair_mv`` — pullback per shard, psum of the (F, s) intermediate
+      (the only bytes that move), push-forward per shard: row blocks in and
+      out.
+
+    The ``features`` capability is deliberately absent: the (n, F) feature
+    matrix never exists. Built by ``ShardedGram.wrap_features``.
+    """
+
+    inner: FourierFeatures
+    mesh: object  # a torch.distributed DeviceMesh
+    data_axes: tuple = ("data",)
+
+    @property
+    def num_features(self) -> int:
+        return self.inner.num_features
+
+    def phi_mv(self, x: torch.Tensor, w: torch.Tensor, *, backend: Optional[str] = None,
+               precision: Optional[str] = None) -> torch.Tensor:
+        """Φ(x) @ w: this rank's (n/P, s-like) rows."""
+        return self.inner.phi_mv(x, w, backend=backend, precision=precision)
+
+    def phi_t_mv(self, x: torch.Tensor, u: torch.Tensor, *, backend: Optional[str] = None,
+                 precision: Optional[str] = None) -> torch.Tensor:
+        """Φ(X)ᵀ @ U over every rank's rows: (F, s-like), whole."""
+        t = self.inner.phi_t_mv(x, u, backend=backend, precision=precision)
+        return coll.psum(t, coll.axis_group(self.mesh, self.data_axes))
+
+    def phi_pair_mv(self, x: torch.Tensor, u: torch.Tensor, *,
+                    backend: Optional[str] = None,
+                    precision: Optional[str] = None) -> torch.Tensor:
+        """Φ(x) (Φ(X)ᵀ U): this rank's rows of the pair."""
+        t = self.phi_t_mv(x, u, backend=backend, precision=precision)
+        return self.inner.phi_mv(x, t, backend=backend, precision=precision)
 
 
 def make_fourier_features(

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..operators import LinearOperator
+from ..operators import LinearOperator, layout_of
 
 #: non-finite residual/iterate/payload detected (NaN or Inf)
 FLAG_NONFINITE = 1
@@ -95,15 +95,31 @@ def as_matrix_rhs(b: torch.Tensor) -> tuple:
     return b, False
 
 
-def _col_norm(a: torch.Tensor) -> torch.Tensor:
+def _col_norm(a: torch.Tensor, reduce=None) -> torch.Tensor:
     """‖a‖₂ per column (s,). On the card the sum of squares runs in float64
     and is rounded once, so a column's norm is the same at every width s (the
     float32 ``linalg.norm`` over dim 0 rounds some columns by the width). On
     the CPU the float32 norm stays: the plain matvecs there round by the
-    width anyway."""
+    width anyway. With ``reduce`` (a row-sharded layout's) ``a`` is this
+    rank's rows: the squares of the ranks' norms, taken as above, are
+    psum-reduced in float64 and rounded once, every rank then holding the
+    same bits; on one rank the norm is the unsharded one exactly
+    (√(x²) = |x| in IEEE arithmetic)."""
     if a.is_cuda:
-        return torch.linalg.vector_norm(a, dim=0, dtype=torch.float64).to(a.dtype)
-    return torch.linalg.norm(a, dim=0)
+        norm = torch.linalg.vector_norm(a, dim=0, dtype=torch.float64)
+    else:
+        norm = torch.linalg.norm(a, dim=0)
+    if reduce is not None:
+        norm = torch.sqrt(reduce(torch.square(norm.double())))
+    return norm.to(a.dtype)
+
+
+def _col_finite(a: torch.Tensor, reduce=None) -> torch.Tensor:
+    """(s,) bool: column all finite — over every rank's rows with ``reduce``."""
+    if reduce is None:
+        return torch.all(torch.isfinite(a), dim=0)
+    bad = torch.sum(~torch.isfinite(a), dim=0, dtype=torch.float64)
+    return reduce(bad) == 0
 
 
 def finalize(
@@ -122,19 +138,22 @@ def finalize(
     relative-residual tolerance.
 
     Solvers that track the residual pass it as ``residual`` and skip a full
-    matvec; otherwise it is recomputed and ``matvecs`` grows by one. On top of
+    matvec; otherwise it is recomputed and ``matvecs`` grows by one. ``v`` and
+    ``b`` lie in the operator's layout (row blocks under a ring
+    ``ShardedGram``, whose reductions then sum over the ranks). On top of
     the solver's ``flags`` this adds the final payload check — a non-finite
     solution or residual column gets ``FLAG_NONFINITE`` — and clears the
     advisory stagnation flag of columns that reached the tolerance. Any flag
     forces ``converged=False``.
     """
+    reduce = layout_of(op).reduce
     if residual is None:
         residual = b - op.mv(v)
         matvecs = matvecs + 1
-    rn = _col_norm(residual)
-    bn = torch.clamp(_col_norm(b), min=1e-30)
+    rn = _col_norm(residual, reduce)
+    bn = torch.clamp(_col_norm(b, reduce), min=1e-30)
     rel = rn / bn
-    col_ok = torch.all(torch.isfinite(v), dim=0) & torch.isfinite(rn)
+    col_ok = _col_finite(v, reduce) & torch.isfinite(rn)
     f = (
         torch.zeros(rn.shape, dtype=torch.int32, device=rn.device)
         if flags is None

@@ -18,6 +18,12 @@ On the card the column dots and norms accumulate in float64
 (:func:`_col_dot`, ``base._col_norm``), ‖b‖ and ``finalize``'s residuals
 among them, so a column's trajectory, its stop and its reported residual do
 not depend on how many columns share the solve.
+
+On a row-sharded operator (a ring ``ShardedGram``) the right-hand side, warm
+start and iterates are this rank's row blocks (``layout_of(op).iterate``),
+the dots and norms psum-reduce their partials (float64 on the card), and the
+preconditioner applies to row blocks; every rank then takes the same branch
+at the loop's host sync.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from .base import (
     _col_norm,
     as_matrix_rhs,
     finalize,
+    layout_of,
 )
 
 #: relative improvement of the best-so-far residual that resets the stagnation
@@ -47,7 +54,7 @@ def _flag(cond: torch.Tensor, bit: int) -> torch.Tensor:
     return torch.where(cond, bit, 0).to(torch.int32)
 
 
-def _col_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _col_dot(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
     """Σ_rows a ⊙ b per column (s,). On the card the products' sum runs in
     float64 and is rounded once: the float32 sum over dim 0 of an (n, s)
     tensor splits its work by the width s and rounds each column by it, so a
@@ -55,10 +62,11 @@ def _col_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     serving engine's payloads with their batch's bucket. The Gram kernel's
     columns are independent of the width, so with these dots a column's CG
     trajectory on the card is too. On the CPU the float32 sum stays: the
-    plain matvecs there round by the width anyway."""
-    if a.is_cuda:
-        return torch.sum(a * b, dim=0, dtype=torch.float64).to(a.dtype)
-    return torch.sum(a * b, dim=0)
+    plain matvecs there round by the width anyway. With ``reduce`` (a
+    row-sharded layout's) the partials of this rank's rows are psum-reduced
+    in the same precision: on the card in float64, rounded once."""
+    dot = torch.sum(a * b, dim=0, dtype=torch.float64 if a.is_cuda else a.dtype)
+    return (dot if reduce is None else reduce(dot)).to(a.dtype)
 
 
 def solve_cg(
@@ -76,19 +84,22 @@ def solve_cg(
     ``JacobiPrecond`` or any callable); without it z = r. Per-column
     freezing: converged and flagged columns take ``alpha = 0`` and stop
     moving, while the others iterate on."""
+    layout = layout_of(op)
+    red = layout.reduce
     b2, squeeze = as_matrix_rhs(b)
+    b2 = layout.iterate(b2)
     if x0 is None:
         v = torch.zeros_like(b2)
         r = b2  # v0 == 0 ⇒ the initial residual is free (no A·0 matvec)
         init_mv = 0
     else:
-        v = x0[:, None] if x0.ndim == 1 else x0
+        v = layout.iterate(x0[:, None] if x0.ndim == 1 else x0)
         r = b2 - op.mv(v)
         init_mv = 1
     z = r if precond is None else precond(r)
-    bn = torch.clamp(_col_norm(b2), min=1e-30)
-    rn = _col_norm(r)
-    rz = _col_dot(r, z)
+    bn = torch.clamp(_col_norm(b2, red), min=1e-30)
+    rn = _col_norm(r, red)
+    rz = _col_dot(r, z, red)
     # a non-finite initial residual is flagged before the first iteration:
     # NaN > tol is False, so an unflagged NaN column would read as converged
     fl = _flag(~(torch.isfinite(rn) & torch.isfinite(rz)), FLAG_NONFINITE)
@@ -101,7 +112,7 @@ def solve_cg(
         if not bool(live.any()):  # the one host sync of the iteration
             break
         ap = op.mv(p)
-        pap = _col_dot(p, ap)
+        pap = _col_dot(p, ap, red)
         # in-loop health checks on (s,) reductions: NaN/Inf in ap surfaces in
         # pᵀAp, and pᵀAp ≤ 0 on an active column is breakdown. Flagged columns
         # freeze BEFORE their update is applied.
@@ -114,8 +125,8 @@ def solve_cg(
         v = v + alpha[None, :] * p
         r = r - alpha[None, :] * ap
         z = r if precond is None else precond(r)
-        rz_new = _col_dot(r, z)
-        rn_new = _col_norm(r)
+        rz_new = _col_dot(r, z, red)
+        rn_new = _col_norm(r, red)
         # the update itself can overflow (Inf in ap with a finite pᵀAp)
         post_bad = live & ~(torch.isfinite(rn_new) & torch.isfinite(rz_new))
         fl = fl | _flag(post_bad, FLAG_NONFINITE)

@@ -121,6 +121,14 @@ class _JitteredOp(LinearOperator):
         a = self.inner.dense()
         return a + self.eps * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
 
+    def prepare_for_solve(self) -> "_JitteredOp":
+        # explicit (not via __getattr__): forwarding would return the prepared
+        # *inner* and silently drop the jitter
+        prep = getattr(self.inner, "prepare_for_solve", None)
+        if callable(prep):
+            return dataclasses.replace(self, inner=prep())
+        return self
+
     def __getattr__(self, name: str):
         if name.startswith("__") or name in ("inner", "eps"):
             raise AttributeError(name)

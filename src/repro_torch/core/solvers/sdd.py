@@ -8,6 +8,10 @@ iterate converges. Nesterov momentum and geometric iterate averaging with
 r = 100/num_steps (§4.2.3). One row-panel matvec ``rows_mv`` per step, the
 row-panel kernel on the card.
 
+On a sharded operator the iterates lie in its layout: under ring each rank
+holds its row block, ``look[idx]`` is a masked psum and the velocity's
+scatter lands on the rows each rank holds.
+
 The reference's ``lax.scan`` is a Python loop with no host sync inside; a
 column whose block residual turns non-finite is flagged and frozen by
 ``torch.where``. The coordinate blocks come from a ``torch.Generator`` in one
@@ -21,7 +25,7 @@ import torch
 
 from .base import (
     LinearOperator, RowDraws, SolveResult, as_matrix_rhs, check_draws, draw_rows,
-    finalize, frozen_update,
+    finalize, frozen_update, layout_of,
 )
 
 
@@ -40,8 +44,9 @@ def solve_sdd(
     tol: float = 1e-2,
 ) -> SolveResult:
     """Solve (K+σ²I)V = b by stochastic dual descent. b: (n,) or (n,s)."""
+    layout = layout_of(op)
     b2, squeeze = as_matrix_rhs(b)
-    n, s = b2.shape
+    n, s = op.shape[0], b2.shape[1]
     sigma2 = op.noise
     beta = step_size_times_n / n
     r = (100.0 / num_steps) if averaging is None else averaging
@@ -49,7 +54,8 @@ def solve_sdd(
         draws = draw_rows(n, num_steps, batch_size, generator=generator, device=b2.device)
     check_draws(draws.idx, num_steps, batch_size, "sdd")
 
-    alpha = torch.zeros_like(b2) if x0 is None else (x0[:, None] if x0.ndim == 1 else x0)
+    alpha = layout.iterate(torch.zeros_like(b2) if x0 is None else (
+        x0[:, None] if x0.ndim == 1 else x0))
     vel = torch.zeros_like(alpha)
     avg = alpha
     fl = torch.zeros((s,), dtype=torch.int32, device=b2.device)
@@ -57,13 +63,14 @@ def solve_sdd(
         idx = draws.idx[t]
         look = alpha + momentum * vel  # Nesterov lookahead
         # (k_i + σ² e_i)ᵀ look − b_i: the full dual gradient's coordinates
-        resid = op.rows_mv(idx, look) + sigma2 * look[idx] - b2[idx]  # (p, s)
+        resid = (op.rows_mv(idx, look) + sigma2 * layout.take(look, idx)
+                 - layout.take(b2, idx))  # (p, s)
         fl, apply = frozen_update(fl, torch.all(torch.isfinite(resid), dim=0))
         apply = apply[None, :]
         # duplicate indices add up, as the reference's .at[idx].add does
         g_scaled = (n / batch_size) * resid
-        vel_new = (momentum * vel).index_add_(0, idx, -beta * g_scaled)
+        vel_new = layout.index_add_(momentum * vel, idx, -beta * g_scaled)
         vel = torch.where(apply, vel_new, vel)
         alpha = torch.where(apply, alpha + vel, alpha)
         avg = torch.where(apply, r * alpha + (1.0 - r) * avg, avg)
-    return finalize(op, avg, b2, num_steps, squeeze, tol=tol, flags=fl)
+    return finalize(op, avg, layout.iterate(b2), num_steps, squeeze, tol=tol, flags=fl)

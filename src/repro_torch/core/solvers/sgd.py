@@ -17,6 +17,13 @@ Both terms are pair primitives, one dispatch each: the data-fit term
 Nesterov momentum, gradient clipping at ``grad_clip·n``, and arithmetic
 (Polyak) averaging over the last ``average_tail`` of the steps (§3.3).
 
+On a sharded operator the regulariser's fresh map is wrapped by the
+operator's ``wrap_features`` (reference ``sgd.py:90-97``) and runs per shard
+on this rank's rows; the iterate lies in the operator's layout (row blocks
+under ring, whole under gather, where the regulariser's rows are
+all-gathered back), ``b[idx]`` is read through the layout, and the gradient
+norms psum-reduce over the ranks.
+
 The reference's ``lax.scan`` is a Python loop here with no host sync inside:
 a column whose gradient turns non-finite is flagged and frozen by
 ``torch.where``. Random draws, the minibatch indices and each step's
@@ -34,7 +41,8 @@ from ..kernels_fn import spectral_sample
 from ..operators import supports
 from ..rff import FourierFeatures
 from .base import (
-    LinearOperator, SolveResult, as_matrix_rhs, check_draws, finalize, frozen_update,
+    LinearOperator, SolveResult, _col_norm, as_matrix_rhs, check_draws, finalize,
+    frozen_update, layout_of,
 )
 
 
@@ -51,7 +59,7 @@ class SGDDraws:
 def draw_sgd(op, num_steps: int, batch_size: int, num_features: int, *,
              generator: torch.Generator) -> SGDDraws:
     """All of an SGD solve's draws at once, on the operator's device."""
-    n, d = op.x.shape
+    n, d = op.shape[0], op.x.shape[1]
     idx = torch.randint(0, n, (num_steps, batch_size), generator=generator,
                         device=op.x.device)
     omega = spectral_sample(op.params, num_steps * num_features, d, generator=generator)
@@ -77,13 +85,15 @@ def solve_sgd(
 ) -> SolveResult:
     """Solve (K+σ²I)V = b_data + σ²δ by primal SGD. b/delta: (n,) or (n,s).
     The draws come from ``draws`` if given, else from ``generator``."""
+    layout = layout_of(op)
     b2, squeeze = as_matrix_rhs(b)
-    n, s = b2.shape
+    n, s = op.shape[0], b2.shape[1]
     sigma2 = op.noise
-    delta2 = torch.zeros_like(b2) if delta is None else (
+    delta2 = layout.iterate(torch.zeros_like(b2) if delta is None else (
         delta[:, None] if delta.ndim == 1 else delta
-    )
-    v = torch.zeros_like(b2) if x0 is None else (x0[:, None] if x0.ndim == 1 else x0)
+    ))
+    v = layout.iterate(torch.zeros_like(b2) if x0 is None else (
+        x0[:, None] if x0.ndim == 1 else x0))
     if draws is None:
         draws = draw_sgd(op, num_steps, batch_size, num_features, generator=generator)
     check_draws(draws.idx, num_steps, batch_size, "sgd")
@@ -94,6 +104,7 @@ def solve_sgd(
     feat_backend = getattr(op, "backend", "auto") or "auto"
     feat_precision = getattr(op, "precision", "fp32") or "fp32"
     fused_pair = supports(op, "rows_pair_mv")
+    wrap = op.wrap_features if supports(op, "wrap_features") else (lambda ff: ff)
     phase = torch.zeros((num_features,), dtype=b2.dtype, device=b2.device)
 
     mom = torch.zeros_like(v)
@@ -103,15 +114,17 @@ def solve_sgd(
     for t in range(num_steps):
         idx = draws.idx[t]
         look = v + momentum * mom  # Nesterov lookahead
+        b_idx = layout.take(b2, idx)
         if fused_pair:
-            _, g_raw = op.rows_pair_mv(idx, look, b2[idx])
+            _, g_raw = op.rows_pair_mv(idx, look, b_idx)
         else:
-            g_raw = op.rows_t_mv(idx, op.rows_mv(idx, look) - b2[idx])
+            g_raw = op.rows_t_mv(idx, op.rows_mv(idx, look) - b_idx)
         g_fit = (n / batch_size) * g_raw
-        ff = FourierFeatures(omega=draws.omega[t], phase=phase, signal=op.params.signal,
-                             backend=feat_backend, precision=feat_precision)
-        g = g_fit + sigma2 * ff.phi_pair_mv(op.x, look - delta2)
-        gn = torch.linalg.norm(g, dim=0, keepdim=True)
+        ff = wrap(FourierFeatures(omega=draws.omega[t], phase=phase, signal=op.params.signal,
+                                  backend=feat_backend, precision=feat_precision))
+        g_reg = layout.from_local(ff.phi_pair_mv(op.x, layout.local(look - delta2)))
+        g = g_fit + sigma2 * g_reg
+        gn = _col_norm(g, layout.reduce)[None, :]
         # a NaN/Inf anywhere in a column's gradient surfaces in its norm;
         # flagged columns freeze so one poisoned RHS cannot spoil the batch
         fl, apply = frozen_update(fl, torch.isfinite(gn[0]))
@@ -123,5 +136,5 @@ def solve_sgd(
             cnt += 1.0
             avg = torch.where(apply, avg + (v - avg) / cnt, avg)
     v_out = avg if cnt > 0 else v
-    return finalize(op, v_out, b2 + sigma2 * delta2, num_steps, squeeze, tol=tol,
-                    flags=fl)
+    return finalize(op, v_out, layout.iterate(b2) + sigma2 * delta2, num_steps, squeeze,
+                    tol=tol, flags=fl)

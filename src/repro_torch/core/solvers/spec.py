@@ -35,7 +35,7 @@ from typing import Any, Callable, ClassVar, Dict, Optional, Tuple, Type, Union
 import torch
 
 from ...kernels.ops import BACKENDS, FEATURE_BACKENDS, PRECISIONS
-from ..operators import require_capabilities
+from ..operators import layout_of, require_capabilities
 from ..precond import cholesky_or_nan, jacobi_preconditioner, woodbury_from_factor
 from .ap import solve_ap
 from .base import SolveResult, as_matrix_rhs
@@ -101,7 +101,7 @@ class _FactorPrecondSpec(_JsonSpecMixin):
         )
         l = op.precond_factor(self.rank, generator=generator, draws=draws,
                               method=self.method)
-        return woodbury_from_factor(l, op.noise)
+        return woodbury_from_factor(l, op.noise, layout=layout_of(op))
 
 
 @register_precond("nystrom")
@@ -466,6 +466,12 @@ def solve(
     if x0 is not None:
         _validate_x0(op, b, x0)
     require_capabilities(op, s.needs, consumer=f"solver {s.name!r}")
+    prep = getattr(op, "prepare_for_solve", None)
+    if callable(prep):
+        # per-solve setup, once, outside the solver's loop — e.g.
+        # ShardedGram(gather_once=True) gathers its rows here instead of on
+        # every matvec
+        op = prep()
     return s.run(op, b, generator=generator, draws=draws, x0=x0, delta=delta)
 
 

@@ -77,6 +77,12 @@ class FaultyOperator(LinearOperator):
     def dense(self) -> torch.Tensor:
         return self.inner.dense()
 
+    def prepare_for_solve(self) -> "FaultyOperator":
+        prep = getattr(self.inner, "prepare_for_solve", None)
+        if callable(prep):
+            return dataclasses.replace(self, inner=prep())
+        return self
+
     def __getattr__(self, name: str):
         if name.startswith("__") or name in ("inner", "columns", "value", "min_width"):
             raise AttributeError(name)

@@ -1519,3 +1519,114 @@ def test_encdec_and_vlm_on_card_match_the_cpu(card, arch):
     (lc, tc), (lg, tg) = out["cpu"], out["cuda"]
     assert (lg - lc).abs().max().item() <= 1e-4 * max(1.0, lc.abs().max().item())
     assert torch.equal(tg, tc)
+
+
+# ---------------------------------------------------------------------------
+# the distributed solve on the card: one rank on NCCL, two ranks sharing the
+# card on gloo (NCCL refuses two ranks on one card), spawned
+# ---------------------------------------------------------------------------
+
+DIST_N, DIST_D, DIST_S = 4096, 9, 8
+#: ShardedGram's primitives against the single-device path, of max(1, scale)
+DIST_TOL = 1e-5
+#: ring's 18 CG iterations against single-device CG with the ring's row sums
+#: (``RingOrderGram``), of max(1, scale)
+DIST_CG_TOL = 1e-4
+
+
+def _dist_problem():
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1.0, 1.0, size=(DIST_N, DIST_D)).astype(np.float32)
+    v = rng.normal(size=(DIST_N, DIST_S)).astype(np.float32)
+    return x, v
+
+
+def _dist_params():
+    return make_params("matern32", lengthscale=1.5, signal=1.0, noise=0.1, d=DIST_D,
+                       device="cuda")
+
+
+def _dist_rank(rank, world, port, x, v, out_dir):
+    import torch.distributed as dist
+
+    from repro_torch.core import ShardedGram, distributed_solve, shard_training_rows
+    from repro_torch.core import collectives as coll
+    from repro_torch.testing.ranks import join_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = join_mesh(rank, world, port, "cuda", timeout=120)
+    xs = shard_training_rows(mesh, torch.from_numpy(x).cuda())
+    v = torch.from_numpy(v).cuda()
+    p = _dist_params()
+    res = {"backend": str(dist.get_backend())}
+    for comm, once in (("gather", False), ("gather", True), ("ring", False)):
+        op = ShardedGram(x=xs, params=p, mesh=mesh, comm=comm,
+                         gather_once=once).prepare_for_solve()
+        coll.reset_collective_counts()
+        out = op.mv(v if comm == "gather" else op.layout.iterate(v))
+        tag = "gather_once" if once else comm
+        res[tag] = coll.all_gather_rows(out, op._group).cpu() if comm == "ring" else out.cpu()
+        res[tag + "/staged"] = coll.collective_counts()["staged_bytes"]
+        r = distributed_solve(p, xs, v, mesh, CG(max_iters=18, tol=1e-12), comm=comm,
+                              gather_once=once)
+        sol = coll.all_gather_rows(r.solution, op._group) if comm == "ring" else r.solution
+        res[tag + "/cg"] = (sol.cpu(), r.iterations, r.matvecs)
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _dist_run(world, tmp_path):
+    from repro_torch.testing.ranks import run_ranks
+
+    x, v = _dist_problem()
+    torch.cuda.empty_cache()
+    run_ranks(_dist_rank, world, x, v, str(tmp_path), timeout=300)
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+
+
+@pytest.mark.gpu
+def test_distributed_solve_on_one_nccl_rank_matches_solve_on_card(card, tmp_path):
+    x, v = _dist_problem()
+    op = Gram(x=torch.from_numpy(x).cuda(), params=_dist_params())
+    want_mv = op.mv(torch.from_numpy(v).cuda()).double().cpu()
+    want = solve(op, torch.from_numpy(v).cuda(), CG(max_iters=18, tol=1e-12))
+    (res,) = _dist_run(1, tmp_path)
+    assert res["backend"] == "nccl"
+    scale = max(1.0, want.solution.abs().max().item())
+    for tag in ("gather", "gather_once", "ring"):
+        assert res[tag + "/staged"] == 0
+        assert (res[tag].double() - want_mv).abs().max().item() <= DIST_TOL * max(
+            1.0, want_mv.abs().max().item())
+        sol, iters, matvecs = res[tag + "/cg"]
+        assert (iters, matvecs) == (18, 18)
+        err = (sol.double() - want.solution.double().cpu()).abs().max().item()
+        assert err <= DIST_TOL * scale, (tag, err)
+
+
+@pytest.mark.gpu
+def test_distributed_mv_on_two_ranks_sharing_the_card(card, tmp_path):
+    from repro_torch.testing.ranks import RingOrderGram
+
+    x, v = _dist_problem()
+    ring_order = solve(RingOrderGram(x=torch.from_numpy(x).cuda(), params=_dist_params(),
+                                     world=2),
+                       torch.from_numpy(v).cuda(), CG(max_iters=18, tol=1e-12)).solution
+    ring_order = ring_order.double().cpu()
+    ranks = _dist_run(2, tmp_path)
+    for res in ranks:
+        assert res["backend"] == "gloo"
+        ref = res["gather"].double()
+        scale = max(1.0, ref.abs().max().item())
+        for tag in ("gather_once", "ring"):
+            assert (res[tag].double() - ref).abs().max().item() <= DIST_TOL * scale, tag
+            assert res[tag + "/staged"] > 0  # gloo stages CUDA tensors through the host
+        # gather_once contracts the same rows with the same launches as
+        # gather: the same CG; ring sums a row over two launches, which fp32
+        # CG carries far within 18 iterations: held against single-device CG
+        # with the ring's row sums
+        got, want = res["gather_once/cg"][0].double(), res["gather/cg"][0].double()
+        assert (got - want).abs().max().item() <= DIST_TOL * max(1.0, want.abs().max().item())
+        assert all(res[tag + "/cg"][1:] == (18, 18) for tag in ("gather", "gather_once", "ring"))
+        got = res["ring/cg"][0].double()
+        err = (got - ring_order).abs().max().item() / max(1.0, ring_order.abs().max().item())
+        assert err <= DIST_CG_TOL, err

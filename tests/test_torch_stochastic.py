@@ -158,6 +158,23 @@ def test_ap_solve_spends_zero_full_matvecs(toy_regression):
     assert float(res.rel_residual.max()) < 1.0  # the tracked residual is real
 
 
+@pytest.mark.parametrize("x0_ndim", [1, 2])
+def test_ap_warm_start_leaves_x0_as_it_was(toy_regression, x0_ndim):
+    """AP scatters into its iterate in place: a warm start is copied first,
+    and the warm-started solve is the cold one's continuation."""
+    op = _port(toy_regression)
+    y = torch.from_numpy(np.array(toy_regression["y"]))
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    x0 = solve(op, y, AP(num_steps=5, **AP_KW), generator=gen()).solution
+    x0 = x0 if x0_ndim == 1 else x0[:, None]
+    kept = x0.clone()
+    res = solve(op, y if x0_ndim == 1 else y[:, None], AP(num_steps=5, **AP_KW), x0=x0,
+                generator=gen())
+    assert torch.equal(x0, kept)
+    assert not torch.equal(res.solution, x0)
+    assert res.matvecs == 1  # the warm start's residual b − A x0
+
+
 @pytest.mark.parametrize("spec,rows_per_step", [
     (SGD(num_steps=15, batch_size=32, num_features=16), 2),
     (SDD(num_steps=15, batch_size=32), 1),
