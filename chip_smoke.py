@@ -104,15 +104,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores,
-#: and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-#: and TF32 on the tensor cores (dense), the SFU's 16 operations per clock
+if str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
+# H100 SXM peaks (NVIDIA data sheet, 700 W), from the roofline's own table so
+# that the kernels' bounds and the roofline cannot drift apart: fp32 outside
+# the tensor cores, HBM3 bandwidth, TF32 and bf16 on the tensor cores (dense)
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES, PEAK_FLOPS as PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
+)
+
+#: the SFU's 16 operations per clock
 #: per SM, at the 1.98 GHz that the fp32 peak implies (132 SMs x 128 lanes x
 #: 2 flops); the SFU operations per Gram entry of each kind: exp, sqrt for
 #: the Matérn kinds, and the reciprocal of Matérn-5/2's division by 3
-PEAK_TF32_FLOPS = 495e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 SFU_OPS = {"se": 1, "matern12": 2, "matern32": 2, "matern52": 3}
 #: and per backward pair, k' = dk/d(d2): exp, sqrt for the Matérn kinds, and
@@ -226,6 +230,17 @@ MICRO_LOSS_RTOL, MICRO_GRAD_TOL = 1e-6, 1e-5
 FLASH_TOL, LM_LOGIT_TOL, CONSIST_RTOL, CONSIST_ATOL, LM_MARGIN = 2e-3, 1e-3, 5e-2, 5e-3, 10.0
 #: decode steps of the profiled decode window
 PROFILE_DECODE_STEPS = 8
+#: the sharded LM (lm_sharded): one NCCL rank on a (1, 1) mesh over ("data",
+#: "model"). LM's llama3-8b in bf16 laid out by ``distribute_model_`` under
+#: "tp", a prefill of LM's batch × prompt and ``decode`` greedy steps under
+#: ``use_mesh``, its logits within ``tol`` of the unsharded bf16 run's (of
+#: max(1, scale)), its greedy tokens equal where the unsharded top-2 margin
+#: exceeds LM_MARGIN × that difference; olmo-1b at full width with
+#: LM_TRAIN_SMALL's layers, one train step under "fsdp" on its batch, the
+#: loss and every gradient within ``train_tol`` of the unsharded step's scale
+LM_SHARDED = dict(decode=16, tol=1e-3, train_tol=1e-5, run_timeout=600, group_timeout=300)
+#: times the LM phases measured, read by the roofline line of lm_sharded
+MEASURED: dict = {}
 #: The LM families (the lm_families phase), fp32: each served by ``generate``
 #: on LM_FAMILY_SERVE's batch of planted-bigram prompts, then freed before the
 #: next is built. mamba2-130m at full width and depth, dbrx-132b and
@@ -403,8 +418,6 @@ BF16_TOL, BF16_FP32_TOL, BF16_SOLVE_TOL = 2e-3, 5e-2, 8e-2
 #: kernel route's AP is held within AP_REF_RATIO of it, SGD and SDD within
 #: BF16_SOLVE_TOL
 AP_REF_GAP, AP_REF_RATIO = 0.2343, 1.5
-#: bf16 on the tensor cores, dense (H100 SXM, 700 W)
-PEAK_BF16_FLOPS = 989e12
 #: flash attention on bf16 inputs against its bf16 plain version (both round
 #: their outputs to bf16, and p is rounded against the running max in the
 #: kernel, the final one in the plain version: a bf16 ulp of an output is
@@ -558,6 +571,7 @@ def main() -> int:
     lm_serve_phase(torch, kernels)
     lm_train_phase(torch, kernels)
     lm_families_phase(torch, kernels)
+    lm_sharded_phase(torch, kernels, smi)
     profile_phase(torch, engine, sparse, lkgp)
     large_n_phase(torch)
 
@@ -4258,6 +4272,7 @@ def _lm_serve_bf16(torch, kernels, cfg, model, tokens, toks, logits_fp32, margin
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decoded = b * (gen_n - 1)
     _record_path(kernels, "lm_serve_bf16", launches, bf16)
+    MEASURED["lm_serve_bf16_prefill_s"] = timings["prefill_s"]
     with torch.no_grad():
         cache = model_lib.zero_cache(cfg, b, prompt + gen_n)
         logits16 = model_lib.prefill(cfg, model, {"tokens": tokens}, cache)[0][:, -1]
@@ -4442,6 +4457,7 @@ def lm_train_phase(torch, kernels: dict) -> None:
          first5_mean=first, last5_mean=last, drop=first - last, min_drop=LM_TRAIN_DROP,
          straggler=dict(median_s=rep.median_s, slow_steps=rep.slow_steps),
          launches=launches, attention_dispatches=attention)
+    MEASURED["lm_train_median_step_s"] = med
     check(len(losses) == steps and all(math.isfinite(x) for x in losses), "every loss finite")
     check(first - last >= LM_TRAIN_DROP,
           f"the loss falls by {LM_TRAIN_DROP}: first 5 {first}, last 5 {last}")
@@ -4756,6 +4772,231 @@ def lm_families_phase(torch, kernels: dict) -> None:
         _lm_family(torch, kernels, fam)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _sharded_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """The lm_sharded phase's rank: joins a (1, 1) ("data", "model") mesh on
+    the card over NCCL and runs the sharded serving and training checks'
+    measurements (``_sharded_serve``, ``_sharded_train``)."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=LM_SHARDED["group_timeout"]))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    out = dict(backend=dist.get_backend(), serve=_sharded_serve(torch, mesh),
+               train=_sharded_train(torch, mesh))
+    Path(out_dir, "lm_sharded.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def _sharded_serve(torch, mesh) -> dict:
+    """llama3-8b in bf16: the unsharded prefill and greedy decode, then the
+    same model laid out in place under "tp" and the same prompt served
+    under ``use_mesh``, with the launch counts read just around the sharded
+    prefill and then around its decode steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.sharding_ctx import use_mesh
+
+    cfg = get_config(LM["arch"])
+    b, prompt, n = LM["batch"], LM["prompt"], LM_SHARDED["decode"]
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                        dtype=torch.bfloat16)
+    tokens = token_batch(SEED, 0, b, prompt, cfg.vocab_size)["tokens"]
+
+    def serve(model, cache, place):
+        logits, toks = [], []
+        lg, cache = model_lib.prefill(cfg, model, place({"tokens": tokens}), cache)
+        for i in range(n + 1):
+            lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+            logits.append(lg[:, -1].float())
+            toks.append(torch.argmax(lg[:, -1], dim=-1)[:, None])
+            if i < n:
+                lg, cache = model_lib.decode_step(cfg, model, place({"t": toks[-1]})["t"],
+                                                  cache, prompt + i)
+        torch.cuda.synchronize()
+        return torch.stack(logits, 1), torch.cat(toks, 1)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref_logits, ref_toks = serve(model, model_lib.zero_cache(cfg, b, prompt + n + 1),
+                                     lambda d: d)
+        plain_s = time.perf_counter() - t0
+        sharding.distribute_model_(model, cfg, mesh, "tp")
+        cache = sharding.distribute_cache(model_lib.zero_cache(cfg, b, prompt + n + 1), mesh, b)
+        rules = sharding.activation_rules(mesh, "tp")
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules):
+            placed = sharding.distribute_batch({"tokens": tokens}, mesh)
+            lg, cache = model_lib.prefill(cfg, model, placed, cache)
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_counts = dict(launches=_read_counts()[0], bf16=_read_bf16_counts(),
+                              attention=dict(ops.ATTENTION_TRACE_COUNTS))
+        # the whole run again, the decode steps counted on their own
+        cache = sharding.distribute_cache(model_lib.zero_cache(cfg, b, prompt + n + 1), mesh, b)
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules):
+            logits, toks = serve(model, cache, lambda d: sharding.distribute_batch(d, mesh))
+        sharded_s = time.perf_counter() - t0
+    diff = (logits - ref_logits).abs()
+    top2 = torch.topk(ref_logits, 2, dim=-1)[0]
+    margins = top2[..., 0] - top2[..., 1]
+    return dict(arch=cfg.name, batch=b, prompt=prompt, decode_steps=n,
+                logit_max_abs_diff=diff.max().item(),
+                logit_scale=max(1.0, ref_logits.abs().max().item()),
+                bit_equal=bool(torch.equal(logits, ref_logits)),
+                tokens_equal=bool(torch.equal(toks, ref_toks)),
+                tokens=toks.tolist(), ref_tokens=ref_toks.tolist(), margins=margins.tolist(),
+                prefill_counts=prefill_counts, sharded_prefill_s=prefill_s,
+                sharded_serve_s=sharded_s, unsharded_serve_s=plain_s,
+                placements={k: str(v.placements) for k, v in
+                            (("wq", model.layers[0].mixer["wq"]),
+                             ("mlp_up", model.layers[0].mlp["up"]))})
+
+
+def _sharded_train(torch, mesh) -> dict:
+    """olmo-1b at full width with LM_TRAIN_SMALL's layers, fp32: one train
+    step's loss and gradients unsharded, then on a copy laid out under
+    "fsdp" within ``use_mesh``, the counts read just around it."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.sharding_ctx import use_mesh
+    from repro_torch.train import AdamWConfig, adamw_update, init_opt_state
+
+    cfg = dataclasses.replace(get_config(LM_TRAIN["arch"]), num_layers=LM_TRAIN_SMALL["layers"])
+    b, s = LM_TRAIN_SMALL["batch"], LM_TRAIN_SMALL["seq"]
+    model = model_lib.init_model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = token_batch(SEED, 0, b, s, cfg.vocab_size)
+    smodel = sharding.distribute_model_(copy.deepcopy(model), cfg, mesh, "fsdp")
+    loss, grads = loss_and_grads(cfg, model, batch)
+    opt_cfg = AdamWConfig(lr=LM_TRAIN["lr"])
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    with use_mesh(mesh, sharding.activation_rules(mesh, "fsdp")):
+        sloss, sgrads = loss_and_grads(cfg, smodel, sharding.distribute_batch(batch, mesh))
+        smodel, _ = adamw_update(smodel, sgrads, init_opt_state(smodel, opt_cfg), opt_cfg)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = dict(launches=_read_counts()[0], bf16=_read_bf16_counts(),
+                  attention=dict(ops.ATTENTION_TRACE_COUNTS))
+    full = [g.full_tensor() for g in sgrads]
+    errs = [((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+            for g, r in zip(full, grads)]
+    sl = sloss.full_tensor() if hasattr(sloss, "full_tensor") else sloss
+    return dict(arch=cfg.name, layers=cfg.num_layers, batch=b, seq=s,
+                loss=float(loss), loss_rel_diff=abs(float(sl) - float(loss)) / abs(float(loss)),
+                grad_max_rel_diff=max(errs), leaves=len(errs), counts=counts,
+                sharded_step_s=step_s,
+                placements=str(smodel.layers[0].mlp["up"].placements))
+
+
+def lm_sharded_phase(torch, kernels: dict, smi: str) -> None:
+    """The sharded LM on the card (LM_SHARDED): one spawned NCCL rank on a
+    (1, 1) mesh (one card holds one NCCL rank; multi-rank numerics are the
+    CPU tests' gloo runs, tests/test_torch_sharded_lm*.py). The DTensor path
+    runs through the hand-written kernels: every sharded prefill layer one
+    bf16 flash launch through ``local_map``, no plain attention dispatch; the
+    logits and tokens held to the unsharded run, the train step's loss and
+    gradients to the unsharded step. Then the roofline line: the model-FLOPs
+    share (``launch/roofline.model_flops`` over the H100 peak times the
+    measured time) of the lm_serve bf16 prefill and of the lm_train step,
+    the latter against both the bf16 and the fp32 peaks, beside the card's
+    name and power limit."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models import model as model_lib
+    from repro_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        run_ranks(_sharded_rank, 1, tmp, timeout=LM_SHARDED["run_timeout"])
+        res = json.loads((Path(tmp) / "lm_sharded.json").read_text())
+    serve, train = res["serve"], res["train"]
+    layers = get_config(LM["arch"]).num_layers
+    pc = serve["prefill_counts"]
+    diff, scale = serve["logit_max_abs_diff"], serve["logit_scale"]
+    checked = mismatched = 0
+    for row, (got, want, marg) in enumerate(zip(serve["tokens"], serve["ref_tokens"],
+                                                serve["margins"])):
+        for i in range(len(want)):
+            if marg[i] <= LM_MARGIN * diff:
+                break  # below the margin, and past it the two contexts may differ
+            checked += 1
+            mismatched += int(got[i] != want[i])
+    emit("lm_sharded", backend=res["backend"], mesh=[1, 1], nvidia_smi=smi,
+         # the dry run's per-device total_gb is GiB: the card's memory in the same unit
+         card_memory_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
+         serve={k: v for k, v in serve.items() if k not in ("tokens", "ref_tokens", "margins")},
+         tokens_checked=checked, tokens_mismatched=mismatched,
+         train=train, seconds=time.perf_counter() - t_phase)
+    check(res["backend"] == "nccl", f"the sharded rank on NCCL, got {res['backend']}")
+    check(pc["bf16"]["flash_attention"] == layers,
+          f"sharded prefill: {pc['bf16']['flash_attention']} bf16 flash launches == {layers}")
+    check(pc["attention"] == {"cuda": layers, "plain": 0},
+          f"sharded prefill's attention on the kernel route only: {pc['attention']}")
+    check(not any(pc["launches"].values()), f"no fp32 kernel in the bf16 prefill: {pc}")
+    check(diff <= LM_SHARDED["tol"] * scale,
+          f"sharded logits within {LM_SHARDED['tol']} of scale: {diff}")
+    check(mismatched == 0, f"{mismatched} sharded greedy tokens differ above the margin")
+    tc = train["counts"]
+    check(tc["launches"]["flash_attention"] == train["layers"] and tc["attention"]["plain"] == 0,
+          f"sharded train step: one fp32 flash launch a layer: {tc}")
+    check(train["loss_rel_diff"] <= LM_SHARDED["train_tol"],
+          f"sharded loss within {LM_SHARDED['train_tol']}: {train['loss_rel_diff']}")
+    check(train["grad_max_rel_diff"] <= LM_SHARDED["train_tol"],
+          f"sharded gradients within {LM_SHARDED['train_tol']}: {train['grad_max_rel_diff']}")
+    _record_path(kernels, "lm_sharded", pc["launches"], pc["bf16"])
+    _record_path(kernels, "lm_sharded_train", tc["launches"], tc["bf16"])
+
+    serve_cfg, train_cfg = get_config(LM["arch"]), get_config(LM_TRAIN["arch"])
+    serve_flops = roofline.model_flops(
+        serve_cfg, ShapeConfig("lm_serve", LM["prompt"], LM["batch"], "prefill"),
+        model_lib.active_param_count(serve_cfg))
+    train_flops = roofline.model_flops(
+        train_cfg, ShapeConfig("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train"),
+        model_lib.active_param_count(train_cfg))
+    prefill_s = MEASURED["lm_serve_bf16_prefill_s"]
+    step_s = MEASURED["lm_train_median_step_s"]
+    line = dict(nvidia_smi=smi, peak_bf16_flops=roofline.PEAK_FLOPS,
+                peak_fp32_flops=roofline.PEAK_FP32_FLOPS,
+                lm_serve_bf16_prefill=dict(model_flops=serve_flops, seconds=prefill_s,
+                                           share_of_bf16_peak=roofline.model_share(
+                                               serve_flops, prefill_s)),
+                lm_train_step=dict(model_flops=train_flops, seconds=step_s,
+                                   share_of_bf16_peak=roofline.model_share(train_flops, step_s),
+                                   share_of_fp32_peak=roofline.model_share(
+                                       train_flops, step_s,
+                                       peak_flops=roofline.PEAK_FP32_FLOPS)))
+    emit("roofline", **line)
+    print(f"model-FLOPs share on {smi}: lm_serve bf16 prefill "
+          f"{line['lm_serve_bf16_prefill']['share_of_bf16_peak']:.4f} of the bf16 peak; "
+          f"lm_train olmo-1b step {line['lm_train_step']['share_of_bf16_peak']:.4f} of the "
+          f"bf16 peak, {line['lm_train_step']['share_of_fp32_peak']:.4f} of the fp32 peak",
+          flush=True)
 
 
 def _family_cfg(fam: dict):

@@ -150,3 +150,10 @@ def list_configs() -> list[str]:
     if not _REGISTRY:
         from . import all_archs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Shape policy: long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention; full-attention arch"
+    return True, ""

@@ -17,10 +17,19 @@ Function's backward recomputes the output through the plain version under
 autograd and differentiates that. CPU tensors take the plain version
 ``ref.flash_attention_ref`` (materialised logits) directly, as the reference
 runs the Pallas kernel in interpret mode off the TPU.
+
+Fake tensors (the dry run's, ``launch/dryrun.py``) take the kernel's op,
+``torch.ops.repro_torch.flash_attention``: a custom op that only shapes fake
+tensors (its fake implementation checks what the launch checks and returns
+the output's shape; real tensors never reach it), so a profile of the dry run
+counts one kernel op (:func:`flash_flops`, q, k, v and o bytes) where the card
+launches the kernel, never the plain s² product. Its backward is the
+Function's, as on the card.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.autograd.function import once_differentiable
 
 from . import _build
@@ -58,6 +67,57 @@ def check_dtypes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     return DTYPES[q.dtype]
 
 
+def flash_flops(q_shape: tuple, causal: bool) -> float:
+    """The kernel's multiply-adds ×2 on q (b, s, hq, d): q·kᵀ and p·v over
+    every (query, key) pair, half of them under the causal mask."""
+    b, s, hq, d = q_shape
+    return 4.0 * b * hq * s * s * d * (0.5 if causal else 1.0)
+
+
+def _check_launch(name: str, q, k, v, precision: str) -> None:
+    """The launch's shape checks (everything but device and layout)."""
+    (b, s, hq, d), (bk, sk, hkv, dk) = q.shape, k.shape
+    if (bk, sk, dk) != (b, s, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not chain (equal b, s and d; hq a multiple of hkv)"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dimension {d} not in {HEAD_DIMS}")
+    query_blocks(s, precision)
+
+
+_OP = None
+
+
+def kernel_op():
+    """``torch.ops.repro_torch.flash_attention(q, k, v, causal)``: the kernel
+    as a custom op for fake tensors, registered at its first use. Its real
+    implementation is never run and raises: :class:`FlashAttention` hands
+    the op fake tensors only, and launches the kernel on CUDA tensors
+    itself."""
+    global _OP
+    if _OP is None:
+        @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+        def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> torch.Tensor:
+            raise RuntimeError(f"{flash_attention.name}: the kernel's op only shapes fake "
+                               "tensors; real ones go through FlashAttention")
+
+        @op.register_fake
+        def _(q, k, v, causal):
+            _check_launch(flash_attention.name, q, k, v,
+                          check_dtypes(flash_attention.name, q, k, v))
+            return torch.empty_like(q)
+
+        _OP = op
+    return _OP
+
+
+def _op_launch(q, k, v, *, causal):
+    return kernel_op()(q, k, v, causal)
+
+
 class _FlashAttentionFn(torch.autograd.Function):
     """``fwd(q, k, v, causal=...)`` with the gradients of autograd through the
     plain version: the backward recomputes ``flash_attention_ref`` on the
@@ -92,6 +152,8 @@ class FlashAttention(LaunchCounts):
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True) -> torch.Tensor:
         check_dtypes(self.name, q, k, v)
+        if is_fake(q):
+            return _FlashAttentionFn.apply(q, k, v, causal, _op_launch)
         if all(t.device.type == "cpu" for t in (q, k, v)):
             return flash_attention_ref(q, k, v, causal=causal)
         return _FlashAttentionFn.apply(q, k, v, causal, self._launch)
@@ -111,15 +173,9 @@ class FlashAttention(LaunchCounts):
             if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{self.name}: operands must be contiguous, 16-byte "
                                  f"aligned (b, s, heads, d) tensors")
-        (b, s, hq, d), (bk, sk, hkv, dk) = q.shape, k.shape
-        if (bk, sk, dk) != (b, s, d) or v.shape != k.shape or hq % hkv:
-            raise ValueError(
-                f"{self.name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                f"v {tuple(v.shape)} do not chain (equal b, s and d; hq a multiple of hkv)"
-            )
-        if d not in HEAD_DIMS:
-            raise ValueError(f"{self.name}: head dimension {d} not in {HEAD_DIMS}")
-        query_blocks(s, precision)
+        _check_launch(self.name, q, k, v, precision)
+        b, s, hq, d = q.shape
+        hkv = k.shape[2]
         out = torch.empty_like(q)
         if b == 0 or s == 0:
             return out

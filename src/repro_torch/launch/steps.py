@@ -15,6 +15,10 @@ kernel, one launch a GQA layer for each micro-batch; its backward is
 autograd of the plain version, the gradient the reference takes through
 ``_sdpa``; MLA and Mamba2 layers are plain PyTorch, as in the reference),
 and updates the model's parameters and the optimiser state in place.
+
+On a model laid out by ``launch.sharding.distribute_model_`` and run under
+``models.sharding_ctx.use_mesh`` the same steps are DTensor SPMD programs:
+each gradient is brought to its parameter's placements before AdamW.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from torch.profiler import record_function
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model as model_lib
-from ..train.optim import AdamWConfig, OptState, adamw_update, leaves
+from ..models.sharding_ctx import current, grad_like_input, is_dtensor, region, shard
+from ..train.optim import AdamWConfig, OptState, abstract_opt_state, adamw_update, leaves
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -66,8 +71,29 @@ def _next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
     lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - lmax
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    lab = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - lab)
+    if current() is None:
+        lab = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    else:
+        lab = _label_logits(shifted, labels)
+    return torch.mean(grad_like_input(lse - lab))
+
+
+def _pick(shifted: torch.Tensor, labels: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return shifted * (labels[..., None] == ids)
+
+
+def _label_logits(shifted: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit of each row under a mesh context, where the vocab
+    dim may be split: each rank keeps its own vocab ids' entries of the row
+    (``ids``, the vocab ids laid out as the logits' last dim), zeros the rest,
+    and the sum over vocab adds the one nonzero entry across ranks — exact,
+    and its backward stays split (a gather's backward would scatter into a
+    zero tensor as large as the whole logits on every rank)."""
+    ids = torch.arange(shifted.shape[-1], device=shifted.device)
+    rows = ("batch", "seq")
+    picked = region(_pick, (rows + ("vocab_act",), rows, ("vocab_act",)),
+                    rows + ("vocab_act",), shifted, labels, ids)
+    return picked.sum(dim=-1)
 
 
 # ------------------------------------------------------------------ steps -----
@@ -88,7 +114,7 @@ def loss_and_grads(cfg: ModelConfig, model, batch: dict, *, micro_steps: int = 1
     def one(mb):
         logits = model_lib.forward_train(cfg, model, mb, backend=backend)
         loss = _next_token_loss(cfg, logits, mb["labels"])
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return loss.detach(), _laid_out_like(torch.autograd.grad(loss, params), params)
 
     for p in params:
         p.requires_grad_(True)
@@ -115,6 +141,15 @@ def loss_and_grads(cfg: ModelConfig, model, batch: dict, *, micro_steps: int = 1
     finally:
         for p in params:
             p.requires_grad_(False)
+
+
+def _laid_out_like(grads, params) -> list:
+    """Each gradient laid out as its parameter is: DTensor leaves a sharded
+    parameter's gradient partial over the axes its batch was split on, and
+    this is the reduce-scatter (or all-reduce) that the reference's
+    ``out_shardings`` force. Plain tensors pass through."""
+    return [g.redistribute(p.device_mesh, p.placements) if is_dtensor(p) else g
+            for g, p in zip(grads, params)]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
@@ -149,8 +184,20 @@ def make_prefill_step(cfg: ModelConfig, *, backend: str = "auto"):
 def make_serve_step(cfg: ModelConfig):
     def serve_step(model, cache: dict, token: torch.Tensor, cache_index: int):
         logits, cache = model_lib.decode_step(cfg, model, token, cache, cache_index)
-        next_token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        # under a mesh the last logits gather their vocab first: the argmax is local
+        next_token = torch.argmax(shard(logits[:, -1], "batch", None), dim=-1)[:, None]
         return next_token, logits, cache
 
     return serve_step
 
+
+
+# ---------------------------------------------------------------- helpers -----
+
+
+def abstract_state(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                   dtype=COMPUTE_DTYPE):
+    """Abstract (params, opt) trees for the train dry run: the reference's
+    stacked trees as meta tensors."""
+    params = model_lib.abstract_model_params(cfg, dtype)
+    return params, abstract_opt_state(params, opt_cfg)

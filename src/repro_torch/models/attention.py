@@ -20,6 +20,10 @@ serving cache is the largest buffer after the weights, and nothing reads the
 old one. It keeps its own dtype (fp32 in ``launch/serve.generate``, as in the
 reference), and a bf16 model's decode attends with JAX's promotion: its bf16
 query against the fp32 cache is an fp32 product, and so is what follows.
+Under a mesh context (``models/sharding_ctx.py``) the flash kernel runs
+through ``local_map`` on each rank's local batch rows and heads
+(:func:`_attend`), so it stays the kernel under DTensor; the caches are
+written shard by shard (``sharding_ctx.write_seq``).
 MLA (deepseek-v2) is the reference's plain product in every mode: its q·k
 heads are 192 wide and its v heads 128, and the flash kernel takes one head
 width. It caches the 512-d latent c_kv and the shared rope key only; decode
@@ -28,6 +32,8 @@ with ``cfg.mla_absorb``, attends in latent space.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +41,9 @@ import torch
 from ..kernels import ops
 from .layers import apply_mrope, apply_rope, at_least_fp32, matmul
 from .param import P
+from .sharding_ctx import (
+    axis_split, merge_dims, region, shard, split_dim, write_seq,
+)
 
 #: the reference's mask value; −inf would make a fully masked row's max − max NaN
 _NEG = -1e30
@@ -55,13 +64,31 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
-    qg = q.reshape(b, sq, hkv, h // hkv, dh).to(dt)
+    qg = split_dim(q, 2, (hkv, h // hkv)).to(dt)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(dt)).float() * (dh ** -0.5)
     if kv_len is not None:
         logits = torch.where(torch.arange(sk, device=q.device) < kv_len, logits, _NEG)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
     return out.reshape(b, sq, h, dh)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+            backend: str) -> torch.Tensor:
+    """``ops.flash_attention``; inside a mesh context on each rank's local
+    shards (batch over the DP axes, heads over "heads_act"'s). Where the
+    heads split m ways and the kv heads do not divide by m, each kv head is
+    repeated r = m / gcd(kv, m) times first: r divides the group size, so
+    every rank's query heads still find their kv heads among its own."""
+    b, s, kv, dh = k.shape
+    m = axis_split("heads_act", q.shape[2])
+    if m > 1 and kv % m:
+        r = m // math.gcd(kv, m)
+        k, v = (t.unsqueeze(3).expand(b, s, kv, r, dh).reshape(b, s, kv * r, dh)
+                for t in (k, v))
+    axes = ("batch", None, "heads_act", None)
+    fn = functools.partial(ops.flash_attention, causal=causal, backend=backend)
+    return region(fn, (axes, axes, axes), axes, q, k, v)
 
 
 def gqa_params(cfg):
@@ -121,11 +148,11 @@ def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
     b, s, _ = h.shape
     nh, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = h if cross_kv is None else cross_kv[0]
-    q = matmul(h, p["wq"]).reshape(b, s, nh, dh)
-    k = matmul(src, p["wk"]).reshape(b, src.shape[1], kv, dh)
-    v = matmul(src, p["wv"]).reshape(b, src.shape[1], kv, dh)
+    q = split_dim(matmul(h, p["wq"]), 2, (nh, dh))
+    k = split_dim(matmul(src, p["wk"]), 2, (kv, dh))
+    v = split_dim(matmul(src, p["wv"]), 2, (kv, dh))
     if cross_kv is not None:
-        return matmul(_sdpa(q, k, v).reshape(b, s, nh * dh), p["wo"]), cache
+        return matmul(merge_dims(_sdpa(q, k, v), 2), p["wo"]), cache
     if cfg.use_mrope:
         sections = _mrope_sections(cfg)
         q = apply_mrope(q, positions, cfg.rope_theta, sections)
@@ -134,18 +161,17 @@ def gqa_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if mode in ("train", "prefill"):
-        out = ops.flash_attention(q, k, v, causal=causal if mode == "train" else True,
-                                  backend=backend)
+        out = _attend(q, k, v, causal=causal if mode == "train" else True, backend=backend)
         if mode == "prefill":
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
+            write_seq(cache["k"], 0, k)
+            write_seq(cache["v"], 0, v)
     elif mode == "decode":
-        cache["k"][:, cache_index:cache_index + s] = k
-        cache["v"][:, cache_index:cache_index + s] = v
+        write_seq(cache["k"], cache_index, k)
+        write_seq(cache["v"], cache_index, v)
         out = _sdpa(q, cache["k"], cache["v"], kv_len=cache_index + 1)
     else:
         raise ValueError(mode)
-    return matmul(out.reshape(b, s, nh * dh), p["wo"]), cache
+    return matmul(merge_dims(out, 2), p["wo"]), cache
 
 
 # ------------------------------------------------------------------ MLA ------
@@ -180,9 +206,10 @@ def _mla_attend_block(cfg, q, k_nope, v, krope, kv_len, q_offset, causal):
     qn, qr = q[..., :nope], q[..., nope:]
     logits = (torch.einsum("bqhd,bshd->bhqs", qn, k_nope)
               + torch.einsum("bqhd,bsd->bhqs", qr, krope))
-    logits = at_least_fp32(logits) * (nope + rope_d) ** -0.5
+    logits = shard(at_least_fp32(logits) * (nope + rope_d) ** -0.5,
+                   "batch", "heads_act", None, None)
     pr = torch.softmax(_mla_mask(logits, q_offset, kv_len, causal), dim=-1).to(v.dtype)
-    return torch.einsum("bhqs,bshd->bqhd", pr, v).reshape(b, sq, -1)
+    return merge_dims(torch.einsum("bhqs,bshd->bqhd", pr, v), 2)
 
 
 def _mla_attend_absorbed(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=True):
@@ -194,14 +221,15 @@ def _mla_attend_absorbed(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     qn, qr = q[..., :nope], q[..., nope:]
-    q_lat = torch.einsum("bqhd,rhd->bqhr", qn, p["w_uk"].reshape(r, h, nope))
+    q_lat = torch.einsum("bqhd,rhd->bqhr", qn, split_dim(p["w_uk"], 1, (h, nope)))
     logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
               + torch.einsum("bqhd,bsd->bhqs", qr, krope))
-    logits = at_least_fp32(logits) * (nope + rope_d) ** -0.5
+    logits = shard(at_least_fp32(logits) * (nope + rope_d) ** -0.5,
+                   "batch", "heads_act", None, None)
     pr = torch.softmax(_mla_mask(logits, q_offset, kv_len, causal), dim=-1).to(ckv.dtype)
     lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv)
-    out = torch.einsum("bqhr,rhd->bqhd", lat, p["w_uv"].reshape(r, h, vd))
-    return out.reshape(b, sq, h * vd)
+    out = torch.einsum("bqhr,rhd->bqhd", lat, split_dim(p["w_uv"], 1, (h, vd)))
+    return merge_dims(out, 2)
 
 
 def _mla_attend(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=True):
@@ -216,8 +244,9 @@ def _mla_attend(cfg, q, ckv, krope, p, kv_len=None, q_offset=0, causal=True):
     sk = ckv.shape[1]
     if cfg.mla_absorb and sq <= _Q_CHUNK:
         return _mla_attend_absorbed(cfg, q, ckv, krope, p, kv_len, q_offset, causal)
-    k_nope = matmul(ckv, p["w_uk"]).reshape(b, sk, h, nope)
-    v = matmul(ckv, p["w_uv"]).reshape(b, sk, h, vd)
+    k_nope = shard(split_dim(matmul(ckv, p["w_uk"]), 2, (h, nope)),
+                   "batch", None, "heads_act", None)
+    v = shard(split_dim(matmul(ckv, p["w_uv"]), 2, (h, vd)), "batch", None, "heads_act", None)
     if sq <= _Q_CHUNK:
         return _mla_attend_block(cfg, q, k_nope, v, krope, kv_len, q_offset, causal)
     if sq % _Q_CHUNK:
@@ -235,18 +264,18 @@ def mla_apply(p, cfg, h: torch.Tensor, positions: torch.Tensor, mode: str,
     token's at ``cache_index`` and attends to the first ``cache_index + 1``."""
     b, s, _ = h.shape
     nh, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = matmul(h, p["wq"]).reshape(b, s, nh, nope + rope_d)
+    q = split_dim(matmul(h, p["wq"]), 2, (nh, nope + rope_d))
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
     ckv = matmul(h, p["w_dkv"])  # (b, s, r)
     krope = apply_rope(matmul(h, p["w_krope"])[:, :, None], positions, cfg.rope_theta)[:, :, 0]
     if mode in ("train", "prefill"):
         out = _mla_attend(cfg, q, ckv, krope, p, causal=True)
         if mode == "prefill":
-            cache["ckv"][:, :s] = ckv
-            cache["krope"][:, :s] = krope
+            write_seq(cache["ckv"], 0, ckv)
+            write_seq(cache["krope"], 0, krope)
     elif mode == "decode":
-        cache["ckv"][:, cache_index:cache_index + s] = ckv
-        cache["krope"][:, cache_index:cache_index + s] = krope
+        write_seq(cache["ckv"], cache_index, ckv)
+        write_seq(cache["krope"], cache_index, krope)
         out = _mla_attend(cfg, q, cache["ckv"], cache["krope"], p, kv_len=cache_index + 1,
                           causal=False)
     else:

@@ -11,7 +11,8 @@ fp32 cache. Those fp32 cast points keep a float64 input float64
 model cast to float64 computes in float64 throughout, the yardstick the
 training checks measure fp32 routes against.
 
-M-RoPE (``apply_mrope``, qwen2-vl) is not ported: ROADMAP queue 1 item 14.
+The MLP hidden and the logits carry the reference's ``shard`` calls
+(``models/sharding_ctx.py``): no-ops outside a mesh context.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .param import P
+from .sharding_ctx import current, local_contiguous, shard, weight_for_compute
 
 
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -80,8 +82,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))  # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)  # (half,): each slot's stream
     pos = positions3[sec_id]  # (half, b, s): each slot's stream
     return _rotate(x, pos.movedim(0, -1).float() * freqs)
 
@@ -89,9 +91,13 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with JAX's type promotion, the reference's ``@`` on mixed dtypes:
     both operands in ``torch.promote_types`` of theirs (a bf16 activation
-    against an fp32 weight, or the reverse, is an fp32 product)."""
+    against an fp32 weight, or the reverse, is an fp32 product). ``b`` is a
+    weight: under a mesh context its FSDP shards are gathered first
+    (``sharding_ctx.weight_for_compute``)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    if current() is None:
+        return a.to(dt) @ b.to(dt)
+    return local_contiguous(a.to(dt)) @ local_contiguous(weight_for_compute(b).to(dt))
 
 
 # ----------------------------------------------------------------- MLP -------
@@ -109,7 +115,8 @@ def mlp_params(cfg, d_ff: Optional[int] = None):
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) ⊙ x W_up) W_down, weights in (in, out) layout."""
-    return matmul(F.silu(matmul(x, p["gate"])) * matmul(x, p["up"]), p["down"])
+    h = shard(F.silu(matmul(x, p["gate"])) * matmul(x, p["up"]), "batch", "seq", "mlp_act")
+    return matmul(h, p["down"])
 
 
 # ----------------------------------------------------------- embeddings ------
@@ -123,10 +130,15 @@ def embed_params(cfg):
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    """The token rows of ``tok``. Under a mesh context the table keeps its
+    vocab rows split as "vocab_act" splits them, its columns gathered, and
+    the masked partial rows are summed into batch-split embeddings at once
+    (DTensor mis-shapes the mask when that sum is left to a later reshard)."""
+    return shard(F.embedding(tokens, shard(p["tok"], "vocab_act", None)), "batch", None, None)
 
 
 def unembed(p, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits; tied embeddings (no ``unembed``) use ``tok``ᵀ."""
-    w = p["unembed"] if "unembed" in p else p["tok"].T
-    return at_least_fp32(h) @ at_least_fp32(w)
+    w = weight_for_compute(p["unembed"] if "unembed" in p else p["tok"].T)
+    h = shard(h, "batch", "seq", None)  # the sequence whole: the vocab splits instead
+    return shard(at_least_fp32(h) @ at_least_fp32(w), "batch", "seq", "vocab_act")

@@ -15,6 +15,13 @@ whisper has two, ``enc_layers`` and ``dec_layers``. The cache has the
 reference's keys (``attn``; ``mamba``; MLA's ``ckv`` and ``krope``; whisper's
 ``self`` and ``memory``), a list a layer (a period's mamba caches a list of
 7) where the reference stacks, its buffers written in place.
+
+In training the residual stream between blocks carries the reference's
+sequence-parallel ``shard`` (:func:`_seq_shard`), and every branch's output
+has its partial sums reduced before it joins the stream
+(``sharding_ctx.reduce_partial``): no-ops outside a mesh context.
+:func:`abstract_model_params` and :func:`abstract_cache` give the
+reference's stacked trees as meta tensors for the dry run.
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ from .attention import (
     gqa_apply, gqa_make_cache, gqa_params, mla_apply, mla_make_cache, mla_params,
 )
 from .layers import embed, embed_params, mlp, mlp_params, rmsnorm, rmsnorm_params, unembed
-from .param import init_params, leaves, param_count, stack_schema, tree_map
+from .param import (
+    abstract_params, init_params, leaves, logical_axes, param_count, stack_schema, tree_map,
+)
+from .sharding_ctx import reduce_partial, shard
 
 
 #: the params tree's stacked layer groups (leading layer dim)
@@ -107,6 +117,15 @@ def param_schema(cfg: ModelConfig):
 
 def count_params(cfg: ModelConfig) -> int:
     return param_count(param_schema(cfg))
+
+
+def abstract_model_params(cfg: ModelConfig, dtype=torch.float32, device: DeviceLike = "meta"):
+    """The reference's stacked params tree with no data (meta tensors)."""
+    return abstract_params(param_schema(cfg), dtype, device)
+
+
+def model_logical_axes(cfg: ModelConfig):
+    return logical_axes(param_schema(cfg))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -289,7 +308,47 @@ def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     return {"attn": [attn() for _ in range(plan["n"])]}
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device: DeviceLike = "meta") -> dict:
+    """The reference's stacked cache tree with no data (meta tensors): each
+    layer group's buffers with the group's layer count (and a period's 7
+    mamba blocks) in front, the ``ssm`` state fp32."""
+    dev = torch.device(device)
+    plan = _layer_plan(cfg)
+
+    def stacked(make, lead: tuple):
+        return {k: torch.empty(lead + tuple(t.shape), dtype=t.dtype, device=dev)
+                for k, t in make().items()}
+
+    def attn():
+        make = mla_make_cache if cfg.use_mla else gqa_make_cache
+        return make(cfg, batch, max_len, dtype, "meta")
+
+    def mamba():
+        return ssm.mamba_make_cache(cfg, batch, dtype, "meta")
+
+    if cfg.is_encdec:
+        return {"self": stacked(attn, (cfg.num_layers,)),
+                "memory": torch.empty((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                                      device=dev)}
+    if plan["kind"] == "period":
+        return {"attn": stacked(attn, (plan["n"],)),
+                "mamba": stacked(mamba, (plan["n"], plan["period"] - 1))}
+    if plan["mixer"] == "mamba":
+        return {"mamba": stacked(mamba, (plan["n"],))}
+    return {"attn": stacked(attn, (plan["n"],))}
+
+
 # --------------------------------------------------------------- forward -----
+
+
+def _seq_shard(h: torch.Tensor) -> torch.Tensor:
+    """Sequence-parallel residual stream (Megatron SP): between blocks in
+    training, activations (b, s, d) shard their seq dim over the mesh "model"
+    axis."""
+    if h.ndim == 3 and h.shape[1] > 1:
+        return shard(h, "batch", "seq_act", None)
+    return h
 
 
 def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, mixer: str,
@@ -304,19 +363,19 @@ def _apply_block(p: Block, cfg, h, positions, mode, cache, cache_index, mixer: s
     else:
         mixed, new_cache = gqa_apply(p.mixer, cfg, x, positions, mode, cache, cache_index,
                                      causal=causal, backend=backend)
-    h = h + mixed
+    h = h + reduce_partial(mixed)
     if cross_mem is not None:
         xattn, _ = gqa_apply(p.cross, cfg, rmsnorm(p.norm_x, h, cfg.norm_eps), positions,
                              mode, cross_kv=(cross_mem,))
-        h = h + xattn
+        h = h + reduce_partial(xattn)
     return _apply_mlp(p, cfg, h, mlp_kind), new_cache
 
 
 def _apply_mlp(p: Block, cfg, h, mlp_kind: str):
     if mlp_kind == "dense":
-        return h + mlp(p.mlp, rmsnorm(p.norm2, h, cfg.norm_eps))
+        return h + reduce_partial(mlp(p.mlp, rmsnorm(p.norm2, h, cfg.norm_eps)))
     if mlp_kind == "moe":
-        return h + moe.moe_apply(p.mlp, cfg, rmsnorm(p.norm2, h, cfg.norm_eps))
+        return h + reduce_partial(moe.moe_apply(p.mlp, cfg, rmsnorm(p.norm2, h, cfg.norm_eps)))
     return h
 
 
@@ -347,10 +406,12 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, offset: int,
     of at least ``vision_tokens`` has the stub vision region's
     side × side grid (side = ⌊√vision_tokens⌋) in the h and w streams of its
     first ``vision_tokens`` positions. Text after the grid is not shifted
-    past it (the reference's simplification of Qwen2-VL)."""
+    past it (the reference's simplification of Qwen2-VL). Under a mesh
+    context the batch dim is split as the activations' is, so that no rank
+    builds the whole batch's rotary tables."""
     pos = (offset + torch.arange(seq, device=device))[None].expand(batch, seq)
     if not cfg.use_mrope:
-        return pos
+        return shard(pos, "batch", None)
     vt = cfg.vision_tokens
     side = max(int(vt ** 0.5), 1)
     th, tw = pos.clone(), pos.clone()
@@ -358,22 +419,25 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, offset: int,
         grid = torch.arange(vt, device=device)
         th[:, :vt] = grid // side
         tw[:, :vt] = grid % side
-    return torch.stack([pos, th, tw])
+    return shard(torch.stack([pos, th, tw]), None, "batch", None)
 
 
 def _trunk(cfg, model, h, positions, mode, cache, cache_index, backend):
     plan = _layer_plan(cfg)
+    sq = _seq_shard if mode == "train" else (lambda x: x)
+    h = sq(h)
     if plan["kind"] == "period":
         for i, per in enumerate(model.layers):
             c = None if cache is None else {"attn": cache["attn"][i],
                                             "mamba": cache["mamba"][i]}
-            h = _apply_period(per, cfg, h, positions, mode, c, cache_index, backend)
+            h = sq(_apply_period(per, cfg, h, positions, mode, c, cache_index, backend))
         return h, cache
     key = "mamba" if plan["mixer"] == "mamba" else "attn"
     for i, blk in enumerate(model.layers):
         h, _ = _apply_block(blk, cfg, h, positions, mode,
                             None if cache is None else cache[key][i], cache_index,
                             plan["mixer"], plan["mlp"], backend=backend)
+        h = sq(h)
     return h, cache
 
 
@@ -383,20 +447,24 @@ def _encode(cfg, model, frames: torch.Tensor, backend: str) -> torch.Tensor:
     ``enc_norm``."""
     b, s, _ = frames.shape
     pos = torch.arange(s, device=frames.device)[None].expand(b, s)
-    h = frames
+    h = _seq_shard(frames)
     for blk in model.enc_layers:
         h, _ = _apply_block(blk, cfg, h, pos, "train", None, None, "attn", "dense",
                             causal=False, backend=backend)
+        h = _seq_shard(h)
     return rmsnorm(model.enc_norm, h, cfg.norm_eps)
 
 
 def _decode_trunk(cfg, model, h, positions, mode, cache, cache_index, memory, backend):
     """whisper's decoder stack: cached self-attention, cross-attention to
     ``memory``."""
+    sq = _seq_shard if mode == "train" else (lambda x: x)
+    h = sq(h)
     for i, blk in enumerate(model.dec_layers):
         h, _ = _apply_block(blk, cfg, h, positions, mode,
                             None if cache is None else cache["self"][i], cache_index,
                             "attn", "dense", cross_mem=memory, backend=backend)
+        h = sq(h)
     return h, cache
 
 

@@ -24,6 +24,12 @@ cleared explicitly.
 
 Shared experts (deepseek-v2) are plain always-on MLPs added to the routed
 output.
+
+Under a mesh context the dispatch buffers carry the reference's ``shard``
+calls (expert-major buffers over "experts_act": expert parallelism), and the
+slot table (a stable sort and gathers, which DTensor has no rule for) is
+built on each rank's own token groups, and each rank's experts run on its
+own groups (``sharding_ctx.region``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from .layers import at_least_fp32, matmul, mlp, mlp_params
 from .param import P
+from .sharding_ctx import merge_dims, region, shard, split_dim
 
 
 def moe_params(cfg):
@@ -91,6 +98,17 @@ def _slot_table(flat_e: torch.Tensor, k: int, e: int, cap: int):
     return torch.where(filled, token, 0), filled
 
 
+def _experts(xin: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+             down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their capacity buffers: xin (g, e, cap, d) →
+    (g, e, cap, d). Under a mesh context each rank runs its own experts on
+    its own groups (``sharding_ctx.region``)."""
+    hidden = (F.silu(torch.einsum("gecd,edf->gecf", xin, gate))
+              * torch.einsum("gecd,edf->gecf", xin, up))
+    hidden = shard(hidden, "batch", "experts_act", None, "mlp_act")
+    return torch.einsum("gecf,efd->gecd", hidden, down)
+
+
 def _grouped_experts(p, cfg, xg: torch.Tensor) -> torch.Tensor:
     """xg: (g, t, d) token groups → routed output (g, t, d). Grouping stays
     within g."""
@@ -99,25 +117,29 @@ def _grouped_experts(p, cfg, xg: torch.Tensor) -> torch.Tensor:
     gates, flat_e, slot, cap = route(p, cfg, xg)
     keep = slot < cap
     buf_pos = flat_e * cap + torch.where(keep, slot, cap - 1)  # (g, tk) in [0, e·cap)
-    token, filled = _slot_table(flat_e, k, e, cap)
+    rows = ("batch", None)
+    token, filled = region(lambda fe: _slot_table(fe, k, e, cap), (rows,), (rows, rows), flat_e)
 
     xin = torch.gather(xg, 1, token[..., None].expand(g, e * cap, d))
-    xin = (xin * filled[..., None]).reshape(g, e, cap, d)
-    hidden = (F.silu(torch.einsum("gecd,edf->gecf", xin, p["gate"]))
-              * torch.einsum("gecd,edf->gecf", xin, p["up"]))
-    out_buf = torch.einsum("gecf,efd->gecd", hidden, p["down"]).reshape(g, e * cap, d)
+    xin = shard(xin, "batch", "experts_act", None)
+    xin = shard(split_dim(xin * filled[..., None], 1, (e, cap)),
+                "batch", "experts_act", None, None)
+    bufs, weights = ("batch", "experts_act", None, None), ("experts_act", None, None)
+    out_buf = region(_experts, (bufs, weights, weights, weights), bufs,
+                     xin, p["gate"], p["up"], p["down"])
+    out_buf = shard(merge_dims(out_buf, 1), "batch", "experts_act", None)
 
     copy_out = torch.gather(out_buf, 1, buf_pos[..., None].expand(g, t * k, d))
+    copy_out = shard(copy_out, "batch", "seq_act", None)
     copy_out = copy_out * keep[..., None]
     weighted = copy_out * gates.reshape(g, t * k, 1).to(copy_out.dtype)
-    return weighted.reshape(g, t, k, d).sum(dim=2).to(xg.dtype)
+    return split_dim(weighted, 1, (t, k)).sum(dim=2).to(xg.dtype)
 
 
 def moe_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: (b, s, d) → (b, s, d). Deterministic top-k routing."""
-    b, s, d = x.shape
-    if s == 1:  # decode: one group over the batch
-        y = _grouped_experts(p, cfg, x.reshape(1, b, d)).reshape(b, s, d)
+    if x.shape[1] == 1:  # decode: one group over the batch (moved, never reshaped: it may be split)
+        y = _grouped_experts(p, cfg, x.transpose(0, 1)).transpose(0, 1)
     else:  # train and prefill: one group a batch row
         y = _grouped_experts(p, cfg, x)
     if "shared" in p:

@@ -2,8 +2,9 @@
 once as a nested dict of ``P`` leaves carrying shape + logical axes; derive the
 parameter count (no allocation) and initialised tensors.
 
-The logical axis names are kept as names only: the reference maps them onto a
-device mesh, and one card has none.
+The logical axis names map onto a device mesh through the rules of
+``launch/sharding.py``; :func:`abstract_params` gives the dry run's
+parameters as meta tensors, which hold no memory.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ class P:
         reference draws it (``param.py:43-46`` there)."""
         fan_in = self.shape[0] if len(self.shape) == 1 else math.prod(self.shape[:-1])
         return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def is_leaf(x: Any) -> bool:
+    return isinstance(x, P)
 
 
 def leaves(schema: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -83,6 +88,20 @@ def tree_unflatten(like: Any, flat: list) -> Any:
         return next(it)
 
     return build(like)
+
+
+def abstract_params(schema: Any, dtype=torch.float32, device: DeviceLike = "meta") -> Any:
+    """The schema's tensors with no data: ``meta`` tensors of each leaf's shape
+    (or empty ones on ``device``, e.g. under a ``FakeTensorMode``) — the
+    reference's ``ShapeDtypeStruct`` tree, the dry run's path (never
+    allocates)."""
+    dev = torch.device(device)
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype, device=dev), schema)
+
+
+def logical_axes(schema: Any) -> Any:
+    """Tree of logical-axis tuples, same structure as the params."""
+    return tree_map(lambda p: p.axes, schema)
 
 
 def param_count(schema: Any) -> int:

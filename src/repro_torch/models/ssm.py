@@ -18,6 +18,11 @@ masks after it. The forward values are the same (exp(−∞) = 0), but where a
 chunk's decay sums past ~88 the reference's exp overflows above the diagonal
 and its gradient there is 0·∞ = NaN, as at mamba2-130m's chunk of 256 on
 random weights; the port's stays finite.
+
+Under a mesh context the projections carry the reference's ``shard`` calls,
+and the chunk loop, which DTensor has no rule for, runs on each rank's own
+batch rows and heads (``sharding_ctx.region``), as does the depthwise
+convolution on its rows and channels.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from .layers import at_least_fp32, matmul, rmsnorm
 from .param import P
+from .sharding_ctx import assign, merge_dims, region, shard, split_dim
 
 
 def mamba_params(cfg):
@@ -95,6 +101,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bmat: to
         # above the diagonal, and its gradient there is NaN (module docstring)
         seg = cum[:, :, None] - cum[:, None]  # (b, q, k, h)
         decay = torch.exp(torch.where(mask[None, ..., None], seg, float("-inf")))
+        decay = shard(decay, "batch", None, None, "heads_act")
         att = cb[..., None] * decay * dtc[:, None]  # dt_k broadcast over the q index
         y_intra = torch.einsum("bqkh,bkhp->bqhp", att.to(x.dtype), xc)
         y_inter = torch.einsum("bqn,bhnp,bqh->bqhp", cc.to(f32), state, torch.exp(cum))
@@ -131,30 +138,37 @@ def mamba_apply(p, cfg, hidden: torch.Tensor, mode: str, cache: Optional[dict] =
     del cache_index  # the recurrence carries its own position
     b, s, _ = hidden.shape
     din, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = matmul(hidden, p["in_proj"])  # (b, s, 2·din + 2n + h)
+    # (b, s, 2·din + 2n + h)
+    proj = shard(matmul(hidden, p["in_proj"]), "batch", None, "heads_act")
     z, xbc, dt_raw = torch.split(proj, [din, din + 2 * n, nh], dim=-1)
     f32 = at_least_fp32(dt_raw).dtype
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
 
     if mode in ("train", "prefill"):
-        xbc_conv = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-        x_in, bmat, cmat = torch.split(xbc_conv, [din, n, n], dim=-1)
-        y, h_final = ssd_chunked(x_in.reshape(b, s, nh, hd), dt, p["a_log"], bmat, cmat,
-                                 p["d_skip"], cfg.ssm_chunk)
+        chans = ("batch", None, "heads_act")
+        conv = region(_causal_conv, (chans, (None, "heads_act"), ("heads_act",)), chans,
+                      xbc, p["conv_w"], p["conv_b"])
+        x_in, bmat, cmat = torch.split(F.silu(conv), [din, n, n], dim=-1)
+        xh = shard(split_dim(x_in, 2, (nh, hd)), "batch", "seq", "heads_act", None)
+        heads, rows = ("batch", None, "heads_act", None), ("batch", None, None)
+        y, h_final = region(ssd_chunked,
+                            (heads, heads[:3], ("heads_act",), rows, rows, ("heads_act",), None),
+                            (heads, ("batch", "heads_act", None, None)),
+                            xh, dt, p["a_log"], bmat, cmat, p["d_skip"], cfg.ssm_chunk)
         if mode == "prefill" and cache is not None:
-            cache["conv"].copy_(xbc[:, -(cfg.ssm_conv_width - 1):])
-            cache["ssm"].copy_(h_final)
+            assign(cache["conv"], xbc[:, -(cfg.ssm_conv_width - 1):])
+            assign(cache["ssm"], h_final)
     elif mode == "decode":
         window = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)  # (b, width, c)
         conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
         x_in, bmat, cmat = torch.split(F.silu(conv_out)[:, None], [din, n, n], dim=-1)
-        y, h_final = ssm_scan_ref(x_in.reshape(b, 1, nh, hd), dt, p["a_log"], bmat, cmat,
+        y, h_final = ssm_scan_ref(split_dim(x_in, 2, (nh, hd)), dt, p["a_log"], bmat, cmat,
                                   p["d_skip"], h0=cache["ssm"])
-        cache["conv"].copy_(window[:, 1:])
-        cache["ssm"].copy_(h_final)
+        assign(cache["conv"], window[:, 1:])
+        assign(cache["ssm"], h_final)
     else:
         raise ValueError(mode)
 
-    gated = y.reshape(b, s, din) * F.silu(z)
+    gated = shard(merge_dims(y, 2), "batch", None, "heads_act") * F.silu(z)
     gated = rmsnorm({"scale": p["norm_scale"]}, gated, eps=cfg.norm_eps)
     return matmul(gated, p["out_proj"]), cache

@@ -10,7 +10,9 @@ the reference's pytree order, a stacked leaf as its per-layer slices: see
 ``models.model.lm_leaves``) or nested dicts, lists and tuples of tensors. The
 moments have the same structure: a ``Transformer``'s are ``Transformer``s of
 the moment dtype, so ``convert.lm_params_to_numpy`` stacks them as the
-reference stores them.
+reference stores them. A model laid out over a mesh
+(``launch.sharding.distribute_model_``) gets moments laid out as its
+parameters are, so each rank updates its own shards.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from ..models.model import Transformer, lm_leaves, param_schema
 from ..models.param import tree_leaves, tree_map
+from ..models.sharding_ctx import is_dtensor
 
 
 class AdamWConfig(NamedTuple):
@@ -53,16 +56,36 @@ def _device(tree: Any) -> torch.device:
     return leaves(tree)[0].device
 
 
+def _stacked_zeros(first: torch.Tensor, shape: tuple, dtype) -> torch.Tensor:
+    """Zeros of a stacked leaf's ``shape``, laid out as its first slice
+    ``first`` is: a DTensor slice's placements shift past the stack dims."""
+    if not is_dtensor(first):
+        return torch.zeros(shape, dtype=dtype, device=first.device)
+    from torch.distributed.tensor import Shard, zeros
+
+    lead = len(shape) - first.ndim
+    placements = [Shard(p.dim + lead) if p.is_shard() else p for p in first.placements]
+    return zeros(shape, dtype=dtype, device_mesh=first.device_mesh, placements=placements)
+
+
 def _zeros_like(tree: Any, dtype) -> Any:
     if isinstance(tree, Transformer):
-        dev = _device(tree)
-        return Transformer(tree.cfg, tree_map(
-            lambda p: torch.zeros(p.shape, dtype=dtype, device=dev), param_schema(tree.cfg)))
+        firsts = {path: ts[0] for path, ts in lm_leaves(tree)}
+        schema = param_schema(tree.cfg)
+        return Transformer(tree.cfg, {
+            k: _leafwise(schema[k], (k,), lambda path, p: _stacked_zeros(
+                firsts["/".join(path)], p.shape, dtype)) for k in schema})
     if isinstance(tree, dict):
         return {k: _zeros_like(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zeros_like(v, dtype) for v in tree)
     return torch.zeros(tree.shape, dtype=dtype, device=tree.device)
+
+
+def _leafwise(schema: Any, path: tuple, fn) -> Any:
+    if isinstance(schema, dict):
+        return {k: _leafwise(v, path + (k,), fn) for k, v in schema.items()}
+    return fn(path, schema)
 
 
 def init_opt_state(params: Any, cfg: AdamWConfig = AdamWConfig()) -> OptState:
@@ -71,6 +94,18 @@ def init_opt_state(params: Any, cfg: AdamWConfig = AdamWConfig()) -> OptState:
         nu=_zeros_like(params, cfg.nu_dtype),
         step=torch.zeros((), dtype=torch.int32, device=_device(params)),
     )
+
+
+def abstract_opt_state(params_abstract: Any, cfg: AdamWConfig = AdamWConfig()) -> OptState:
+    """The dry run's moments: meta tensors like ``params_abstract`` (the
+    reference's stacked tree), mu in ``cfg.mu_dtype`` (bf16), nu in
+    ``cfg.nu_dtype`` (fp32), and an int32 step."""
+    def like(dtype):
+        return tree_map(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"),
+                        params_abstract)
+
+    return OptState(mu=like(cfg.mu_dtype), nu=like(cfg.nu_dtype),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -1630,3 +1630,41 @@ def test_distributed_mv_on_two_ranks_sharing_the_card(card, tmp_path):
         got = res["ring/cg"][0].double()
         err = (got - ring_order).abs().max().item() / max(1.0, ring_order.abs().max().item())
         assert err <= DIST_CG_TOL, err
+
+
+@pytest.mark.gpu
+def test_sharded_llama3_on_a_one_rank_nccl_mesh(card):
+    """Reduced llama3 laid out under "tp" on a (1, 1) NCCL mesh against the
+    unsharded model on the card (``testing/sharded_lm.compare``'s checks and
+    tolerances), and a sharded prefill's flash launches: one a layer, through
+    ``local_map``, none on the plain route."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.testing.ranks import free_port
+    from repro_torch.testing.sharded_lm import (
+        TOLERANCES, compare, flash_launches_through, numpy_inputs, numpy_model, reduced,
+    )
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = reduced("llama3-8b")
+        res = compare(cfg, mesh, "tp", device="cuda")
+        for tols in TOLERANCES.values():
+            for name, tol in tols.items():
+                assert res[name] <= tol, (name, res)
+        model = sharding.distribute_model_(numpy_model(cfg, 0, device="cuda"), cfg, mesh, "tp")
+        b, s = 4, 64
+        cache = sharding.distribute_cache(model_lib.zero_cache(cfg, b, s, device="cuda"), mesh, b)
+        prompt = {"tokens": numpy_inputs(cfg, b, s, 0, device="cuda")["tokens"]}
+        flash_attention.launches = 0
+        logits, attention = flash_launches_through(mesh, cfg, model, prompt, cache, "tp")
+        assert flash_attention.launches == cfg.num_layers
+        assert attention == {"cuda": cfg.num_layers, "plain": 0}
+        assert bool(torch.isfinite(logits.full_tensor()).all())
+    finally:
+        dist.destroy_process_group()
