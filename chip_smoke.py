@@ -402,6 +402,33 @@ BF16_RECORDS = ("gram_matvec[bf16]", "gram_rows_pair[bf16]", "rff_matvec[bf16]",
 FP32_RECORDS = ("gram_matvec", "gram_matvec_bwd", "rff_matvec", "gram_rows_pair",
                 "rff_t_matvec", "rff_pair", "rff_bwd", "flash_attention")
 RECORDS = FP32_RECORDS + BF16_RECORDS
+#: the autotune phase (kernels/autotune.py): every candidate block held
+#: against the plain version at a small shape where their plans differ
+#: (1,024², d = 8, s = 16; the pair's panel p = 128 of those rows; Φ̃ᵀu on
+#: 512 frequencies), at protein's 45,730², d = 9, s = 65 (Φ̃ᵀu at SGD's 100
+#: frequencies) and at its 512 × 45,730 panel
+AUTOTUNE_SMALL = dict(n=1024, d=8, s=16, p=128, m=512)
+#: the paths' launches (op, rows, cols, d, s) of PERF.md §6, and the engine's
+#: 16-row predict, ascent and feature transpose: the block each resolves to
+#: at both tile precisions, and both plans' fp32 times where the table moves
+#: the plan off the heuristic's. CG and training's 45,730², the LKGP's
+#: 17,742² and its predict, 3droad, the sparse K_ZZ products, the predict
+#: at X*, SGD's and Thompson's SDD panels, the Thompson ascent and its prior
+#: the in-kernel signal and jitter's cases: a jitter whose term (~1 at its
+#: largest over randn v) is large against the whole output's tolerance
+#: (fp32 2e-4, bf16 2e-3 of a scale ~185 at 45,730²), the block giving the
+#: 1,024² case several column chunks, and the fp32 roundings a chunk that
+#: the jitter's part alone may be off by, of the output's scale
+JITTER, JITTER_CHUNKED_BLOCK, JITTER_ROUNDINGS = 0.3, 128, 8
+AUTOTUNE_LAUNCHES = (
+    ("gram", 45_730, 45_730, 9, 65), ("gram", 17_742, 17_742, 5, 9),
+    ("gram", 25_600, 17_742, 5, 8), ("gram", 434_874, 434_874, 3, 17),
+    ("gram", 16, 45_730, 9, 8), ("gram", 512, 512, 9, 1), ("gram", 512, 512, 9, 17),
+    ("gram", 512, 512, 9, 1024), ("gram", 1024, 45_730, 9, 64), ("gram", 512, 45_730, 9, 65),
+    ("gram", 128, 45_730, 9, 65), ("gram", 400, 50_000, 8, 100), ("bwd", 45_730, 45_730, 9, 8),
+    ("bwd", 16, 45_730, 9, 8), ("bwd", 400, 50_000, 8, 100), ("rff_t", 45_730, 100, 9, 65),
+    ("rff_t", 400, 512, 8, 100), ("rff_t", 16, 1024, 9, 8),
+)
 #: a bf16 kernel against its bf16 plain version (the same cast points, fp32
 #: sums: one bf16 ulp of a panel entry now and then flips with the summation
 #: order) and against the fp32 kernel (tests/test_pair_and_precision.py:164,
@@ -555,6 +582,7 @@ def main() -> int:
     smi = env_phase(torch)
     build_phase()
     kernels = kernels_phase(torch)
+    autotune_phase(torch, smi)
     oracle = main_path_phase(torch, kernels)
     grad_phase(torch, kernels)
     trained = train_phase(torch, kernels)
@@ -926,6 +954,7 @@ def kernels_phase(torch) -> dict:
     bf16_kernel_cases(torch, x, xs, rff_omega, gen, rec, paths)
     paths.update(grad_bf16={}, lm_serve_bf16={})
     bf16_backward_cases(torch, x, xtr, rff_omega, gen, rec, paths)
+    signal_jitter_cases(torch, xs, gen, rec)
     flash_bf16_cases(torch, gen, rec, paths)
 
     keep = ("s", "m", "p", "rows", "cols", "ctas", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -957,6 +986,276 @@ def kernels_phase(torch) -> dict:
         rec[key]["by_path"][path] = {k: paths[path][rows][k] for k in keep
                                      if k in paths[path][rows]}
     return rec
+
+
+def signal_jitter_cases(torch, xs, gen, rec) -> None:
+    """The Gram kernel's in-kernel signal and jitter (``gram_matvec_scaled``,
+    the twin of ``gram_matvec_pallas(..., signal=, jitter=)``), Matérn-3/2,
+    s = 65, at both tile precisions, on two plans: protein's 45,730², d = 9
+    (one column chunk: the epilogue adds jitter·v[r]), and its first 1,024
+    rows at block 128 (JITTER_CHUNKED_BLOCK: several column chunks, the
+    jitter carried by its chunk's partial into the chunk sum). Three checks
+    each: the first CHECK_ROWS rows against the plain version in float64
+    (its d² on the diagonal ~0, as the kernel's is exactly 0: an fp32 d² of
+    a few ulp can move signal·k there across a bf16 rounding boundary) at
+    the kernels phase's tolerance; the jitter's part alone, out − out at
+    jitter 0 (the same launch otherwise, so the same bits), against
+    jitter·v within JITTER_ROUNDINGS fp32 roundings a chunk of the output's
+    scale, where a dropped or doubled jitter misses by |jitter·v| (~1); and
+    the defaults against the unscaled launch bit for bit."""
+    from repro_torch.kernels.gram_matvec import gram_matvec, gram_matvec_scaled, gram_plan
+    from repro_torch.kernels.ref import gram_matvec_ref
+
+    signal, jitter, s = 1.7, JITTER, 65
+    eps = torch.finfo(torch.float32).eps
+    for label, x, block in (("protein", xs, None),
+                            ("chunked", xs[:1024].contiguous(), JITTER_CHUNKED_BLOCK)):
+        (n, d), k = x.shape, min(CHECK_ROWS, x.shape[0])
+        chunks = gram_plan(n, n, d, s, block).chunks
+        check((chunks == 1) == (block is None), f"signal/jitter {label}: {chunks} chunks")
+        v = torch.randn((n, s), generator=gen, device=x.device)
+        for precision, key, tol in (("fp32", "gram_matvec", GRAM_TOL),
+                                    ("bf16", "gram_matvec[bf16]", BF16_TOL)):
+            kw = dict(kind="matern32", signal=signal, precision=precision, block=block)
+            out = gram_matvec_scaled(x, x, v, jitter=jitter, **kw)
+            bare = gram_matvec_scaled(x, x, v, jitter=0.0, **kw)
+            ref = gram_matvec_ref(x[:k].double(), x.double(), v.double(), kind="matern32",
+                                  signal=signal, precision=precision) + jitter * v[:k].double()
+            err = (out[:k].double() - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            jit_err = ((out.double() - bare.double()) - jitter * v.double()).abs().max().item()
+            jit_scale = max(1.0, bare.abs().max().item())
+            jit_tol = JITTER_ROUNDINGS * chunks * eps * jit_scale
+            same = torch.equal(gram_matvec_scaled(x, x, v, kind="matern32", precision=precision,
+                                                  block=block),
+                               gram_matvec(x, x, v, kind="matern32", precision=precision,
+                                           block=block))
+            bound, flops, nbytes = _gram_bound_ms(n, n, d, s)
+            bounds = (dict(bound_ms=bound, bound_by=_bound_by(flops, nbytes))
+                      if precision == "fp32" else _bf16_bound(n * n, 2 * (d + s), nbytes))
+            emit("kernels", kernel=key, case=f"signal_jitter_{label}", n=n, d=d, s=s,
+                 chunks=chunks, max_abs_err=err, tol=tol * scale, jitter_part_err=jit_err,
+                 jitter_part_tol=jit_tol, jitter_term_max=jitter * v.abs().max().item(),
+                 defaults_bit_identical=same,
+                 ms=_events_ms(torch, lambda: gram_matvec_scaled(x, x, v, jitter=jitter, **kw),
+                               20),
+                 plain_ms=_events_ms(torch, lambda: gram_matvec_ref(
+                     x, x, v, kind="matern32", signal=signal, jitter=jitter,
+                     precision=precision), 3),
+                 **bounds, jitter=jitter, **kw)
+            check(err <= tol * scale, f"{key} signal/jitter {label}: {err} > {tol * scale}")
+            check(jit_err <= jit_tol, f"{key} jitter part {label}: {jit_err} > {jit_tol}")
+            check(same, f"{key} {label}: the default signal and jitter keep the unscaled "
+                  "launch's bits")
+            rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+
+
+def _graph_ms(torch, autotune, fn, blocks) -> dict:
+    """Device ms of one launch of ``fn(block)`` for each of ``blocks``: CUDA
+    graphs of 20 launches (``autotune.graph_timer``, as the sweep times;
+    eager launches of a shape under ~0.1 ms time the host), the median of 3
+    replays taken in turns."""
+    timers = {b: autotune.graph_timer(torch, lambda b=b: fn(b), 20) for b in blocks}
+    runs = {b: [] for b in blocks}
+    for _ in range(3):
+        for b, timed in timers.items():
+            runs[b].append(timed())
+    return {b: sorted(r)[1] for b, r in runs.items()}
+
+
+def autotune_phase(torch, smi: str) -> None:
+    """The plans' block (``kernels/autotune.py``) on the card: the committed
+    H100 table covers ``expected_keys()`` with candidate values; every
+    candidate block
+    of the Gram forward, its backward, the row pair and Φ̃ᵀu, at both tile
+    precisions, against the plain version (fp32: in float64 at the kernels
+    phase's tolerances; bf16: as ``bf16_kernel_cases`` and
+    ``bf16_backward_cases`` hold them) on the first CHECK_ROWS output rows,
+    at AUTOTUNE_SMALL, protein's square and its 512-row panel; ``"auto"``
+    the explicit pin of the block it resolves to, bit for bit, through
+    ``ops``. Prints, without asserting, the block each path launch of
+    PERF.md §6 resolves to, both plans' ms where the table moves it, and
+    every candidate's ms at the main path's shapes (CUDA graphs,
+    ``_graph_ms``)."""
+    from repro_torch.core.kernels_fn import make_params, spectral_sample
+    from repro_torch.data.pipeline import regression_dataset
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels.gram_matvec import (
+        gram_bwd_plan, gram_matvec, gram_matvec_bwd, gram_plan, gram_rows_pair,
+    )
+    from repro_torch.kernels.ref import (
+        gram_matvec_bwd_ref, gram_matvec_ref, gram_rows_pair_ref, rff_t_matvec_ref,
+    )
+    from repro_torch.kernels.rff_matvec import rff_plan, rff_t_matvec
+
+    t0 = time.perf_counter()
+    with open(autotune.DEFAULT_TABLE_PATH) as f:
+        doc = json.load(f)
+    table = doc["table"]
+    check(set(table) == autotune.expected_keys(), "the table covers expected_keys()")
+    check(all(v in autotune.CANDIDATE_BLOCKS for v in table.values()),
+          "every table value is a candidate")
+    emit("autotune_table", swept_on=doc["nvidia_smi"], this_card=smi,
+         torch=doc["torch"], date=doc["date"], keys=len(table),
+         non_heuristic={k: v for k, v in sorted(table.items())
+                        if v != autotune.HEURISTIC_BLOCK})
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = regression_dataset("protein", seed=SEED)
+    d = data["d"]
+    xs = (torch.as_tensor(data["x"], device=dev) / (math.sqrt(d) * 0.5)).contiguous()
+    n = xs.shape[0]
+    sm = AUTOTUNE_SMALL
+    small = torch.rand((sm["n"], sm["d"]), generator=gen, device=dev) * 2.0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def omega_for(dd, m):
+        params = make_params("matern32", lengthscale=1.0, d=dd, device=dev)
+        return spectral_sample(params, m, dd, generator=gen)
+
+    panel_idx = torch.randperm(n, generator=gen, device=dev)[:512]
+    small_idx = torch.randperm(sm["n"], generator=gen, device=dev)[:sm["p"]]
+    # (label, op, rows, cols, s): the cases every candidate runs; the
+    # operands a (v, rowv, look or u) and b (colv or the pair's b)
+    cases = [("small", "gram", small, small, sm["s"]),
+             ("small", "bwd", small, small, sm["s"]),
+             ("small", "pair", small[small_idx].contiguous(), small, sm["s"]),
+             ("small", "rff_t", small, omega_for(sm["d"], sm["m"]), sm["s"]),
+             ("protein", "gram", xs, xs, 65),
+             ("protein", "bwd", xs, xs, 65),
+             ("protein", "rff_t", xs, omega_for(d, 100), 65),
+             ("panel", "gram", xs[panel_idx].contiguous(), xs, 65),
+             ("panel", "bwd", xs[panel_idx].contiguous(), xs, 65),
+             ("panel", "pair", xs[panel_idx].contiguous(), xs, 65)]
+    k = CHECK_ROWS
+    lines = []
+    for label, op, rows, cols, s in cases:
+        r, c = rows.shape[0], cols.shape[0]
+        a = randn(r if op in ("bwd", "rff_t") else c, s)
+        b = randn(c if op == "bwd" else r, s)
+        for precision in ("fp32", "bf16"):
+            up = (lambda t: t.double()) if precision == "fp32" or op == "bwd" else (lambda t: t)
+            if op == "gram":
+                def run(blk):
+                    return gram_matvec(rows, cols, a, kind="matern32", precision=precision,
+                                       block=blk)[:k]
+                ref = gram_matvec_ref(up(rows[:k]), up(cols), up(a), kind="matern32",
+                                      precision=precision)
+                plan = lambda blk: gram_plan(r, c, rows.shape[1], s, blk)  # noqa: E731
+            elif op == "bwd":
+                def run(blk):
+                    return gram_matvec_bwd(rows, cols, a, b, kind="matern32",
+                                           precision=precision, block=blk)[:k]
+                ref = gram_matvec_bwd_ref(up(rows[:k]), up(cols), up(a[:k]), up(b),
+                                          kind="matern32", precision=precision)
+                plan = lambda blk: gram_bwd_plan(  # noqa: E731
+                    r, c, rows.shape[1], s, precision=precision, block=blk)
+            elif op == "pair":
+                def run(blk):
+                    err, g = gram_rows_pair(rows, cols, a, b, kind="matern32",
+                                            precision=precision, block=blk)
+                    return torch.cat([err.flatten(), g[:k].flatten()])
+                e_ref, g_ref = gram_rows_pair_ref(up(rows), up(cols), up(a), up(b),
+                                                  kind="matern32", precision=precision)
+                ref = torch.cat([e_ref.flatten(), g_ref[:k].flatten()])
+                plan = lambda blk: (gram_plan(r, c, rows.shape[1], s, blk),  # noqa: E731
+                                    gram_plan(c, r, rows.shape[1], s, blk))
+            else:
+                def run(blk):
+                    return rff_t_matvec(rows, cols, a, precision=precision, block=blk)
+                ref = rff_t_matvec_ref(up(rows), up(cols), up(a), precision=precision)
+                plan = lambda blk: rff_plan(r, c, rows.shape[1], s, blk)  # noqa: E731
+            if precision == "fp32":
+                tol = {"bwd": GRAD_TOL, "rff_t": RFF_TOL}.get(op, GRAM_TOL)
+            elif op == "bwd":  # the bf16 backward's floor: its plain version's fp32 gap
+                ref32 = gram_matvec_bwd_ref(rows[:k], cols, a[:k], b, kind="matern32",
+                                            precision=precision)
+                tol = max(BF16_TOL, BF16_PLAIN_RATIO * _scaled_err(ref32, ref))
+            else:
+                tol = BF16_TOL
+            errs = {}
+            for blk in autotune.CANDIDATE_BLOCKS:
+                errs[blk] = _scaled_err(run(blk), ref)
+                check(errs[blk] <= tol, f"autotune {label} {op} {precision} block {blk}: "
+                      f"{errs[blk]} > {tol}")
+            plans = {blk: str(plan(blk)) for blk in autotune.CANDIDATE_BLOCKS}
+            lines.append(dict(case=label, op=op, precision=precision, rows=r, cols=c, s=s,
+                              rel_err=errs, tol=tol,
+                              distinct_plans=len(set(plans.values()))))
+    emit("autotune_candidates", cases=lines)
+
+    # "auto" is the explicit pin of the block it resolves to, bit for bit
+    params = make_params("matern32", lengthscale=math.sqrt(d) * 0.5, signal=1.0, noise=0.1,
+                         d=d, device=dev)
+    x = torch.as_tensor(data["x"], device=dev)
+    v65, omega = randn(n, 65), omega_for(d, 100)
+    autos = []
+    for precision in ("fp32", "bf16"):
+        for name, family, rows_n, fn in (
+                ("gram_mv", "gram", n, lambda blk: ops.gram_mv(
+                    params, x, v65, backend="cuda", block=blk, precision=precision)),
+                ("gram_rows_pair", "gram", 512, lambda blk: ops.gram_rows_pair(
+                    params, x, panel_idx, v65, v65[:512], backend="cuda", block=blk,
+                    precision=precision)[1]),
+                ("gram_rows_matvec", "gram", 512, lambda blk: ops.gram_rows_matvec(
+                    params, x, panel_idx, v65, backend="cuda", block=blk, precision=precision)),
+                ("rff_t_mv", "rff", n, lambda blk: ops.rff_t_mv(
+                    x, omega, v65, backend="cuda", block=blk, precision=precision))):
+            pin = autotune.resolve_block(family, rows_n, d, precision=precision)
+            same = torch.equal(fn("auto"), fn(pin))
+            autos.append(dict(entry=name, precision=precision, block=pin, bit_identical=same))
+            check(same and type(pin) is int, f"auto is its pin: {name} {precision}")
+    emit("autotune_auto", entries=autos)
+
+    # every candidate's ms at the main path's shapes (not asserted): CG's
+    # Gram at protein's 45,730², SGD's pair at the 512-row panel and its
+    # feature transpose, the training path's backward at s = 8
+    xi = xs[panel_idx].contiguous()
+    v8a, v8b = randn(n, 8), randn(n, 8)
+    timed = {
+        "gram_45730sq_s65": lambda blk: gram_matvec(xs, xs, v65, kind="matern32", block=blk),
+        "pair_512x45730_s65": lambda blk: gram_rows_pair(xi, xs, v65, v65[:512],
+                                                         kind="matern32", block=blk),
+        "rff_t_45730x100_s65": lambda blk: rff_t_matvec(xs, omega, v65, block=blk),
+        "bwd_45730sq_s8": lambda blk: gram_matvec_bwd(xs, xs, v8a, v8b, kind="matern32",
+                                                      block=blk),
+    }
+    ms = {name: _graph_ms(torch, autotune, fn, autotune.CANDIDATE_BLOCKS)
+          for name, fn in timed.items()}
+    emit("autotune_ms", nvidia_smi=smi, ms=ms)
+
+    # each path launch's block; both plans' times where the table moves it
+    moved = []
+    for op, r, c, dd, s in AUTOTUNE_LAUNCHES:
+        family = "rff" if op == "rff_t" else "gram"
+        blk, heur = autotune.resolve_block(family, r, dd), autotune.HEURISTIC_BLOCK
+        plan = {"gram": lambda b: gram_plan(r, c, dd, s, b),
+                "bwd": lambda b: gram_bwd_plan(r, c, dd, s, block=b),
+                "rff_t": lambda b: rff_plan(r, c, dd, s, b)}[op]
+        line = dict(op=op, rows=r, cols=c, d=dd, s=s, block=blk,
+                    block_bf16=autotune.resolve_block(family, r, dd, precision="bf16"),
+                    plan=str(plan(blk)), heuristic_plan=str(plan(heur)))
+        if plan(blk) != plan(heur):
+            rows = torch.rand((r, dd), generator=gen, device=dev) * 2.0
+            if op == "rff_t":
+                omega_c, u = omega_for(dd, c), randn(r, s)
+                fn = lambda b: rff_t_matvec(rows, omega_c, u, block=b)  # noqa: E731
+            elif op == "gram":
+                cols, v = torch.rand((c, dd), generator=gen, device=dev) * 2.0, randn(c, s)
+                fn = lambda b: gram_matvec(rows, cols, v, kind="matern32", block=b)  # noqa: E731
+            else:
+                cols = torch.rand((c, dd), generator=gen, device=dev) * 2.0
+                rowv, colv = randn(r, s), randn(c, s)
+                fn = lambda b: gram_matvec_bwd(  # noqa: E731
+                    rows, cols, rowv, colv, kind="matern32", block=b)
+            both = _graph_ms(torch, autotune, fn, (blk, heur))
+            line.update(ms=both[blk], heuristic_ms=both[heur])
+        moved.append(line)
+    emit("autotune_paths", nvidia_smi=smi, launches=moved,
+         seconds=time.perf_counter() - t0)
 
 
 def _path_shape(paths: dict, path: str, key: str, line: dict) -> None:
@@ -1981,12 +2280,16 @@ _PLAIN_ROUTE = {"_gram_kernel": "plain_gram_matvec", "_pair_kernel": "plain_gram
 def _plain_route():
     """``kernels.ops`` with the plain autograd Functions in place of the
     kernel wrappers, on the same card tensors: the reference's VJPs on the
-    plain versions, at the same tile precision."""
+    plain versions, at the same tile precision (the launches' ``block``
+    dropped: a plain version has no launch plan)."""
     from repro_torch.kernels import gram_matvec as gm, ops, rff_matvec as rm
+
+    def without_block(fn):
+        return lambda *args, block=None, **kw: fn(*args, **kw)
 
     saved = {name: getattr(ops, name) for name in _PLAIN_ROUTE}
     for name, plain in _PLAIN_ROUTE.items():
-        setattr(ops, name, getattr(gm, plain, None) or getattr(rm, plain))
+        setattr(ops, name, without_block(getattr(gm, plain, None) or getattr(rm, plain)))
     try:
         yield
     finally:

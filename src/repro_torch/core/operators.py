@@ -135,6 +135,9 @@ class Gram(LinearOperator):
     ``backend`` selects the matvec implementation (see kernels/ops.py):
     ``"auto"`` (the CUDA kernel on the card, chunked on the CPU), ``"cuda"``,
     ``"chunked"`` or ``"dense"``; a solver spec can pin it per solve.
+    ``block`` sets the CUDA launches' chunks (the fewest K-loop columns a
+    chunk holds, a multiple of 64); the ``"auto"`` default resolves per call
+    from its shapes (``kernels/autotune.py``).
     ``instrument=True`` counts executed matvecs in ``matvec_counts()``.
     """
 
@@ -142,6 +145,7 @@ class Gram(LinearOperator):
     params: KernelParams
     row_chunk: int = 2048
     backend: str = "auto"
+    block: "int | str" = "auto"
     precision: str = "fp32"
     instrument: bool = False
 
@@ -161,7 +165,7 @@ class Gram(LinearOperator):
         """(K + σ²I) @ v without materialising K. v: (n,) or (n, s)."""
         out = gram_mv(
             self.params, self.x, v, jitter=self.noise, backend=self.backend,
-            row_chunk=self.row_chunk, precision=self.precision,
+            block=self.block, row_chunk=self.row_chunk, precision=self.precision,
         )
         if self.instrument:
             _RUNTIME_COUNTS["mv"] += 1
@@ -169,7 +173,7 @@ class Gram(LinearOperator):
 
     def mv_k(self, v: torch.Tensor) -> torch.Tensor:
         """K @ v (no jitter)."""
-        out = gram_mv(self.params, self.x, v, backend=self.backend,
+        out = gram_mv(self.params, self.x, v, backend=self.backend, block=self.block,
                       row_chunk=self.row_chunk, precision=self.precision)
         if self.instrument:
             _RUNTIME_COUNTS["mv"] += 1
@@ -183,7 +187,7 @@ class Gram(LinearOperator):
         """K[idx, :] @ u, the panel never materialised on ``cuda``.
         u: (n,) or (n, s) → (|idx|, s-like)."""
         out = gram_rows_matvec(self.params, self.x, idx, u, backend=self.backend,
-                               precision=self.precision)
+                               block=self.block, precision=self.precision)
         if self.instrument:
             _RUNTIME_COUNTS["rows"] += 1
         return out
@@ -191,7 +195,8 @@ class Gram(LinearOperator):
     def rows_t_mv(self, idx: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """K[idx, :]ᵀ @ u = K[:, idx] @ u. u: (|idx|,) or (|idx|, s) → (n, s-like)."""
         out = gram_rows_matvec(self.params, self.x, idx, u, transpose=True,
-                               backend=self.backend, precision=self.precision)
+                               backend=self.backend, block=self.block,
+                               precision=self.precision)
         if self.instrument:
             _RUNTIME_COUNTS["rows"] += 1
         return out
@@ -201,8 +206,8 @@ class Gram(LinearOperator):
         """SGD's pair step: ``err = K[idx,:] @ look − b`` and
         ``g = K[idx,:]ᵀ @ err`` in one dispatch, counted as two row-block
         matvecs (the work it replaces). look: (n, s); b: (|idx|, s)."""
-        err, g = gram_rows_pair(self.params, self.x, idx, look, b,
-                                backend=self.backend, precision=self.precision)
+        err, g = gram_rows_pair(self.params, self.x, idx, look, b, backend=self.backend,
+                                block=self.block, precision=self.precision)
         if self.instrument:
             _RUNTIME_COUNTS["rows"] += 2
         return err, g
@@ -583,6 +588,7 @@ class ShardedGram(LinearOperator):
     data_axes: tuple = ("data",)
     row_chunk: int = 2048
     backend: str = "auto"
+    block: "int | str" = "auto"  # every shard's launches (see ``Gram.block``)
     precision: str = "fp32"
     instrument: bool = False
     # the replicated input panel, set by prepare_for_solve() under gather_once
@@ -630,7 +636,7 @@ class ShardedGram(LinearOperator):
                   v: torch.Tensor) -> torch.Tensor:
         """K(x_local, x_other) @ v through ``gram_mv`` (no jitter)."""
         return gram_mv(self.params, x_local, v, z=x_other, backend=self.backend,
-                       row_chunk=self.row_chunk, precision=self.precision)
+                       block=self.block, row_chunk=self.row_chunk, precision=self.precision)
 
     def _resolve_comm(self) -> str:
         """The effective strategy: ``auto`` → ring once the replicated (n, d)

@@ -47,6 +47,12 @@ SIGNATURES = {
     # the same with bf16 tiles (gram_matvec_bf16.cu)
     "repro_gram_matvec_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P),
+    # x, z, v, workspace, out, n, m, d, s, kind, signal, jitter, width, chunk,
+    # rows_per_cta, stream: the in-kernel signal and jitter, fp32 and bf16 tiles
+    "repro_gram_matvec_scaled_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                                     _I, _I, _P),
+    "repro_gram_matvec_scaled_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                                      _I, _I, _P),
     # x, z, rowv, colv, workspace, out, n, m, d, s, kind, width, chunk,
     # stage2_tc, stream
     "repro_gram_matvec_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,6 +1,6 @@
 // Fused Gram matvec with fp32 tiles: out(n, s) = K~(x, z) @ v(m, s), K~ the
 // unit-signal stationary covariance of already lengthscale-scaled inputs, no
-// jitter.
+// jitter; and, by repro_gram_matvec_scaled_f32, (signal K~ + jitter I) @ v.
 //
 // Replaces: src/repro/kernels/gram_matvec.py, gram_matvec_pallas
 // (_gram_matvec_kernel), reached through gram_matvec_fused.
@@ -16,7 +16,8 @@
 // the path's widths (s = 1-8, 9, 65, 100) exactly, and each count whose
 // rounding up cost more than 5% on the card (10, 11, 14, 15; scripts/
 // gram_variants.py). The rest round up at no measured loss: 3 to 4
-// (s = 17), 5-7 to 8, 12 to 13.
+// (s = 17), 5-7 to 8, 12 to 13. The scaled entry below runs 24 more
+// (REPRO_GRAM_SCALED_TILE_BUCKETS, gram_matvec_kernel.cuh).
 #define REPRO_GRAM_TILE_BUCKETS 1, 2, 4, 8, 9, 10, 11, 13, 14, 15, 16
 
 // x (n, d), z (m, d), v (m, s), b (n, s) -> out (n, s) = K~(x, z) @ v - b,
@@ -37,9 +38,26 @@ extern "C" int repro_gram_matvec_f32(const float* x, const float* z,
                                      int m, int d, int s, int kind,
                                      int rows_true, int width, int chunk,
                                      int rows_per_cta, void* stream) {
-  return repro_torch::gram_matvec<false, REPRO_GRAM_TILE_BUCKETS>(
+  return repro_torch::gram_matvec<false, false, REPRO_GRAM_TILE_BUCKETS>(
       x, z, v, b, workspace, out, n, m, d, s, kind, rows_true, width, chunk,
       rows_per_cta, static_cast<cudaStream_t>(stream));
+}
+
+// out (n, s) = (signal K~(x, z) + jitter I) @ v with both inside the kernel,
+// gram_matvec_pallas's signal and jitter: the k tile scaled by signal before
+// its product, jitter v[r] added to row r (jitter != 0 needs z = x, m = n,
+// else cudaErrorInvalidValue). repro_gram_matvec_f32's contract and plan
+// otherwise, with no b and no masked rows. One or two launches on `stream`;
+// returns the first CUDA error (0 on success).
+extern "C" int repro_gram_matvec_scaled_f32(const float* x, const float* z,
+                                            const float* v, float* workspace,
+                                            float* out, int n, int m, int d,
+                                            int s, int kind, float signal,
+                                            float jitter, int width, int chunk,
+                                            int rows_per_cta, void* stream) {
+  return repro_torch::gram_matvec<false, true, REPRO_GRAM_SCALED_TILE_BUCKETS>(
+      x, z, v, nullptr, workspace, out, n, m, d, s, kind, n, width, chunk,
+      rows_per_cta, static_cast<cudaStream_t>(stream), signal, jitter);
 }
 
 // Dynamic shared memory per CTA of a launch with these d, slice width and

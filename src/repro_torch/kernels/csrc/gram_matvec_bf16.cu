@@ -30,7 +30,8 @@
 #include "gram_matvec_kernel.cuh"
 
 // The n-tile counts (8 columns each) instantiated per kind, 28 kernels: the
-// bf16 paths' widths (s = 1-8, 65) exactly, and 2, 4, 12, 16 for the rest.
+// bf16 paths' widths (s = 1-8, 65) exactly, and 2, 4, 12, 16 for the rest;
+// and 24 scaled ones (REPRO_GRAM_SCALED_TILE_BUCKETS) for the scaled entry.
 #define REPRO_GRAM_BF16_TILE_BUCKETS 1, 2, 4, 8, 9, 12, 16
 
 // out (n, s) = K~(x, z) @ v - b with bf16 tiles, rows >= rows_true zeroed (b
@@ -45,9 +46,22 @@ extern "C" int repro_gram_matvec_bf16(const float* x, const float* z,
                                       int m, int d, int s, int kind,
                                       int rows_true, int width, int chunk,
                                       int rows_per_cta, void* stream) {
-  return repro_torch::gram_matvec<true, REPRO_GRAM_BF16_TILE_BUCKETS>(
+  return repro_torch::gram_matvec<true, false, REPRO_GRAM_BF16_TILE_BUCKETS>(
       x, z, v, b, workspace, out, n, m, d, s, kind, rows_true, width, chunk,
       rows_per_cta, static_cast<cudaStream_t>(stream));
+}
+
+// (signal K~(x, z) + jitter I) @ v with bf16 tiles, the k tile scaled before
+// it is rounded: repro_gram_matvec_scaled_f32's contract (gram_matvec.cu).
+extern "C" int repro_gram_matvec_scaled_bf16(const float* x, const float* z,
+                                             const float* v, float* workspace,
+                                             float* out, int n, int m, int d,
+                                             int s, int kind, float signal,
+                                             float jitter, int width, int chunk,
+                                             int rows_per_cta, void* stream) {
+  return repro_torch::gram_matvec<true, true, REPRO_GRAM_SCALED_TILE_BUCKETS>(
+      x, z, v, nullptr, workspace, out, n, m, d, s, kind, n, width, chunk,
+      rows_per_cta, static_cast<cudaStream_t>(stream), signal, jitter);
 }
 
 // Dynamic shared memory per CTA of a bf16 launch with these d, slice width

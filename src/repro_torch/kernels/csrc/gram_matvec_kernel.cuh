@@ -1,6 +1,9 @@
 // The fused Gram matvec kernel, out(n, s) = K~(x, z) @ v(m, s), K~ the
 // unit-signal stationary covariance of already lengthscale-scaled inputs, no
-// jitter, at either tile precision: BF16 = false is gram_matvec.cu's fp32
+// jitter; with SCALED, gram_matvec_pallas's in-kernel signal and jitter,
+// (signal K~ + jitter I) @ v (jitter only where z = x), on instances of their
+// own (REPRO_GRAM_SCALED_TILE_BUCKETS), so the unscaled ones every path runs
+// keep their code. At either tile precision: BF16 = false is gram_matvec.cu's fp32
 // kernel, BF16 = true gram_matvec_bf16.cu's bf16 tiles. Each source
 // instantiates its own precision (its entry points and its list of n-tile
 // counts), so the two build in parallel; every BF16 branch is an
@@ -33,7 +36,9 @@
 //   a point paired with itself gives d^2 exactly 0 and agrees bit for bit
 //   with the backward (gram_matvec_bwd.cu). The norms are those same chains,
 //   built by each thread from the loads of its own micro-tile, so no phase
-//   waits on them. Clamp and cov_map follow in registers. With bf16 tiles
+//   waits on them. Clamp and cov_map follow in registers (with SCALED, then
+//   the signal's product, before P is stored and, with bf16 tiles, rounded,
+//   where gram_matvec_pallas scales its k tile). With bf16 tiles
 //   the points are rounded to bf16 as they are read, and the norms and the
 //   dot are these chains over the rounded values (exact products).
 // * Stage 2, P V on the tensor cores at fp32 accuracy: mma.sync m16n8k8 with
@@ -87,6 +92,9 @@
 //   loop. The plan (width, chunk, rows_per_cta) is the caller's, gram_plan in
 //   kernels/gram_matvec.py, which alone owns the tile geometry; gram_matvec
 //   below runs it, chunk sum included.
+// * The jitter (SCALED; z = x, m = n): row r's jitter v[r] is added once,
+//   by the CTAs whose column chunk holds column r, to the sums they store;
+//   the chunk sum then adds it with that chunk's partial.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,6 +132,12 @@ __device__ __forceinline__ float cov_map(float d2) {
   }
 }
 
+// The n-tile counts of the scaled instances (gram_matvec_scaled, no path's
+// launch), at each precision: a slice runs the smallest at or above its width
+// (9: CG's s = 65 on a 9-tile instance, as unscaled; on the 16-tile one it
+// took 26.2 ms against 15.2 at 45,730², fp32, on an H100 at 700 W).
+#define REPRO_GRAM_SCALED_TILE_BUCKETS 1, 2, 4, 8, 9, 16
+
 // The instance of the list TILES that runs a slice of nt n-tiles (0: none).
 template <int... TILES>
 __host__ inline int tile_bucket(int nt) {
@@ -160,12 +174,12 @@ __host__ inline size_t gram_smem_bytes(int d, int nt, int xbufs) {
 // two barriers: stage 1 with V's split (or rounding), then stage 2. The z
 // and x copies of the next iteration are issued at its start, V's at the
 // second barrier, once its staging tile has been read.
-template <int KIND, int NT, bool BF16>
+template <int KIND, int NT, bool BF16, bool SCALED>
 __global__ void __launch_bounds__(kThreads, NT <= 4 ? 3 : 2)
 gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ v, float* __restrict__ out,
                    int n, int m, int d, int s, int width, int chunk,
-                   int rpc) {
+                   int rpc, float signal, float jitter) {
   constexpr int SW = 8 * NT;
   constexpr int VST = v_stride(SW);
   constexpr int Q = (NT + kColGroups - 1) / kColGroups;  // n-tiles per warp
@@ -332,10 +346,12 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
         for (int j = 0; j < 4; ++j) {
           // columns past m are zero rows of z and v: a finite entry times 0
           const float d2 = fmaxf(fmaf(-2.0f, dacc[i][j], xn[i] + zn[j]), 0.0f);
+          float k = cov_map<KIND>(d2);
+          if constexpr (SCALED) k *= signal;
           if constexpr (BF16) {
-            P16[(4 * ty + i) * kBf16Stride + tx + 16 * j] = bf16_bits(cov_map<KIND>(d2));
+            P16[(4 * ty + i) * kBf16Stride + tx + 16 * j] = bf16_bits(k);
           } else {
-            P[(4 * ty + i) * kPStride + tx + 16 * j] = cov_map<KIND>(d2);
+            P[(4 * ty + i) * kPStride + tx + 16 * j] = k;
           }
         }
     }
@@ -458,8 +474,15 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
           for (int e = 0; e < 4; ++e) {
             const int r = row0 + 16 * mt + g + 8 * (e >> 1);
             const int c = (cg + kColGroups * q) * 8 + 2 * t4 + (e & 1);
-            if ((q < Q - 1 || has_last) && r < n && c < live)
-              o[(size_t)r * s + c0 + c] = acc[mt][q][e];
+            if ((q < Q - 1 || has_last) && r < n && c < live) {
+              float sum = acc[mt][q][e];
+              // the diagonal entry (r, r) lies in this CTA's column chunk
+              if constexpr (SCALED) {
+                if (jitter != 0.0f && r >= j_begin && r < j_end)
+                  sum += jitter * v[(size_t)r * s + c0 + c];
+              }
+              o[(size_t)r * s + c0 + c] = sum;
+            }
             acc[mt][q][e] = 0.0f;
           }
     }
@@ -468,12 +491,12 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-template <int KIND, int NT, bool BF16>
+template <int KIND, int NT, bool BF16, bool SCALED>
 cudaError_t launch(const float* x, const float* z, const float* v, float* out,
                    int n, int m, int d, int s, int width, int chunk, int rpc,
-                   cudaStream_t stream) {
+                   float signal, float jitter, cudaStream_t stream) {
   const size_t bytes = gram_smem_bytes<BF16>(d, NT, rpc > 1 ? 2 : 1);
-  auto kernel = gram_matvec_kernel<KIND, NT, BF16>;
+  auto kernel = gram_matvec_kernel<KIND, NT, BF16, SCALED>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -483,43 +506,50 @@ cudaError_t launch(const float* x, const float* z, const float* v, float* out,
   const dim3 grid((row_blocks + rpc - 1) / rpc, (m + chunk - 1) / chunk,
                   (s + width - 1) / width);
   kernel<<<grid, kThreads, bytes, stream>>>(x, z, v, out, n, m, d, s, width,
-                                            chunk, rpc);
+                                            chunk, rpc, signal, jitter);
   return cudaGetLastError();
 }
 
-// launch<KIND, B, BF16> for the first bucket B >= nt of the list NT, MORE...
-template <int KIND, bool BF16, int NT, int... MORE>
+// launch<KIND, B, BF16, SCALED> for the first bucket B >= nt of the list NT,
+// MORE...
+template <int KIND, bool BF16, bool SCALED, int NT, int... MORE>
 cudaError_t dispatch_tiles(int nt, const float* x, const float* z,
                            const float* v, float* out, int n, int m, int d,
-                           int s, int width, int chunk, int rpc,
-                           cudaStream_t st) {
+                           int s, int width, int chunk, int rpc, float signal,
+                           float jitter, cudaStream_t st) {
   if constexpr (sizeof...(MORE) > 0) {
     if (nt > NT)
-      return dispatch_tiles<KIND, BF16, MORE...>(nt, x, z, v, out, n, m, d, s,
-                                                 width, chunk, rpc, st);
+      return dispatch_tiles<KIND, BF16, SCALED, MORE...>(
+          nt, x, z, v, out, n, m, d, s, width, chunk, rpc, signal, jitter, st);
   }
-  return launch<KIND, NT, BF16>(x, z, v, out, n, m, d, s, width, chunk, rpc, st);
+  return launch<KIND, NT, BF16, SCALED>(x, z, v, out, n, m, d, s, width, chunk,
+                                        rpc, signal, jitter, st);
 }
 
 // The kernel at precision BF16 on the instances TILES, for the plan's width.
-template <bool BF16, int... TILES>
+template <bool BF16, bool SCALED, int... TILES>
 cudaError_t dispatch_kind(const float* x, const float* z, const float* v,
                           float* out, int n, int m, int d, int s, int kind,
-                          int width, int chunk, int rpc, cudaStream_t st) {
+                          int width, int chunk, int rpc, float signal,
+                          float jitter, cudaStream_t st) {
   const int nt = width / 8;
   switch (kind) {
     case kSE:
-      return dispatch_tiles<kSE, BF16, TILES...>(nt, x, z, v, out, n, m, d, s,
-                                                 width, chunk, rpc, st);
+      return dispatch_tiles<kSE, BF16, SCALED, TILES...>(nt, x, z, v, out, n, m, d, s,
+                                                 width, chunk, rpc, signal,
+                                                 jitter, st);
     case kMatern12:
-      return dispatch_tiles<kMatern12, BF16, TILES...>(nt, x, z, v, out, n, m, d,
-                                                       s, width, chunk, rpc, st);
+      return dispatch_tiles<kMatern12, BF16, SCALED, TILES...>(nt, x, z, v, out, n, m, d,
+                                                       s, width, chunk, rpc,
+                                                       signal, jitter, st);
     case kMatern32:
-      return dispatch_tiles<kMatern32, BF16, TILES...>(nt, x, z, v, out, n, m, d,
-                                                       s, width, chunk, rpc, st);
+      return dispatch_tiles<kMatern32, BF16, SCALED, TILES...>(nt, x, z, v, out, n, m, d,
+                                                       s, width, chunk, rpc,
+                                                       signal, jitter, st);
     case kMatern52:
-      return dispatch_tiles<kMatern52, BF16, TILES...>(nt, x, z, v, out, n, m, d,
-                                                       s, width, chunk, rpc, st);
+      return dispatch_tiles<kMatern52, BF16, SCALED, TILES...>(nt, x, z, v, out, n, m, d,
+                                                       s, width, chunk, rpc,
+                                                       signal, jitter, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -560,25 +590,27 @@ int chunk_sum(const float* partial, const float* b, float* out, int chunks,
   return (int)cudaGetLastError();
 }
 
-// out (n, s) = K~(x, z) @ v - b, rows >= rows_true zeroed (b may be null;
-// 0 <= rows_true <= n), by the plan (width, chunk, rows_per_cta), at
-// precision BF16 on the instances TILES. With one chunk (chunk >= m), no b
-// and rows_true = n, one launch writes out; with one chunk otherwise, the
-// chunk sum subtracts b and masks rows in place; with several, the kernel
-// writes the (chunks, n, s) partials to `workspace` and the chunk sum adds
-// them in a fixed order into out. Returns the first CUDA error (0 on
-// success).
-template <bool BF16, int... TILES>
+// out (n, s) = K~(x, z) @ v - b (with SCALED, (signal K~ + jitter I) @ v -
+// b), rows >= rows_true zeroed (b may be null; 0 <= rows_true <= n; jitter
+// only where z = x, so m = n), by the plan (width, chunk, rows_per_cta), at
+// precision BF16 on the instances TILES. With one chunk (chunk >= m), no b and rows_true = n, one
+// launch writes out; with one chunk otherwise, the chunk sum subtracts b and
+// masks rows in place; with several, the kernel writes the (chunks, n, s)
+// partials to `workspace` and the chunk sum adds them in a fixed order into
+// out. Returns the first CUDA error (0 on success).
+template <bool BF16, bool SCALED, int... TILES>
 int gram_matvec(const float* x, const float* z, const float* v, const float* b,
                 float* workspace, float* out, int n, int m, int d, int s, int kind,
-                int rows_true, int width, int chunk, int rpc, cudaStream_t st) {
-  if (rows_true < 0 || rows_true > n ||
+                int rows_true, int width, int chunk, int rpc, cudaStream_t st,
+                float signal = 1.0f, float jitter = 0.0f) {
+  if (rows_true < 0 || rows_true > n || (jitter != 0.0f && m != n) ||
       !valid_plan<TILES...>(n, m, d, s, width, chunk, rpc))
     return (int)cudaErrorInvalidValue;
   const int chunks = chunk >= m ? 1 : (m + chunk - 1) / chunk;
   float* dst = chunks == 1 ? out : workspace;
-  const int err = (int)dispatch_kind<BF16, TILES...>(x, z, v, dst, n, m, d, s, kind,
-                                                     width, chunk, rpc, st);
+  const int err = (int)dispatch_kind<BF16, SCALED, TILES...>(x, z, v, dst, n, m, d, s, kind,
+                                                     width, chunk, rpc, signal,
+                                                     jitter, st);
   if (err != 0 || (chunks == 1 && b == nullptr && rows_true == n)) return err;
   return chunk_sum(dst, b, out, chunks, n, s, rows_true, st);
 }

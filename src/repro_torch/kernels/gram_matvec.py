@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import numbers
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -55,10 +56,11 @@ MAX_BWD_COLUMNS = 128
 #: (16 n-tiles of 8), at half that where d > WIDE_DIM, each slice's width a
 #: multiple of 8. Its launch plan fills the card: with fewer than FILL_CTAS
 #: (two waves of 132 SMs) row blocks × slices, the column loop is cut into
-#: chunks of at least MIN_CHUNK_TILES tiles along grid.y (at most GRID_Y
-#: chunks); with one chunk of fewer than LOOP_TILES tiles, each CTA runs
-#: several row blocks, as long as FILL_CTAS remain and the second x buffer
-#: fits (d ≤ MAX_LOOP_DIM).
+#: chunks of at least ``block`` columns along grid.y (MIN_CHUNK_TILES tiles
+#: unless a block is given: ``kernels/autotune.py``; at most GRID_Y chunks);
+#: with one chunk of fewer than LOOP_TILES tiles, each CTA runs several row
+#: blocks, as long as FILL_CTAS remain and the second x buffer fits
+#: (d ≤ MAX_LOOP_DIM).
 TILE_ROWS = TILE_COLS = 64
 SLICE_COLS = 128
 WIDE_DIM = 64
@@ -71,6 +73,21 @@ MAX_LOOP_DIM = 32
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def check_block(block) -> int:
+    """``block`` as the plans take it, the fewest K-loop columns one chunk of
+    a launch holds: a positive multiple of 64 (one tile), else
+    ``ValueError``."""
+    if (isinstance(block, bool) or not isinstance(block, numbers.Integral)
+            or block <= 0 or block % TILE_COLS):
+        raise ValueError(f"block must be a positive multiple of {TILE_COLS}, got {block!r}")
+    return int(block)
+
+
+def min_tiles(block, default: int) -> int:
+    """Tiles a chunk holds at least: ``default`` for no block, else block / 64."""
+    return default if block is None else check_block(block) // TILE_COLS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,18 +113,23 @@ class GramPlan:
         return self.chunks * n * s if self.chunks > 1 else 0
 
 
-def gram_plan(n: int, m: int, d: int, s: int) -> GramPlan:
+@functools.lru_cache(maxsize=None)
+def gram_plan(n: int, m: int, d: int, s: int, block=None) -> GramPlan:
     """The launch plan of K̃(x, z) @ v for x (n, d), z (m, d), v (m, s): a plain
-    function of the shapes, so every run of a shape is cut the same way (and
-    its fixed-order chunk sum gives the same bits)."""
+    function of the shapes and ``block`` (chunks of at least that many
+    columns; None: MIN_CHUNK_TILES tiles), so every run of a shape is cut the
+    same way (and its fixed-order chunk sum gives the same bits); memoised,
+    since every launch asks for it. The block never changes how v is
+    sliced."""
+    min_per = min_tiles(block, MIN_CHUNK_TILES)
     slice_cols = SLICE_COLS if d <= WIDE_DIM else SLICE_COLS // 2
     row_blocks, tiles = _cdiv(n, TILE_ROWS), _cdiv(m, TILE_COLS)
     width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)  # even slices, 8-aligned
     slices = _cdiv(s, width)
     base = row_blocks * slices
     chunks, per = 1, tiles
-    if base < FILL_CTAS and tiles > MIN_CHUNK_TILES:
-        per = max(MIN_CHUNK_TILES, tiles // _cdiv(FILL_CTAS, base), _cdiv(tiles, GRID_Y))
+    if base < FILL_CTAS and tiles > min_per:
+        per = max(min_per, tiles // _cdiv(FILL_CTAS, base), _cdiv(tiles, GRID_Y))
         chunks = _cdiv(tiles, per)
     rows_per_cta = 1
     if chunks == 1 and tiles < LOOP_TILES and d <= MAX_LOOP_DIM:
@@ -203,14 +225,16 @@ def bf16_bwd_columns(d: int) -> int:
     return next(w for dmax, w in BF16_BWD_SLICE_COLS.items() if d <= dmax)
 
 
+@functools.lru_cache(maxsize=None)
 def gram_bwd_plan(n: int, m: int, d: int, s: int, stage2=None,
-                  precision: str = "fp32") -> GramBwdPlan:
+                  precision: str = "fp32", block=None) -> GramBwdPlan:
     """The launch plan of the Gram backward for x (n, d), z (m, d), rowv (n, s),
     colv (m, s), s ≤ MAX_BWD_COLUMNS (bf16: ``bf16_bwd_columns(d)``; the
-    wrapper slices wider ones): a plain
-    function of the shapes, so every run of a shape is cut the same way. Few
+    wrapper slices wider ones): a plain function of the shapes and
+    ``block``, memoised, so every run of a shape is cut the same way. Few
     row blocks × slices cut the column loop into ``round_chunks``' chunks (at
-    least MIN_CHUNK_TILES tiles each). ``stage2`` (``"tc"`` or ``"fma"``)
+    least ``block`` columns each; None: MIN_CHUNK_TILES tiles). ``stage2``
+    (``"tc"`` or ``"fma"``)
     overrides the variant, to time both. The bf16 tiles run both products on
     the tensor cores (stage 2 ``"tc"``), two CTAs to an SM up to
     BF16_BWD_TWO_CTAS_DIM."""
@@ -231,7 +255,8 @@ def gram_bwd_plan(n: int, m: int, d: int, s: int, stage2=None,
         resident = 2 if d <= BF16_BWD_TWO_CTAS_DIM else 1
     else:
         resident = 1 if width > NARROW_G else 2
-    per = round_chunks(tiles, row_blocks * slices, resident, MIN_CHUNK_TILES)
+    per = round_chunks(tiles, row_blocks * slices, resident,
+                       min_tiles(block, MIN_CHUNK_TILES))
     return GramBwdPlan(row_blocks=row_blocks, chunks=_cdiv(tiles, per), chunk=per * TILE_COLS,
                        slices=slices, width=width, stage2=stage2)
 
@@ -327,9 +352,15 @@ _ENTRY = {"fp32": "f32", "bf16": "bf16"}
 _SUFFIX = {"fp32": "", "bf16": "_bf16"}
 
 
-def _at(fn, precision: str):
-    """``fn`` (a forward or a backward) bound to the tile precision."""
-    return fn if precision == "fp32" else functools.partial(fn, precision=precision)
+@functools.lru_cache(maxsize=256)
+def _at(fn, precision: str, block=None):
+    """``fn`` (a forward or a backward) bound to the tile precision and, for
+    a launch given one, the plans' ``block``; memoised, since every call
+    binds its launches."""
+    kw = {} if precision == "fp32" else {"precision": precision}
+    if block is not None:
+        kw["block"] = block
+    return functools.partial(fn, **kw) if kw else fn
 
 
 class GramMatvec(LaunchCounts):
@@ -340,14 +371,16 @@ class GramMatvec(LaunchCounts):
     name = "gram_matvec"
 
     def __call__(self, x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, *,
-                 kind: str = "se", precision: str = "fp32") -> torch.Tensor:
-        """x:(n,d) z:(m,d) v:(m,s) → (n,s), inputs pre-scaled by 1/ℓ."""
+                 kind: str = "se", precision: str = "fp32", block=None) -> torch.Tensor:
+        """x:(n,d) z:(m,d) v:(m,s) → (n,s), inputs pre-scaled by 1/ℓ; ``block``
+        (None: the plans' default) sets the launches' chunks, the backward's
+        too."""
         check_kind(kind)
         check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, z, v)):
             return plain_gram_matvec(x, z, v, kind=kind, precision=precision)
-        return _GramMatvecFn.apply(x, z, v, kind, _at(self._launch, precision),
-                                   gram_matvec_bwd, precision)
+        return _GramMatvecFn.apply(x, z, v, kind, _at(self._launch, precision, block),
+                                   _at(gram_matvec_bwd, "fp32", block), precision)
 
     @staticmethod
     def smem_bytes(d: int, s: int, rows_per_cta: int = 1, precision: str = "fp32") -> int:
@@ -355,15 +388,17 @@ class GramMatvec(LaunchCounts):
         return getattr(_build.library(), f"repro_gram_matvec_smem_bytes{_SUFFIX[precision]}")(
             d, gram_plan(1, 1, d, s).width, rows_per_cta)
 
-    def _launch(self, x, z, v, *, kind, precision="fp32"):
-        out = _launch_matvec(self.name, x, z, v, kind, precision)
+    def _launch(self, x, z, v, *, kind, precision="fp32", block=None):
+        out = _launch_matvec(self.name, x, z, v, kind, precision, block)
         self._count(precision)  # one call, one or two launches
         return out
 
 
-def _launch_matvec(name, x, z, v, kind, precision="fp32"):
+def _launch_matvec(name, x, z, v, kind, precision="fp32", block=None, signal=None,
+                   jitter=0.0):
     """K̃(x, z) @ v by the Gram kernel of the tile precision on ``gram_plan``'s
-    launch (its column chunks summed in a fixed order inside the C entry)."""
+    launch (its column chunks summed in a fixed order inside the C entry);
+    with a ``signal``, (signal·K̃ + jitter·I) @ v by the scaled entry."""
     check_operands(name, x, z, v)
     _check_chain(name, x, z, v)
     (n, d), m, s = x.shape, z.shape[0], v.shape[1]
@@ -372,15 +407,23 @@ def _launch_matvec(name, x, z, v, kind, precision="fp32"):
         return out
     if m == 0:
         return out.zero_()
-    plan = gram_plan(n, m, d, s)
+    plan = gram_plan(n, m, d, s, block)
     ws = torch.empty(plan.workspace_floats(n, s), dtype=torch.float32, device=x.device)
+    lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(_build.library(), f"repro_gram_matvec_{_ENTRY[precision]}")(
-            x.data_ptr(), z.data_ptr(), v.data_ptr(), None, ws.data_ptr(), out.data_ptr(),
-            n, m, d, s, CUDA_KINDS.index(kind), n, plan.width, plan.chunk,
-            plan.rows_per_cta, stream,
-        )
+        if signal is None:
+            err = getattr(lib, f"repro_gram_matvec_{_ENTRY[precision]}")(
+                x.data_ptr(), z.data_ptr(), v.data_ptr(), None, ws.data_ptr(), out.data_ptr(),
+                n, m, d, s, CUDA_KINDS.index(kind), n, plan.width, plan.chunk,
+                plan.rows_per_cta, stream,
+            )
+        else:
+            err = getattr(lib, f"repro_gram_matvec_scaled_{_ENTRY[precision]}")(
+                x.data_ptr(), z.data_ptr(), v.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                n, m, d, s, CUDA_KINDS.index(kind), float(signal), float(jitter),
+                plan.width, plan.chunk, plan.rows_per_cta, stream,
+            )
     _build.check(err, name)
     return out
 
@@ -395,14 +438,14 @@ class GramMatvecBwd(LaunchCounts):
 
     def __call__(self, x: torch.Tensor, z: torch.Tensor, rowv: torch.Tensor,
                  colv: torch.Tensor, *, kind: str = "se",
-                 precision: str = "fp32") -> torch.Tensor:
+                 precision: str = "fp32", block=None) -> torch.Tensor:
         """dx (n,d) of v ↦ K̃(x, z) @ v at ḡ = rowv (n,s), v = colv (m,s),
         inputs pre-scaled by 1/ℓ; with (z, x, colv, rowv) it gives dz."""
         check_kind(kind)
         check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, z, rowv, colv)):
             return gram_matvec_bwd_ref(x, z, rowv, colv, kind=kind, precision=precision)
-        return self._launch(x, z, rowv, colv, kind, precision=precision)
+        return self._launch(x, z, rowv, colv, kind, precision=precision, block=block)
 
     @staticmethod
     def smem_bytes(d: int, s: int, stage2=None, precision: str = "fp32") -> int:
@@ -413,9 +456,9 @@ class GramMatvecBwd(LaunchCounts):
         return _build.library().repro_gram_matvec_bwd_smem_bytes(
             d, plan.width, int(plan.stage2 == "tc"))
 
-    def _launch(self, x, z, rowv, colv, kind, stage2=None, precision="fp32"):
-        """The launch on ``gram_bwd_plan``'s geometry at the tile precision;
-        ``stage2`` overrides its fp32 stage-2 variant (to time both)."""
+    def _launch(self, x, z, rowv, colv, kind, stage2=None, precision="fp32", block=None):
+        """The launch on ``gram_bwd_plan``'s geometry at the tile precision and
+        block; ``stage2`` overrides its fp32 stage-2 variant (to time both)."""
         check_operands(self.name, x, z, rowv, colv)
         (n, d), (m, dz), (nr, s), (mc, sc) = x.shape, z.shape, rowv.shape, colv.shape
         if dz != d or nr != n or mc != m or sc != s:
@@ -429,7 +472,7 @@ class GramMatvecBwd(LaunchCounts):
         if s > cols:  # dx is linear in the rank-s product rowv colvᵀ
             return sum(
                 self._launch(x, z, rowv[:, c:c + cols].contiguous(),
-                             colv[:, c:c + cols].contiguous(), kind, stage2, precision)
+                             colv[:, c:c + cols].contiguous(), kind, stage2, precision, block)
                 for c in range(0, s, cols)
             )
         out = torch.empty((n, d), dtype=torch.float32, device=x.device)
@@ -437,7 +480,7 @@ class GramMatvecBwd(LaunchCounts):
             return out
         if m == 0 or s == 0:
             return out.zero_()
-        plan = gram_bwd_plan(n, m, d, s, stage2, precision)
+        plan = gram_bwd_plan(n, m, d, s, stage2, precision, block)
         ws = torch.empty(plan.workspace_floats(n, d), dtype=torch.float32, device=x.device)
         args = (x.data_ptr(), z.data_ptr(), rowv.data_ptr(), colv.data_ptr(), ws.data_ptr(),
                 out.data_ptr(), n, m, d, s, CUDA_KINDS.index(kind), plan.width, plan.chunk)
@@ -462,18 +505,18 @@ class GramRowsMatvec(LaunchCounts):
     name = "gram_rows_matvec"
 
     def __call__(self, xi: torch.Tensor, x: torch.Tensor, u: torch.Tensor, *,
-                 kind: str = "se", precision: str = "fp32") -> torch.Tensor:
+                 kind: str = "se", precision: str = "fp32", block=None) -> torch.Tensor:
         """xi:(p,d) x:(n,d) u:(n,s) → (p,s), inputs pre-scaled by 1/ℓ."""
         check_kind(kind)
         check_precision(precision)
         if all(t.device.type == "cpu" for t in (xi, x, u)):
             return _GramMatvecFn.apply(xi, x, u, kind, _at(gram_rows_matvec_ref, precision),
                                        gram_matvec_bwd_ref, precision)
-        return _GramMatvecFn.apply(xi, x, u, kind, _at(self._launch, precision),
-                                   gram_matvec_bwd, precision)
+        return _GramMatvecFn.apply(xi, x, u, kind, _at(self._launch, precision, block),
+                                   _at(gram_matvec_bwd, "fp32", block), precision)
 
-    def _launch(self, xi, x, u, *, kind, precision="fp32"):
-        out = _launch_matvec(self.name, xi, x, u, kind, precision)
+    def _launch(self, xi, x, u, *, kind, precision="fp32", block=None):
+        out = _launch_matvec(self.name, xi, x, u, kind, precision, block)
         self._count(precision)
         return out
 
@@ -541,7 +584,7 @@ class GramRowsPair(LaunchCounts):
 
     def __call__(self, xi: torch.Tensor, x: torch.Tensor, look: torch.Tensor,
                  b: torch.Tensor, *, kind: str = "se", p_true=None,
-                 precision: str = "fp32") -> tuple:
+                 precision: str = "fp32", block=None) -> tuple:
         """xi:(p,d) x:(n,d) look:(n,s) b:(p,s) → (err (p,s), g (n,s)), inputs
         pre-scaled by 1/ℓ; err rows ≥ ``p_true`` (default p) are zeroed."""
         check_kind(kind)
@@ -550,12 +593,10 @@ class GramRowsPair(LaunchCounts):
             return plain_gram_rows_pair(xi, x, look, b, kind=kind, p_true=p_true,
                                         precision=precision)
         p_true = xi.shape[0] if p_true is None else int(p_true)
-        ops = dict(pair=self._launch, rows=gram_rows_matvec._launch, mv=gram_matvec._launch,
-                   bwd=gram_matvec_bwd)
-        ops = {name: _at(fn, precision) for name, fn in ops.items()}
-        return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true, ops, precision)
+        return _GramRowsPairFn.apply(xi, x, look, b, kind, p_true,
+                                     _pair_ops(precision, block), precision)
 
-    def _launch(self, xi, x, look, b, *, kind, p_true, precision="fp32"):
+    def _launch(self, xi, x, look, b, *, kind, p_true, precision="fp32", block=None):
         check_operands(self.name, xi, x, look, b)
         _check_chain(self.name, xi, x, look)
         (p, d), n, s = xi.shape, x.shape[0], look.shape[1]
@@ -569,7 +610,7 @@ class GramRowsPair(LaunchCounts):
             keep = (torch.arange(p, device=x.device) < p_true)[:, None]
             err = torch.where(keep, -b, torch.zeros_like(b))
             return err, g.zero_()
-        panel, back = gram_plan(p, n, d, s), gram_plan(n, p, d, s)
+        panel, back = gram_plan(p, n, d, s, block), gram_plan(n, p, d, s, block)
         ws = torch.empty(max(panel.workspace_floats(p, s), back.workspace_floats(n, s)),
                          dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
@@ -589,3 +630,41 @@ gram_matvec = GramMatvec()
 gram_matvec_bwd = GramMatvecBwd()
 gram_rows_matvec = GramRowsMatvec()
 gram_rows_pair = GramRowsPair()
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_ops(precision: str, block) -> dict:
+    """The pair's launches (the fused pair, and the rows matvec, the
+    forward and the backward its VJP runs) bound to the tile precision and
+    ``block``, once for each."""
+    ops = dict(pair=gram_rows_pair._launch, rows=gram_rows_matvec._launch,
+               mv=gram_matvec._launch, bwd=gram_matvec_bwd)
+    return {name: _at(fn, precision, block) for name, fn in ops.items()}
+
+
+def gram_matvec_scaled(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, *,
+                       kind: str = "se", signal: float = 1.0, jitter: float = 0.0,
+                       precision: str = "fp32", block=None) -> torch.Tensor:
+    """(signal·K̃(x, z) + jitter·I) @ v with both inside the kernel: the twin of
+    ``gram_matvec_pallas(x, z, v, kind=, signal=, jitter=, precision=)``, its
+    signal scaling the k tile before the tile's cast and product and its
+    jitter·v[r] added to row r (``repro_gram_matvec_scaled_f32`` or
+    ``_bf16``). ``jitter`` needs z = x (m = n) and raises otherwise, as the
+    reference asserts. Not differentiable, as that kernel is not (the
+    differentiable core is :data:`gram_matvec`, whose callers apply σ_f² and
+    the jitter outside it). CPU tensors take the plain version; a launch
+    counts under ``gram_matvec``'s ``LaunchCounts``."""
+    check_kind(kind)
+    check_precision(precision)
+    if jitter and x.shape[0] != z.shape[0]:
+        raise ValueError(
+            f"jitter adds jitter·v[r] to row r, which needs z = x (m = n); got n = "
+            f"{x.shape[0]}, m = {z.shape[0]}"
+        )
+    if all(t.device.type == "cpu" for t in (x, z, v)):
+        return gram_matvec_ref(x, z, v, kind=kind, precision=precision, signal=signal,
+                               jitter=jitter)
+    out = _launch_matvec("gram_matvec_scaled", x, z, v, kind, precision, block,
+                         signal=signal, jitter=jitter)
+    gram_matvec._count(precision)
+    return out

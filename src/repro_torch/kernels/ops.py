@@ -29,6 +29,13 @@ reference (``ops.py:150-163,200-204,287-297,381,496`` there): the cores'
 autograd Functions carry the kernels' VJPs (∂x, ∂ω and the operand's), and
 the factors around them keep their plain autodiff.
 
+``block`` is the reference's tile argument, ``"auto"`` (the default) or an
+int: on ``cuda`` it sets the fewest K-loop columns one chunk of a launch
+holds, resolved on the host from the call's shapes (the row count of its x,
+d, the tile precision) by ``kernels/autotune.py``'s H100 table, so no call
+synchronises with the device; the plain backends ignore it, as the
+reference's ``chunked`` does.
+
 ``precision`` is the reference's tile precision, pinned by a spec through
 ``solve()`` like ``backend``: ``"fp32"``, or ``"bf16"``, bfloat16 contraction
 operands with fp32 accumulation. On ``cuda`` it selects the kernels' bf16
@@ -56,9 +63,10 @@ from __future__ import annotations
 
 import torch
 
+from .autotune import resolve_block
 from .flash_attention import check_dtypes, flash_attention as _flash_kernel
 from .gram_matvec import (
-    CUDA_KINDS, gram_matvec as _gram_kernel, gram_rows_matvec as _rows_kernel,
+    CUDA_KINDS, check_block, gram_matvec as _gram_kernel, gram_rows_matvec as _rows_kernel,
     gram_rows_pair as _pair_kernel,
 )
 from .ref import PRECISIONS, check_precision, flash_attention_ref, tile_cast
@@ -106,6 +114,14 @@ def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
     return tile_cast(a, precision) @ tile_cast(b, precision)
 
 
+def _resolve_block(block, family: str, n: int, d: int, precision: str) -> int:
+    """``"auto"`` → the autotuned or heuristic block of (family, n, d,
+    precision); an int passes through, checked (a positive multiple of 64)."""
+    if isinstance(block, str) and block == "auto":
+        return resolve_block(family, n, d, precision=precision)
+    return check_block(block)
+
+
 def resolve_backend(backend: str, kind: str, device: torch.device) -> str:
     """Normalise a Gram backend request for kernel ``kind`` on ``device``.
 
@@ -135,6 +151,7 @@ def gram_mv(
     *,
     jitter=None,
     backend: str = "auto",
+    block="auto",
     row_chunk: int = 2048,
     precision: str = "fp32",
 ) -> torch.Tensor:
@@ -157,8 +174,9 @@ def gram_mv(
         ls = params.lengthscale
         xs = (x / ls).contiguous()
         zs = xs if z is None else (z / ls).contiguous()
+        blk = _resolve_block(block, "gram", x.shape[0], x.shape[1], precision)
         out = params.signal * _gram_kernel(xs, zs, v2.contiguous(), kind=params.kind,
-                                           precision=precision)
+                                           precision=precision, block=blk)
     elif bk == "chunked":  # the plain backends ignore precision, as the reference's
         out = matvec(params, x, v2, z=z, row_chunk=row_chunk)
     else:
@@ -176,6 +194,7 @@ def gram_rows_matvec(
     *,
     transpose: bool = False,
     backend: str = "auto",
+    block="auto",
     precision: str = "fp32",
 ) -> torch.Tensor:
     """Row-block matvec: K[idx, :] @ u, or K[idx, :]ᵀ @ u with ``transpose``
@@ -191,14 +210,16 @@ def gram_rows_matvec(
     bk = resolve_backend(backend, params.kind, x.device)
     check_precision(precision)
     if bk == "cuda" and transpose:
-        return gram_mv(params, x, u, z=x[idx], backend="cuda", precision=precision)
+        return gram_mv(params, x, u, z=x[idx], backend="cuda", block=block,
+                       precision=precision)
     MATVEC_TRACE_COUNTS[bk] += 1
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
         xs = (x / params.lengthscale).contiguous()
+        blk = _resolve_block(block, "gram", idx.shape[0], x.shape[1], precision)
         out = params.signal * _rows_kernel(xs[idx].contiguous(), xs, u2.contiguous(),
-                                           kind=params.kind, precision=precision)
+                                           kind=params.kind, precision=precision, block=blk)
     else:
         panel = gram(params, x[idx], x)  # (|idx|, n)
         out = _dot(panel.T, u2, precision) if transpose else _dot(panel, u2, precision)
@@ -213,6 +234,7 @@ def gram_rows_pair(
     b: torch.Tensor,
     *,
     backend: str = "auto",
+    block="auto",
     precision: str = "fp32",
 ) -> tuple:
     """The SGD pair step: err = K[idx,:] @ look − b and g = K[idx,:]ᵀ @ err in
@@ -221,8 +243,9 @@ def gram_rows_pair(
     on every backend.
 
     On ``cuda`` the unit-signal core takes b/σ_f²: err = σ_f²·err_u and
-    g = σ_f⁴·g_u, with σ_f² outside the kernel as in the reference. The
-    chunked/dense backends build the panel once and use it twice.
+    g = σ_f⁴·g_u, with σ_f² outside the kernel as in the reference; ``"auto"``
+    resolves at the panel's |idx| rows, the phase whose chunks the block sets.
+    The chunked/dense backends build the panel once and use it twice.
     """
     from ..core.kernels_fn import gram  # deferred: core imports kernels
 
@@ -231,9 +254,10 @@ def gram_rows_pair(
     MATVEC_TRACE_COUNTS[bk] += 2
     if bk == "cuda":
         xs = (x / params.lengthscale).contiguous()
+        blk = _resolve_block(block, "gram", idx.shape[0], x.shape[1], precision)
         err_u, g_u = _pair_kernel(xs[idx].contiguous(), xs, look.contiguous(),
                                   (b / params.signal).contiguous(), kind=params.kind,
-                                  precision=precision)
+                                  precision=precision, block=blk)
         return params.signal * err_u, params.signal ** 2 * g_u
     panel = gram(params, x[idx], x)  # (|idx|, n), built once, used twice
     err = _dot(panel, look, precision) - b
@@ -278,6 +302,7 @@ def rff_mv(
     *,
     signal=1.0,
     backend: str = "auto",
+    block="auto",
     precision: str = "fp32",
 ) -> torch.Tensor:
     """Φ(x) @ w through the selected feature backend — THE feature matvec entry
@@ -290,8 +315,10 @@ def rff_mv(
     w2 = w[:, None] if squeeze else w
     if bk == "cuda":
         # the kernel carries √(1/m); σ_f² is folded in here, outside it
+        blk = _resolve_block(block, "rff", x.shape[0], x.shape[1], precision)
         out = torch.sqrt(signal) * _rff_kernel(
-            x.contiguous(), omega.contiguous(), w2.contiguous(), precision=precision
+            x.contiguous(), omega.contiguous(), w2.contiguous(), precision=precision,
+            block=blk,
         )
     else:
         out = _dot(materialised_features(x, omega, signal), w2, precision)
@@ -305,6 +332,7 @@ def rff_t_mv(
     *,
     signal=1.0,
     backend: str = "auto",
+    block="auto",
     precision: str = "fp32",
 ) -> torch.Tensor:
     """Φ(x)ᵀ @ u through the selected feature backend — the transposed feature
@@ -316,8 +344,10 @@ def rff_t_mv(
     squeeze = u.ndim == 1
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
+        blk = _resolve_block(block, "rff", x.shape[0], x.shape[1], precision)
         out = torch.sqrt(signal) * _rff_t_kernel(
-            x.contiguous(), omega.contiguous(), u2.contiguous(), precision=precision
+            x.contiguous(), omega.contiguous(), u2.contiguous(), precision=precision,
+            block=blk,
         )
     else:
         out = _dot(materialised_features(x, omega, signal).T, u2, precision)
@@ -331,6 +361,7 @@ def rff_pair_mv(
     *,
     signal=1.0,
     backend: str = "auto",
+    block="auto",
     precision: str = "fp32",
 ) -> torch.Tensor:
     """Φ(x) (Φ(x)ᵀ u) — the SGD regulariser (Eq. 3.3) in ONE dispatch,
@@ -346,8 +377,9 @@ def rff_pair_mv(
     u2 = u[:, None] if squeeze else u
     if bk == "cuda":
         # the core's two √(1/m) factors give 1/m; σ_f² is applied here
+        blk = _resolve_block(block, "rff", x.shape[0], x.shape[1], precision)
         out = signal * _rff_pair_kernel(x.contiguous(), omega.contiguous(), u2.contiguous(),
-                                precision=precision)
+                                        precision=precision, block=blk)
     else:
         feats = materialised_features(x, omega, signal)  # built once, used twice
         out = _dot(feats, _dot(feats.T, u2, precision), precision)
@@ -375,29 +407,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def gram_matvec(params, x: torch.Tensor, v: torch.Tensor, z=None, *, jitter=None,
-                precision: str = "fp32") -> torch.Tensor:
+                block="auto", precision: str = "fp32") -> torch.Tensor:
     """(σ_f² k(x, z) + jitter·I) @ v — the fused Gram kernel, the reference's
     ``backend="pallas"`` pin over :func:`gram_mv` (its ``ops.gram_matvec``):
     σ_f², 1/ℓ and the jitter applied outside the core, differentiable in x,
     z, v and the hyperparameters. CPU tensors take the kernel's plain
     version."""
-    return gram_mv(params, x, v, z=z, jitter=jitter, backend="cuda", precision=precision)
+    return gram_mv(params, x, v, z=z, jitter=jitter, backend="cuda", block=block,
+                   precision=precision)
 
 
 def rff_matvec(x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *, signal=1.0,
-               precision: str = "fp32") -> torch.Tensor:
+               block="auto", precision: str = "fp32") -> torch.Tensor:
     """Φ(x) @ w (paired sin/cos RFF) by the fused kernel — the reference's
     ``ops.rff_matvec`` pin, :func:`rff_mv` on ``"cuda"``: w (2m, s), sin rows
     first; differentiable in x, ω, w and ``signal`` (σ_f², outside the core).
     The reference pads ω to its block and rescales by √(m_pad/m); the port's
     kernel masks the feature edge, so nothing is padded. Counted among the
     feature matvecs (the reference's pin passes its counter by)."""
-    return rff_mv(x, omega, w, signal=signal, backend="cuda", precision=precision)
+    return rff_mv(x, omega, w, signal=signal, backend="cuda", block=block,
+                  precision=precision)
 
 
 def rff_t_matvec(x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *, signal=1.0,
-                 precision: str = "fp32") -> torch.Tensor:
+                 block="auto", precision: str = "fp32") -> torch.Tensor:
     """Φ(x)ᵀ @ u (paired sin/cos RFF) → (2m, s) by the fused kernel — the
     reference's ``ops.rff_t_matvec`` pin, :func:`rff_t_mv` on ``"cuda"``
     (see :func:`rff_matvec`)."""
-    return rff_t_mv(x, omega, u, signal=signal, backend="cuda", precision=precision)
+    return rff_t_mv(x, omega, u, signal=signal, backend="cuda", block=block,
+                    precision=precision)

@@ -103,20 +103,29 @@ def gram_matvec_ref(
     kind: str = "se",
     row_chunk: int = 4096,
     precision: str = "fp32",
+    signal: float = 1.0,
+    jitter: float = 0.0,
 ) -> torch.Tensor:
-    """k(x, z) @ v with unit signal and no jitter — the kernel's core, as
-    ``gram_matvec_ref(..., signal=1, jitter=0)`` in the reference.
+    """(signal·k(x, z) + jitter·I) @ v — the reference's ``gram_matvec_ref``;
+    the kernel's core at the defaults (unit signal, no jitter).
     x:(n,d) z:(m,d) v:(m,s) → (n,s), inputs already lengthscale-scaled (x/ℓ).
-    With ``"bf16"``, ``gram_matvec_pallas``'s casts: x, z, the k tile and v.
+    With ``"bf16"``, ``gram_matvec_pallas``'s casts: x, z, the k tile (after
+    its signal) and v; jitter·v is added in v's own dtype, as there.
     """
     check_precision(precision)
+    if jitter and x.shape[0] != z.shape[0]:
+        raise ValueError("jitter·I needs a square operator: z = x (m = n)")
     if not x.shape[0]:
         return v.new_zeros((0, v.shape[1]))
-    x, z, v = (tile_cast(a, precision) for a in (x, z, v))
-    return torch.cat([
-        tile_cast(stationary_map(sqdist(x[i:i + row_chunk], z), kind), precision) @ v
-        for i in range(0, x.shape[0], row_chunk)
-    ])
+    xc, zc, vc = (tile_cast(a, precision) for a in (x, z, v))
+
+    def k_tile(rows):
+        k = stationary_map(sqdist(rows, zc), kind)
+        return tile_cast(k if signal == 1.0 else signal * k, precision)
+
+    out = torch.cat([k_tile(xc[i:i + row_chunk]) @ vc
+                     for i in range(0, x.shape[0], row_chunk)])
+    return out + jitter * v if jitter else out
 
 
 def gram_matvec_bwd_ref(

@@ -51,7 +51,7 @@ from torch.autograd.function import once_differentiable
 from . import _build
 from .gram_matvec import (
     _ENTRY, _SUFFIX, GRID_Y, MAX_DIM, NARROW_G, SLICE_COLS, TILE_COLS, TILE_ROWS, WIDE_DIM,
-    LaunchCounts, _at, _cdiv, bf16_bwd_columns, check_operands, round_chunks,
+    LaunchCounts, _at, _cdiv, bf16_bwd_columns, check_operands, min_tiles, round_chunks,
 )
 from .ref import check_precision, rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff_t_matvec_ref
 
@@ -60,7 +60,8 @@ from .ref import check_precision, rff_bwd_ref, rff_matvec_ref, rff_pair_ref, rff
 #: CTA over tiles of ROW_TILE data rows. Frequencies are computed in groups of
 #: FREQ_GROUP (one k-step or m-tile of the tensor-core product); s is sliced
 #: as the Gram kernel slices v. Few output blocks cut the K loop into
-#: ``round_chunks``' chunks, at least MIN_ROW_TILES row tiles a chunk of Φ̃ᵀu.
+#: ``round_chunks``' chunks, a chunk of Φ̃ᵀu at least ``block`` rows
+#: (MIN_ROW_TILES row tiles unless a block is given: ``kernels/autotune.py``).
 ROW_TILE = 64
 FREQ_TILE = 32
 FREQ_GROUP = 8
@@ -113,17 +114,21 @@ class RFFPlan:
         return self.freq_chunks * n * s if self.freq_chunks > 1 else 0
 
 
-def rff_plan(n: int, m: int, d: int, s: int) -> RFFPlan:
+@functools.lru_cache(maxsize=None)
+def rff_plan(n: int, m: int, d: int, s: int, block=None) -> RFFPlan:
     """The launch plan of Φ̃W and Φ̃ᵀu for x (n, d), ω (m, d) and a (2m, s) or
-    (n, s) operand: a plain function of the shapes, so every run of a shape
-    is cut the same way (and its fixed-order chunk sum gives the same bits)."""
+    (n, s) operand: a plain function of the shapes and ``block`` (Φ̃ᵀu's row
+    chunks of at least that many rows; None: MIN_ROW_TILES tiles), memoised,
+    so every run of a shape is cut the same way (and its fixed-order chunk
+    sum gives the same bits)."""
     slice_cols = SLICE_COLS if d <= WIDE_DIM else SLICE_COLS // 2
     width = 8 * _cdiv(_cdiv(s, _cdiv(s, slice_cols)), 8)
     slices = _cdiv(s, width)
     freq_blocks, row_tiles = _cdiv(m, FREQ_TILE), _cdiv(n, ROW_TILE)
     row_blocks, freq_tiles = _cdiv(n, ROW_TILE), _cdiv(m, FREQ_TILE)
     resident = rff_resident(d, width)
-    per = round_chunks(row_tiles, freq_blocks * slices, resident, MIN_ROW_TILES)
+    per = round_chunks(row_tiles, freq_blocks * slices, resident,
+                       min_tiles(block, MIN_ROW_TILES))
     fper = round_chunks(freq_tiles, row_blocks * slices, resident, 1)
     return RFFPlan(slices=slices, width=width, freq_blocks=freq_blocks,
                    row_chunks=_cdiv(row_tiles, per), row_chunk=per * ROW_TILE,
@@ -365,12 +370,13 @@ class RFFMatvec(LaunchCounts):
     name = "rff_matvec"
 
     def __call__(self, x: torch.Tensor, omega: torch.Tensor, w: torch.Tensor, *,
-                 precision: str = "fp32") -> torch.Tensor:
-        """x:(n,d) ω:(m,d) w:(2m,s) → (n,s)."""
+                 precision: str = "fp32", block=None) -> torch.Tensor:
+        """x:(n,d) ω:(m,d) w:(2m,s) → (n,s); ``block`` (None: the plan's
+        default) sets the Φ̃ᵀu launches of its backward."""
         check_precision(precision)
         if all(t.device.type == "cpu" for t in (x, omega, w)):
             return plain_rff_matvec(x, omega, w, precision=precision)
-        return _RFFMatvecFn.apply(x, omega, w, _KERNEL_OPS, precision)
+        return _RFFMatvecFn.apply(x, omega, w, _kernel_ops(block), precision)
 
     @staticmethod
     def smem_bytes(d: int, s: int, precision: str = "fp32") -> int:
@@ -379,7 +385,7 @@ class RFFMatvec(LaunchCounts):
         return getattr(_build.library(), f"repro_rff_matvec_smem_bytes{_SUFFIX[precision]}")(
             d, rff_plan(1, 1, d, s).width)
 
-    def _launch(self, x, omega, w, *, precision="fp32"):
+    def _launch(self, x, omega, w, *, precision="fp32", block=None):
         check_operands(self.name, x, omega, w)
         (n, d), (m, dw), (mw, s) = x.shape, omega.shape, w.shape
         if dw != d or mw != 2 * m:
@@ -395,7 +401,7 @@ class RFFMatvec(LaunchCounts):
         out = torch.empty((n, s), dtype=torch.float32, device=x.device)
         if n == 0 or s == 0:
             return out
-        plan = rff_plan(n, m, d, s)
+        plan = rff_plan(n, m, d, s, block)
         ws = torch.empty(plan.mv_workspace_floats(n, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -417,15 +423,17 @@ class RFFTMatvec(LaunchCounts):
     name = "rff_t_matvec"
 
     def __call__(self, x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                 m_true=None, precision: str = "fp32") -> torch.Tensor:
+                 m_true=None, precision: str = "fp32", block=None) -> torch.Tensor:
         """x:(n,d) ω:(m,d) u:(n,s) → (2m,s), sin rows then cos rows; rows of
-        frequencies ≥ ``m_true`` (default m) zeroed."""
+        frequencies ≥ ``m_true`` (default m) zeroed; ``block`` (None: the
+        plan's default) sets its row chunks."""
         check_precision(precision)
         m_true = _m_true(omega, m_true)
-        ops = _PLAIN_OPS if all(t.device.type == "cpu" for t in (x, omega, u)) else _KERNEL_OPS
+        cpu = all(t.device.type == "cpu" for t in (x, omega, u))
+        ops = _PLAIN_OPS if cpu else _kernel_ops(block)
         return _RFFTMatvecFn.apply(x, omega, u, m_true, ops, precision)
 
-    def _launch(self, x, omega, u, m_true, *, precision="fp32"):
+    def _launch(self, x, omega, u, m_true, *, precision="fp32", block=None):
         check_operands(self.name, x, omega, u)
         _check_rff(self.name, x, omega, u)
         (n, d), m, s = x.shape, omega.shape[0], u.shape[1]
@@ -434,7 +442,7 @@ class RFFTMatvec(LaunchCounts):
             return out
         if n == 0:
             return out.zero_()
-        plan = rff_plan(n, m, d, s)
+        plan = rff_plan(n, m, d, s, block)
         ws = torch.empty(plan.t_workspace_floats(m, s), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -458,21 +466,22 @@ class RFFPair(LaunchCounts):
     name = "rff_pair"
 
     def __call__(self, x: torch.Tensor, omega: torch.Tensor, u: torch.Tensor, *,
-                 m_true=None, precision: str = "fp32") -> torch.Tensor:
+                 m_true=None, precision: str = "fp32", block=None) -> torch.Tensor:
         """x:(n,d) ω:(m,d) u:(n,s) → Φ̃(Φ̃ᵀu) (n,s), Φ̃ = √(1/m)[sin | cos]."""
         check_precision(precision)
         m_true = _m_true(omega, m_true)
-        ops = _PLAIN_OPS if all(t.device.type == "cpu" for t in (x, omega, u)) else _KERNEL_OPS
+        cpu = all(t.device.type == "cpu" for t in (x, omega, u))
+        ops = _PLAIN_OPS if cpu else _kernel_ops(block)
         return _RFFPairFn.apply(x, omega, u, m_true, ops, precision)
 
-    def _launch(self, x, omega, u, m_true, *, precision="fp32"):
+    def _launch(self, x, omega, u, m_true, *, precision="fp32", block=None):
         check_operands(self.name, x, omega, u)
         _check_rff(self.name, x, omega, u)
         (n, d), m, s = x.shape, omega.shape[0], u.shape[1]
         out = torch.empty((n, s), dtype=torch.float32, device=x.device)
         if n == 0 or s == 0:
             return out
-        plan = rff_plan(n, m, d, s)
+        plan = rff_plan(n, m, d, s, block)
         ws_floats = max(plan.t_workspace_floats(m, s), plan.mv_workspace_floats(n, s))
         buf = torch.empty(2 * m * s + ws_floats, dtype=torch.float32, device=x.device)
         t, ws = buf[:2 * m * s], buf[2 * m * s:]  # t first: 16-byte aligned
@@ -562,3 +571,13 @@ rff_pair = RFFPair()
 rff_bwd = RFFBwd()
 _KERNEL_OPS = dict(mv=rff_matvec._launch, t=rff_t_matvec._launch, pair=rff_pair._launch,
                    bwd=rff_bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_ops(block) -> dict:
+    """The kernels' ops with Φ̃W, Φ̃ᵀu and the pair bound to ``block`` (the
+    backward's plan takes none), built once for each block."""
+    if block is None:
+        return _KERNEL_OPS
+    return {k: fn if k == "bwd" else functools.partial(fn, block=block)
+            for k, fn in _KERNEL_OPS.items()}

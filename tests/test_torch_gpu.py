@@ -1668,3 +1668,125 @@ def test_sharded_llama3_on_a_one_rank_nccl_mesh(card):
         assert bool(torch.isfinite(logits.full_tensor()).all())
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the plans' block (kernels/autotune.py): every candidate against the plain
+# version, "auto" against its pin; the in-kernel signal and jitter
+# ---------------------------------------------------------------------------
+
+#: each candidate block against the plain version: (the kernel, rows, cols, d,
+#: s) at shapes where the candidates' plans differ (few rows, few tiles)
+BLOCK_CASES = [("gram", 1024, 1024, 8, 16), ("gram", 128, 5000, 9, 65),
+               ("bwd", 1024, 1024, 8, 16), ("bwd", 128, 5000, 9, 8),
+               ("pair", 128, 5000, 9, 65), ("rff_t", 2000, 100, 9, 65)]
+
+
+def _block_case(op, n, m, d, s, block, precision):
+    """(the kernel's output at ``block``, the plain version's on the same
+    inputs: in float64 for fp32 tiles, in fp32 for bf16 tiles, as the bf16
+    tests above hold them)."""
+    x, z = _normal(1, n, d, scale=0.6), _normal(2, m, d, scale=0.6)
+    up = (lambda t: t.double()) if precision == "fp32" else (lambda t: t)
+    if op == "gram":
+        v = _normal(3, m, s)
+        return (gram_matvec(x, z, v, kind="matern32", precision=precision, block=block),
+                gram_matvec_ref(up(x), up(z), up(v), kind="matern32", precision=precision))
+    if op == "bwd":  # in float64 at both precisions, as the bf16 backward's test
+        rowv, colv = _normal(3, n, s), _normal(4, m, s)
+        return (gram_matvec_bwd(x, z, rowv, colv, kind="matern32", precision=precision,
+                                block=block),
+                gram_matvec_bwd_ref(*(t.double() for t in (x, z, rowv, colv)),
+                                    kind="matern32", precision=precision))
+    if op == "pair":
+        look, b = _normal(3, m, s), _normal(4, n, s)
+        got = gram_rows_pair(x, z, look, b, kind="matern32", p_true=n - 5, precision=precision,
+                             block=block)
+        want = gram_rows_pair_ref(up(x), up(z), up(look), up(b), kind="matern32",
+                                  p_true=n - 5, precision=precision)
+        return torch.cat([g.flatten() for g in got]), torch.cat([w.flatten() for w in want])
+    u = _normal(3, n, s)
+    return (rff_t_matvec(x, z, u, precision=precision, block=block),
+            rff_t_matvec_ref(up(x), up(z), up(u), precision=precision))
+
+
+def _bf16_plain_bwd(op, n, m, d, s):
+    """The bf16 backward's plain version run in fp32 on ``_block_case``'s
+    inputs."""
+    x, z = _normal(1, n, d, scale=0.6), _normal(2, m, d, scale=0.6)
+    rowv, colv = _normal(3, n, s), _normal(4, m, s)
+    return gram_matvec_bwd_ref(x, z, rowv, colv, kind="matern32", precision="bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("block", [512, 256, 128])
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_every_candidate_block_matches_plain_on_card(card, case, block, precision):
+    got, want = _block_case(*case, block, precision)
+    err, scale = _max_err(got, want)
+    if precision == "fp32":
+        tol = {"rff_t": RFF_TOL, "bwd": GRAD_TOL}.get(case[0], GRAM_TOL)
+    elif case[0] == "bwd":  # the plain version's own fp32 error sets the floor
+        tol = _bf16_bwd_tol(_bf16_plain_bwd(*case), want)
+    else:
+        tol = BF16_TOL
+    assert err <= tol * scale, err
+    again, _ = _block_case(*case, block, precision)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_auto_block_is_its_pin_bit_for_bit_on_card(card, precision):
+    from repro_torch.kernels.autotune import resolve_block
+
+    params = make_params("matern32", lengthscale=1.3, signal=0.9, noise=0.1, d=9)
+    x, v = _normal(1, 5000, 9), _normal(2, 5000, 65)
+    omega = _normal(3, 100, 9, scale=0.8)
+    idx = torch.from_numpy(np.random.default_rng(4).integers(0, 5000, size=128)).cuda()
+    pin = {fam: resolve_block(fam, n, 9, precision=precision)
+           for fam, n in (("gram", 5000), ("rff", 5000))}
+    panel = resolve_block("gram", 128, 9, precision=precision)
+    pairs = [
+        (lambda b: ops.gram_mv(params, x, v, backend="cuda", block=b, precision=precision),
+         pin["gram"]),
+        (lambda b: ops.gram_rows_pair(params, x, idx, v, v[:128], backend="cuda", block=b,
+                                      precision=precision)[1], panel),
+        (lambda b: ops.rff_t_mv(x, omega, v, backend="cuda", block=b, precision=precision),
+         pin["rff"]),
+    ]
+    for fn, blk in pairs:
+        assert type(blk) is int
+        assert torch.equal(fn("auto"), fn(blk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,d,s,block", [(1000, 9, 17, None), (1024, 8, 16, 128),
+                                         (333, 128, 65, None)])
+def test_gram_signal_and_jitter_in_kernel_match_plain_on_card(card, kind, precision, n, d, s,
+                                                              block):
+    from repro_torch.kernels.gram_matvec import gram_matvec_scaled
+
+    # the jitter's rows across 8 column chunks at n = 1,024, block 128. The
+    # plain version runs in float64 at both precisions: its d² on the
+    # diagonal is then ~0, as the kernel's is exactly, where in fp32 a few
+    # ulp move Matérn-1/2's signal·k there across a bf16 rounding boundary
+    x, v = _normal(1, n, d, scale=1.8 / d ** 0.5), _normal(2, n, s)
+    before = (gram_matvec.launches, gram_matvec.bf16_launches)
+    out = gram_matvec_scaled(x, x, v, kind=kind, signal=1.7, jitter=0.3, precision=precision,
+                             block=block)
+    want = gram_matvec_ref(x.double(), x.double(), v.double(), kind=kind, precision=precision,
+                           signal=1.7, jitter=0.3)
+    after = (gram_matvec.launches, gram_matvec.bf16_launches)
+    assert after == (before[0] + (precision == "fp32"), before[1] + (precision == "bf16"))
+    err, scale = _max_err(out, want)
+    assert err <= (GRAM_TOL if precision == "fp32" else BF16_TOL) * scale
+    # the defaults give the unscaled kernel's bits; the cross operator takes
+    # a signal and refuses a jitter
+    assert torch.equal(gram_matvec_scaled(x, x, v, kind=kind, precision=precision),
+                       gram_matvec(x, x, v, kind=kind, precision=precision))
+    with pytest.raises(ValueError):
+        gram_matvec_scaled(x[:50], x, v, kind=kind, jitter=0.1)
